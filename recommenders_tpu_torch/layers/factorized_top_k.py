@@ -1,0 +1,540 @@
+"""Retrieval index layers: exact brute force and the bucketed serving index.
+
+Port of `recommenders_tpu/layers/factorized_top_k.py:53-305,512-802`
+(the `TopK` base, `BruteForce` and `Bucketed`), itself the rebuild of the
+reference's factorized top-K layers
+(`tensorflow_recommenders/layers/factorized_top_k.py:140,515`).
+`Streaming` and the `ScaNN` re-export are not ported yet.
+
+Identifiers may be integer tensors (kept on the index's device) or host
+string arrays: string-identified indexes run on row positions on the
+device and decode results back to strings on the host, so the returned
+ids are then a NumPy string array.
+
+Each index takes a `device` (default `"cuda"`); `index` moves the corpus
+there, and queries must live there too.
+"""
+
+from __future__ import annotations
+
+import abc
+from typing import Callable, Iterable, Optional, Tuple, Union
+
+import numpy as np
+import torch
+
+from recommenders_tpu_torch.ops import quantization
+from recommenders_tpu_torch.ops import scoring
+from recommenders_tpu_torch.ops import topk as topk_ops
+from recommenders_tpu_torch.utils import device as device_lib
+
+Tensor = torch.Tensor
+
+MIN_FLOAT = topk_ops.MIN_FLOAT
+
+# BruteForce pads its corpus to this row multiple.
+_PAD_MULTIPLE = 128
+
+
+def _is_string_array(identifiers) -> bool:
+    """True for host arrays/sequences of str/bytes identifiers."""
+    if identifiers is None or isinstance(identifiers, Tensor):
+        return False
+    return np.asarray(identifiers).dtype.kind in ("U", "S", "O")
+
+
+def _pad_identifier(strings: np.ndarray):
+    """The identifier a row outside the index decodes to: the empty value
+    of the table's dtype ("" for str, b"" for bytes, None for objects)."""
+    return None if strings.dtype.kind == "O" else strings.dtype.type()
+
+
+class TopK(abc.ABC):
+    """Interface for top-K retrieval layers.
+
+    `index` builds the index, calling the layer queries it,
+    `query_with_exclusions` over-fetches and masks, `is_exact` reports
+    whether scores are exact (reference contract,
+    tensorflow_recommenders/layers/factorized_top_k.py:140-301).
+
+    String identifiers stay on the host; the device index runs on row
+    positions and results decode back to the indexed strings. A row
+    outside `[0, num_rows)` (padding) decodes to `_pad_identifier`, never
+    to another row's string.
+    """
+
+    def __init__(
+        self, k: int = 10, device: Union[str, torch.device] = "cuda"
+    ) -> None:
+        self._k = k
+        self.device = device_lib.resolve(device)
+        self._id_strings: Optional[np.ndarray] = None
+        self._id_lookup = None
+        self._suppress_decode = False
+
+    # --- Host-side string identifier support ------------------------------
+
+    def _intern_identifiers(self, identifiers, num_rows: int):
+        """Stores string identifiers host-side; returns the identifier
+        tensor the device index should use (None → row positions)."""
+        self._id_lookup = None
+        if _is_string_array(identifiers):
+            arr = np.asarray(identifiers)
+            if arr.ndim != 1 or arr.shape[0] != num_rows:
+                raise ValueError(
+                    f"identifiers must be a [num_rows] vector; got shape "
+                    f"{arr.shape} for {num_rows} rows."
+                )
+            self._id_strings = arr
+            return None
+        self._id_strings = None
+        if identifiers is None:
+            return None
+        identifiers = torch.as_tensor(identifiers, device=self.device)
+        if identifiers.shape[0] != num_rows:
+            raise ValueError(
+                "The candidates and identifiers tensors must have the "
+                f"same number of rows (got {num_rows} and "
+                f"{identifiers.shape[0]})."
+            )
+        return identifiers
+
+    def _decode(self, scores, rows):
+        """Maps row-position results back to string identifiers (host).
+        Identity when the index was built with numeric (or no)
+        identifiers."""
+        if self._id_strings is None or self._suppress_decode:
+            return scores, rows
+        rows = rows.cpu().numpy() if isinstance(rows, Tensor) else rows
+        rows = np.asarray(rows)
+        strings = self._id_strings
+        inside = (rows >= 0) & (rows < strings.shape[0])
+        out = np.take(strings, np.where(inside, rows, 0), axis=0)
+        out[~inside] = _pad_identifier(strings)
+        return scores, out
+
+    def _encode_ids(self, ids) -> Tensor:
+        """String identifiers → row positions (-1 for unknown, which
+        matches no candidate row)."""
+        if self._id_lookup is None:
+            self._id_lookup = {
+                s: i for i, s in enumerate(self._id_strings.tolist())
+            }
+        table = self._id_lookup
+        ids = np.asarray(ids)
+        flat = np.asarray(
+            [table.get(s, -1) for s in ids.reshape(-1).tolist()],
+            dtype=np.int32,
+        )
+        return torch.as_tensor(flat.reshape(ids.shape), device=self.device)
+
+    @property
+    def k(self) -> int:
+        return self._k
+
+    @abc.abstractmethod
+    def index(
+        self,
+        candidates: Tensor,
+        identifiers: Optional[Tensor] = None,
+    ) -> "TopK":
+        """Builds (or rebuilds) the retrieval index. Returns self."""
+
+    def index_from_dataset(
+        self,
+        candidates: Iterable[Union[Tensor, Tuple[Tensor, Tensor]]],
+    ) -> "TopK":
+        """Builds the index from an iterable of embedding batches.
+
+        Batches may be plain embedding tensors or `(identifiers,
+        embeddings)` tuples, like the reference
+        (layers/factorized_top_k.py:179-215); everything is concatenated
+        and handed to `index`.
+        """
+        batches = list(candidates)
+        if not batches:
+            raise ValueError("The candidates iterable must not be empty.")
+        if isinstance(batches[0], tuple):
+            if any(not isinstance(b, tuple) or len(b) != 2 for b in batches):
+                raise ValueError(
+                    "The dataset must consistently yield candidate "
+                    "embeddings or (identifiers, embeddings) tuples."
+                )
+            id_batches = [i for i, _ in batches]
+            if any(_is_string_array(i) for i in id_batches):
+                identifiers = np.concatenate(
+                    [np.asarray(i) for i in id_batches], axis=0
+                )
+            else:
+                identifiers = torch.cat(
+                    [torch.as_tensor(i) for i in id_batches], dim=0
+                )
+            embeddings = torch.cat(
+                [torch.as_tensor(e) for _, e in batches], dim=0
+            )
+            return self.index(embeddings, identifiers)
+        embeddings = torch.cat([torch.as_tensor(b) for b in batches], dim=0)
+        return self.index(embeddings, None)
+
+    @abc.abstractmethod
+    def __call__(
+        self, queries, k: Optional[int] = None
+    ) -> Tuple[Tensor, Tensor]:
+        """Queries the index: returns `([q, k] scores, [q, k] ids)`."""
+
+    def query_with_exclusions(
+        self,
+        queries,
+        exclusions,
+        k: Optional[int] = None,
+    ) -> Tuple[Tensor, Tensor]:
+        """Queries the index, excluding the given identifiers per row.
+
+        Over-fetches `k + exclusions.shape[1]` candidates, then drops the
+        excluded ones (reference: layers/factorized_top_k.py:242-288).
+        String-identified indexes accept string exclusions, encoded to row
+        positions before the device mask.
+        """
+        string_exclusions = _is_string_array(exclusions)
+        if string_exclusions:
+            exclusions = np.asarray(exclusions)
+        k = k if k is not None else self._k
+        adjusted_k = k + exclusions.shape[1]
+        if self._id_strings is not None or string_exclusions:
+            self._suppress_decode = True
+            try:
+                scores, rows = self(queries, k=adjusted_k)
+            finally:
+                self._suppress_decode = False
+            if string_exclusions:
+                if self._id_strings is None:
+                    raise ValueError(
+                        "String exclusions require a string-identified "
+                        "index (none was built)."
+                    )
+                excl_rows = self._encode_ids(exclusions)
+            else:
+                excl_rows = torch.as_tensor(exclusions, device=rows.device)
+            return self._decode(
+                *topk_ops.exclude(scores, rows, excl_rows, k=k)
+            )
+        scores, ids = self(queries, k=adjusted_k)
+        exclusions = torch.as_tensor(exclusions, device=ids.device)
+        return topk_ops.exclude(scores, ids, exclusions, k=k)
+
+    @abc.abstractmethod
+    def is_exact(self) -> bool:
+        """Whether the returned scores/candidates are exact."""
+
+
+def _check_candidates(candidates, device: torch.device) -> Tensor:
+    candidates = torch.as_tensor(candidates, device=device)
+    if candidates.ndim != 2:
+        raise ValueError(
+            f"The candidates tensor must be 2D (got {tuple(candidates.shape)})."
+        )
+    return candidates
+
+
+class BruteForce(TopK):
+    """Exact brute-force retrieval with the corpus resident on the device.
+
+    One `[q, n]` matmul over the padded corpus, a mask of the padding rows
+    and `torch.topk` (reference: layers/factorized_top_k.py:515-610).
+
+    Attributes:
+      query_fn: Optional callable mapping raw query features to embeddings
+        (the reference's `query_model`).
+    """
+
+    def __init__(
+        self,
+        query_fn: Optional[Callable] = None,
+        k: int = 10,
+        device: Union[str, torch.device] = "cuda",
+    ) -> None:
+        super().__init__(k=k, device=device)
+        self.query_fn = query_fn
+        self._candidates: Optional[Tensor] = None
+        self._identifiers: Optional[Tensor] = None
+        self._valid: Optional[Tensor] = None
+        self._num_candidates = 0
+
+    def index(
+        self,
+        candidates: Tensor,
+        identifiers: Optional[Tensor] = None,
+    ) -> "BruteForce":
+        candidates = _check_candidates(candidates, self.device)
+        identifiers = self._intern_identifiers(
+            identifiers, candidates.shape[0]
+        )
+        self._num_candidates = candidates.shape[0]
+        self._candidates, self._identifiers, self._valid = (
+            topk_ops.pad_corpus(candidates, identifiers, _PAD_MULTIPLE)
+        )
+        return self
+
+    def __call__(
+        self, queries, k: Optional[int] = None
+    ) -> Tuple[Tensor, Tensor]:
+        k = k if k is not None else self._k
+        if self._candidates is None:
+            raise ValueError(
+                "The `index` method must be called first to "
+                "create the retrieval index."
+            )
+        if self.query_fn is not None:
+            queries = self.query_fn(queries)
+        k = min(k, self._num_candidates)
+        values, indices = scoring.exact_top_k(
+            queries, self._candidates, k, self._valid
+        )
+        return self._decode(values, self._identifiers[indices])
+
+    def is_exact(self) -> bool:
+        return True
+
+
+class Bucketed(TopK):
+    """High-throughput serving index on the bucketed scoring kernel.
+
+    Sweeps the stored corpus once per query batch with a per-bucket
+    running argmax (`ops.scoring.bucketed_top_k`, the CUDA kernel on a
+    CUDA device and its plain twin on the CPU); the `[q, corpus]` score
+    matrix never exists. Returned scores are exact dot products of the
+    stored corpus; recall < 1 only from top-k items colliding in one
+    bucket (≈ `1 − (k−1)/2·buckets`), so `is_exact() == False`.
+
+    Attributes:
+      query_fn: Optional query-embedding function.
+      buckets: Selection width (recall dial). Must divide `chunk`.
+      chunk: Row multiple the stored corpus is padded to.
+      query_tile: Query batches are padded to a multiple of
+        `min(query_tile, round_up(q, 8))`.
+      corpus_dtype: Optional storage dtype for the corpus
+        (`torch.bfloat16` halves its bytes); queries are cast to it.
+      quantize: `False`, `"int8"` (or `True`), or `"int4"`: store integer
+        codes with per-row f32 scales (`ops/quantization.py`). int4 packs
+        two codes per byte (`pack_nibbles`) and needs `buckets` to divide
+        `chunk/2`. Mutually exclusive with `corpus_dtype`.
+      anisotropic_quantization_threshold: Score-aware scale refinement
+        for quantized indexes; None uses abs-max scaling.
+    """
+
+    def __init__(
+        self,
+        query_fn: Optional[Callable] = None,
+        k: int = 10,
+        buckets: int = 2048,
+        chunk: int = 2048,
+        query_tile: int = 256,
+        corpus_dtype: Optional[torch.dtype] = None,
+        quantize=False,
+        anisotropic_quantization_threshold: Optional[float] = 0.2,
+        device: Union[str, torch.device] = "cuda",
+    ) -> None:
+        super().__init__(k=k, device=device)
+        quantize = {True: "int8", False: None}.get(quantize, quantize)
+        if quantize not in (None, "int8", "int4"):
+            raise ValueError(
+                f"quantize must be False, True, 'int8' or 'int4'; got "
+                f"{quantize!r}"
+            )
+        if quantize and corpus_dtype is not None:
+            raise ValueError(
+                "quantize stores integer codes; corpus_dtype must be None."
+            )
+        if quantize == "int4" and (chunk // 2) % buckets != 0:
+            raise ValueError(
+                f"quantize='int4' needs buckets ({buckets}) to divide "
+                f"chunk/2 ({chunk // 2})."
+            )
+        self.query_fn = query_fn
+        self._buckets = buckets
+        self._chunk = chunk
+        self._query_tile = query_tile
+        self._corpus_dtype = corpus_dtype
+        self._quantize = quantize
+        self._anisotropic_threshold = anisotropic_quantization_threshold
+        self._scales: Optional[Tensor] = None
+        self._candidates: Optional[Tensor] = None
+        self._identifiers: Optional[Tensor] = None
+        self._num_candidates = 0
+
+    def _check_dim(self, d: int) -> None:
+        if d % 128 != 0:
+            raise ValueError(
+                "Bucketed requires the embedding dim to be a multiple of "
+                f"128; got {d}. Pad the embeddings or use BruteForce."
+            )
+
+    def index(
+        self,
+        candidates: Tensor,
+        identifiers: Optional[Tensor] = None,
+    ) -> "Bucketed":
+        candidates = _check_candidates(candidates, self.device)
+        self._check_dim(candidates.shape[1])
+        self._num_candidates = candidates.shape[0]
+        identifiers = self._intern_identifiers(
+            identifiers, self._num_candidates
+        )
+        # Pad to the chunk grid at index time for every mode, so a query
+        # never copies the stored corpus; padding rows are masked by
+        # `valid_rows`. For int4 the nibble pairing (row c ↔ c + n/2) is
+        # over the padded n, so it is baked in here.
+        if self._quantize:
+            padded = scoring.pad_to_multiple(candidates, self._chunk)
+            bits = 4 if self._quantize == "int4" else 8
+            self._scales, codes = quantization.quantize_rows_device(
+                padded, self._anisotropic_threshold, bits=bits
+            )
+            if bits == 4:
+                codes = quantization.pack_nibbles(codes)
+            self._candidates = codes
+        else:
+            if self._corpus_dtype is not None:
+                candidates = candidates.to(self._corpus_dtype)
+            self._candidates = scoring.pad_to_multiple(
+                candidates, self._chunk
+            ).contiguous()
+            self._scales = None
+        self._identifiers = identifiers
+        return self
+
+    def index_streamed(
+        self,
+        batches,
+        num_rows: int,
+        identifiers: Optional[Tensor] = None,
+    ) -> "Bucketed":
+        """Builds the index from row batches without ever holding the
+        full-precision corpus on the device.
+
+        Each batch is cast or quantized on the device and written into the
+        preallocated storage in place, so peak device memory is the
+        stored corpus plus one batch.
+
+        Args:
+          batches: Iterable (or zero-arg callable returning one) of
+            `[b, D]` row blocks, in corpus order.
+          num_rows: Total corpus rows (must match the sum of batches).
+          identifiers: Optional `[num_rows]` identifier array.
+        """
+        it = iter(batches() if callable(batches) else batches)
+        identifiers = self._intern_identifiers(identifiers, num_rows)
+        packed4 = self._quantize == "int4"
+        stored_n = scoring._round_up(num_rows, self._chunk)
+        half = stored_n // 2
+        buf = scales = None
+        off = 0
+        for batch in it:
+            batch = torch.as_tensor(batch, device=self.device)
+            if batch.ndim != 2:
+                raise ValueError(
+                    f"Batches must be 2D row blocks (got {tuple(batch.shape)})."
+                )
+            b, d = batch.shape
+            if buf is None:
+                self._check_dim(d)
+                if self._quantize:
+                    code_rows = half if packed4 else stored_n
+                    buf = torch.zeros(
+                        (code_rows, d), dtype=torch.int8, device=self.device
+                    )
+                    scales = torch.zeros(
+                        (stored_n,), dtype=torch.float32, device=self.device
+                    )
+                else:
+                    dtype = self._corpus_dtype or torch.float32
+                    buf = torch.zeros(
+                        (stored_n, d), dtype=dtype, device=self.device
+                    )
+            if off + b > num_rows:
+                raise ValueError(
+                    f"Batches supply more than num_rows={num_rows} rows."
+                )
+            if self._quantize:
+                s, codes = quantization.quantize_rows_device(
+                    batch, self._anisotropic_threshold,
+                    bits=4 if packed4 else 8,
+                )
+                scales[off:off + b] = s
+                if packed4:
+                    # Row r lands in packed row r % half: the low nibble
+                    # for r < half, the high one otherwise. A batch that
+                    # straddles `half` splits; each (row, nibble) is
+                    # written once into the zeroed buffer.
+                    cut = min(max(half - off, 0), b)
+                    if cut:
+                        _or_nibble_(buf, codes[:cut], off, high=False)
+                    if b - cut:
+                        _or_nibble_(
+                            buf, codes[cut:], off + cut - half, high=True
+                        )
+                else:
+                    buf[off:off + b] = codes
+            else:
+                buf[off:off + b] = batch.to(buf.dtype)
+            off += b
+        if buf is None:
+            raise ValueError("The batches iterable must not be empty.")
+        if off != num_rows:
+            raise ValueError(
+                f"Batches supplied {off} rows, expected num_rows="
+                f"{num_rows}."
+            )
+        self._num_candidates = num_rows
+        self._candidates = buf
+        self._scales = scales
+        self._identifiers = identifiers
+        return self
+
+    def __call__(
+        self, queries, k: Optional[int] = None
+    ) -> Tuple[Tensor, Tensor]:
+        k = k if k is not None else self._k
+        if self._candidates is None:
+            raise ValueError(
+                "The `index` method must be called first to "
+                "create the retrieval index."
+            )
+        if self.query_fn is not None:
+            queries = self.query_fn(queries)
+        k = min(k, self._num_candidates)
+        if not self._quantize:
+            # The stored dtype (corpus_dtype, else f32): bf16 indexes score
+            # bf16 queries; an f32 index takes any query exactly in f32.
+            queries = queries.to(self._candidates.dtype)
+        scores, rows = scoring.bucketed_top_k(
+            queries,
+            self._candidates,
+            k,
+            buckets=self._buckets,
+            chunk=self._chunk,
+            query_tile=self._query_tile,
+            scales=self._scales,
+            packed4=self._quantize == "int4",
+            valid_rows=self._num_candidates,
+        )
+        if self._identifiers is not None:
+            return scores, self._identifiers[rows.long()]
+        return self._decode(scores, rows)
+
+    def is_exact(self) -> bool:
+        return False
+
+
+def _or_nibble_(buf: Tensor, codes: Tensor, off: int, high: bool) -> None:
+    """ORs int4 `codes` into rows `off:` of `buf`, as the high or low
+    nibble (`pack_nibbles` byte layout), in place. Each (row, nibble) must
+    be written at most once over a zero buffer."""
+    rows = slice(off, off + codes.shape[0])
+    cur = buf[rows].to(torch.int32)
+    new = codes.to(torch.int32)
+    if high:
+        merged = (cur & 255) | (new << 4)
+    else:
+        merged = cur | (new & 15)
+    buf[rows] = merged.to(torch.int8)

@@ -33,6 +33,11 @@ def pytest_configure(config):
         "tpu: needs the real TPU chip (runs subprocesses that claim it); "
         "skipped unless RTPU_TPU_TESTS=1",
     )
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs an NVIDIA GPU; skips when torch.cuda.is_available() "
+        "is false",
+    )
 
 
 def pytest_collection_modifyitems(config, items):

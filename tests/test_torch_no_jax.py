@@ -1,0 +1,45 @@
+"""The port stands alone: no file of `recommenders_tpu_torch/` nor
+`chip_smoke.py` imports JAX, flax or the JAX package (not even its
+modules that do not import JAX). Checked statically, on the parsed
+imports of every file."""
+
+import ast
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parents[1]
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "recommenders_tpu")
+FILES = sorted((ROOT / "recommenders_tpu_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py"
+]
+
+
+def _imported_modules(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (alias.name for alias in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+@pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_imports(path):
+    bad = [
+        m for m in _imported_modules(path)
+        if m.split(".")[0] in FORBIDDEN
+    ]
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_every_package_file_is_checked():
+    names = {p.relative_to(ROOT).as_posix() for p in FILES}
+    for module in (
+        "ops/topk.py", "ops/quantization.py", "ops/scoring.py",
+        "utils/activations.py", "layers/blocks.py",
+        "layers/factorized_top_k.py", "models/retrieval.py",
+        "utils/convert.py",
+    ):
+        assert f"recommenders_tpu_torch/{module}" in names
+    assert "chip_smoke.py" in names
