@@ -1,16 +1,17 @@
 #!/usr/bin/env python3
-"""Runs the PyTorch port's retrieval-serving slice on one NVIDIA GPU and
-checks it.
+"""Runs the PyTorch port's retrieval serving and training slices on one
+NVIDIA GPU and checks them.
 
     python3 chip_smoke.py [--seed 0] [--requests 3]
 
-The model is one two-tower retrieval model at full width: a query tower
-of 65,536 users (embedding 128, MLP (256, 128)) and a candidate tower of
+Serving: one two-tower retrieval model at full width, a query tower of
+65,536 users (embedding 128, MLP (256, 128)) and a candidate tower of
 1,000,000 items (embedding 128). Its weights are random, drawn with NumPy
 from `--seed` in the flax layout and loaded through `utils.convert`.
 Phases, each fatal when it fails:
 
-  1. build every CUDA kernel of the port (`ops/cuda_build.py`);
+  1. build every CUDA kernel of the port (`ops/cuda_build.py`), one
+     `nvcc` a source, all at once;
   2. build the towers;
   3. embed the corpus;
   4. index it five ways (BruteForce, and Bucketed f32, bf16, int8, int4);
@@ -24,6 +25,28 @@ Phases, each fatal when it fails:
      PyTorch twin at the served shapes, and time the kernel, the twin and
      the library call that serves the same request exactly;
   8. hold recall@100 of the f32 and bf16 indexes against BruteForce.
+
+Training: `bench.py`'s step at its full width. An embedding engine with
+tables `user` 65,536 × 64 and `item` 131,072 × 64, bf16 tables and bf16
+adagrad slots (lr 0.1) written with stochastic rounding, unstacked, and
+`Retrieval(score_dtype=bf16)` over batches of 4,096 uniform (user, item)
+ids drawn with NumPy from `--seed`. The initial state is drawn with NumPy
+in the logical layout and loaded through `utils.convert`. Phases, each
+fatal when it fails:
+
+  9. train: 20 pipelined steps + `flush` with the unfused task,
+     then as many with `fused=True`; the launch counts of K1
+     (`csrc/sparse_apply.cu`) and K2 (`csrc/fused_retrieval.cu`) are
+     zeroed just before and read just after, and every kernel must have
+     launched; the losses must be finite;
+ 10. step parity: 3 plain steps from one copied state, on the card and on
+     the CPU (where the kernels' plain twins run), unfused and fused;
+     the same check must reject faults planted on the CPU side (another
+     stochastic-rounding stream, a learning rate 1 % high);
+ 11. hold K1 (all five rules, f32 states and bf16 states with stochastic
+     rounding) and K2 (forward, dq, dc; f32 and bf16 scores) against
+     their plain twins at the step's shapes, and time them;
+ 12. time the four step forms (plain and pipelined, unfused and fused).
 
 It prints the card's name and power limit, one `{"kernels": [...]}` line
 and, last, `{"ok": true, "device": {...}}`. Without CUDA, or run outside
@@ -45,11 +68,17 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 
+from recommenders_tpu_torch import tasks  # noqa: E402
+from recommenders_tpu_torch.embedding import config as emb_config  # noqa: E402
+from recommenders_tpu_torch.embedding import engine as emb_engine  # noqa: E402
+from recommenders_tpu_torch.embedding import sparse_optimizer  # noqa: E402
 from recommenders_tpu_torch.layers import factorized_top_k  # noqa: E402
 from recommenders_tpu_torch.models import retrieval  # noqa: E402
 from recommenders_tpu_torch.ops import cuda_build  # noqa: E402
+from recommenders_tpu_torch.ops import fused_retrieval  # noqa: E402
 from recommenders_tpu_torch.ops import quantization  # noqa: E402
 from recommenders_tpu_torch.ops import scoring  # noqa: E402
+from recommenders_tpu_torch.ops import sparse_apply  # noqa: E402
 from recommenders_tpu_torch.utils import convert  # noqa: E402
 
 DIM = 128
@@ -122,6 +151,22 @@ def device_ms(fn, device: torch.device, iters: int) -> float:
     end.record()
     torch.cuda.synchronize(device)
     return start.elapsed_time(end) / iters
+
+
+def graph_ms(fn, device: torch.device, launches: int = 20,
+             replays: int = 5) -> float:
+    """Device time of one `fn()` call: `launches` calls captured in one
+    CUDA graph, replayed `replays` times between CUDA events, so the
+    host's launch overhead drops out. Off the card, `device_ms`."""
+    if device.type != "cuda":
+        return device_ms(fn, device, iters=launches)
+    fn()
+    torch.cuda.synchronize(device)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(launches):
+            fn()
+    return device_ms(graph.replay, device, iters=replays) / launches
 
 
 def phase(name: str, started: float, detail: str = "") -> None:
@@ -502,6 +547,535 @@ def library_time(index, queries: torch.Tensor, device: torch.device) -> float:
     return device_ms(call, device, iters=5)
 
 
+# --- Training: the `bench.py` step -----------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class TrainSize:
+    users: int = 65_536      # bench.py:67
+    items: int = 131_072     # bench.py:68
+    dim: int = 64            # bench.py:66
+    batch: int = 4096        # bench.py:65
+    steps: int = 20          # pipelined steps per task form (main path)
+    timed_steps: int = 30    # steps per step form in the timing phase
+    parity_steps: int = 3
+
+
+TRAIN_LR = 0.1
+KINDS = ("sgd", "adagrad", "rowwise_adagrad", "adam", "ftrl")
+K1_SOURCE = "recommenders_tpu_torch/csrc/sparse_apply.cu"
+K1_REPLACES = "recommenders_tpu/ops/sparse_apply.py:134"
+K2_SOURCE = "recommenders_tpu_torch/csrc/fused_retrieval.cu"
+K2_REPLACES = {
+    "fwd": "recommenders_tpu/ops/fused_retrieval.py:97",
+    "dq": "recommenders_tpu/ops/fused_retrieval.py:130",
+    "dc": "recommenders_tpu/ops/fused_retrieval.py:160",
+}
+# Step parity, card against the CPU's twins over 3 steps, taken over the
+# rows either side changed. Losses to rtol 1e-4 (f32 sums of 16.8M scores
+# in another order). State within 2 bf16 ulps of the largest of the
+# value, the value before and the largest change in its row: an
+# activation grad that rounds to bf16 one ulp apart changes its row's
+# update by an ulp of the row's grads, which stochastic rounding may
+# carry one ulp further. And a least bit-equal share, lower fused, where
+# the kernel rounds its backward's probability coefficients to bf16 (as
+# the TPU kernel does) and the twin keeps them f32, so more activation
+# grads round apart. On the H100 at seed 0 the card read 2 ulps and
+# 0.99998 (unfused) / 0.983 (fused) bit-equal, the planted faults below
+# 3-4 ulps and 0.45-0.66; each share limit sits near the geometric mean of
+# the differing shares on either side (PERF.md, section 6).
+PARITY_ULPS = 2.0
+PARITY_SHARE = {False: 0.997, True: 0.92}
+# Faults planted on the CPU side, each of which the limits must reject:
+# (label, shift of the step counter, learning rate). A shifted step draws
+# the stochastic rounding bits of another step.
+PARITY_FAULTS = (("SR stream of the next step", 1, TRAIN_LR),
+                 ("lr 1 % high", 0, TRAIN_LR * 1.01))
+
+
+def parity_holds(fused: bool, ulps: float, share: float) -> bool:
+    return ulps <= PARITY_ULPS and share >= PARITY_SHARE[fused]
+
+
+# The K2 check's knobs: every one the fused loss takes.
+K2_TEMPERATURE = 0.2
+K2_ID_RANGE = 1024
+
+
+def reset_train_counts() -> None:
+    sparse_apply.sorted_block_apply.launches = 0
+    fused_retrieval.fused_retrieval_loss.launches = 0
+    for name in fused_retrieval.fused_retrieval_loss.launches_by_kernel:
+        fused_retrieval.fused_retrieval_loss.launches_by_kernel[name] = 0
+
+
+def train_engine(size: TrainSize, device,
+                 lr: float = TRAIN_LR) -> emb_engine.EmbeddingEngine:
+    """`bench.py`'s engine: two unstacked bf16 tables, bf16 adagrad slots
+    written with stochastic rounding."""
+    return emb_engine.EmbeddingEngine(
+        (
+            emb_config.FeatureConfig(
+                emb_config.TableConfig(size.users, size.dim, name="user"),
+                name="user_id"),
+            emb_config.FeatureConfig(
+                emb_config.TableConfig(size.items, size.dim, name="item"),
+                name="item_id"),
+        ),
+        optimizer=emb_config.OptimizerSpec(kind="adagrad", learning_rate=lr),
+        dtype=torch.bfloat16, slot_dtype=torch.bfloat16, device=device,
+    )
+
+
+def logical_state(size: TrainSize, seed: int) -> dict:
+    """A random initial state in the engine's logical layout, from NumPy:
+    tables normal cut at ±2, over sqrt(dim); accumulators at adagrad's
+    initial value 0.1."""
+    rng = np.random.default_rng(seed + 2)
+    tables, slots = {}, {}
+    for name, rows in (("user", size.users), ("item", size.items)):
+        x = rng.standard_normal((rows, size.dim), dtype=np.float32)
+        tables[name] = np.clip(x, -2, 2) * np.float32(size.dim ** -0.5)
+        slots[name] = {"accumulator": np.full((rows, size.dim), 0.1,
+                                              np.float32)}
+    return {"tables": tables, "slots": slots, "step": 0}
+
+
+def train_batches(size: TrainSize, seed: int, count: int, device) -> list:
+    """`count` batches of uniform (user, item) ids, as `bench.py:139-148`
+    draws them (NumPy `RandomState.randint`), moved to `device`."""
+    rng = np.random.RandomState(seed)
+    return [
+        {"user_id": torch.from_numpy(rng.randint(
+            0, size.users, size.batch).astype(np.int32)).to(device),
+         "item_id": torch.from_numpy(rng.randint(
+             0, size.items, size.batch).astype(np.int32)).to(device)}
+        for _ in range(count)
+    ]
+
+
+def train_loss(fused: bool):
+    task = tasks.Retrieval(score_dtype=torch.bfloat16, fused=fused)
+    return lambda acts: task(acts["user_id"], acts["item_id"]).loss
+
+
+def run_steps(engine, state, batches, fused: bool, pipelined: bool):
+    """Runs one step per batch (and the final `flush`); returns the new
+    state and the losses (device tensors)."""
+    loss_fn = train_loss(fused)
+    losses, pending = [], None
+    for batch in batches:
+        if pipelined:
+            state, pending, loss, _ = engine.pipelined_grad_and_update(
+                state, pending, batch, loss_fn)
+        else:
+            state, loss, _ = engine.grad_and_update(state, batch, loss_fn)
+        losses.append(loss)
+    if pipelined:
+        state = engine.flush(state, pending)
+    return state, losses
+
+
+def clone_state(state, device=None) -> emb_engine.EngineState:
+    return emb_engine.EngineState(
+        tables={k: v.to(device).clone() for k, v in state.tables.items()},
+        slots={k: {s: t.to(device).clone() for s, t in v.items()}
+               for k, v in state.slots.items()},
+        step=state.step,
+    )
+
+
+def ulp_report(got: torch.Tensor, want: torch.Tensor, before=None,
+               row_scale: bool = False):
+    """(max |got − want|, largest distance in ulps of the largest of the
+    two values, the value before the update and the update itself (with
+    `row_scale`, the largest update in the element's row), share
+    bit-equal); ulps of got's dtype."""
+    g, w = got.float(), want.float()
+    scale = torch.maximum(g.abs(), w.abs())
+    if before is not None:
+        b = before.float()
+        change = (w - b).abs()
+        if row_scale:
+            change = change.amax(dim=1, keepdim=True).expand_as(change)
+        scale = torch.maximum(scale, torch.maximum(b.abs(), change))
+    mant = 7 if got.dtype == torch.bfloat16 else 23
+    exp = torch.floor(torch.log2(scale.clamp(min=2.0**-126)))
+    ulp = torch.pow(2.0, exp - mant)
+    diff = (g - w).abs()
+    return (float(diff.max()), float((diff / ulp).max()),
+            float((g == w).float().mean()))
+
+
+def state_parity(got, want, start):
+    """(largest distance in ulps at its row's scale, least bit-equal share)
+    over every state plane of two engine states that began at `start`.
+    Both are taken over the rows that either side changed: rows no step
+    touched are equal by construction and would dilute the share."""
+    worst = (0.0, 1.0)
+    for name in got.tables:
+        pairs = [(got.tables[name], want.tables[name], start.tables[name])]
+        pairs += [(got.slots[name][k], want.slots[name][k],
+                   start.slots[name][k]) for k in got.slots[name]]
+        for g, w, b in pairs:
+            g, w, b = g.cpu(), w.cpu(), b.cpu()
+            changed = ((g != b) | (w != b)).any(dim=1)
+            if bool(changed.any()):
+                _, ulps, eq = ulp_report(g[changed], w[changed], b[changed],
+                                         row_scale=True)
+                worst = (max(worst[0], ulps), min(worst[1], eq))
+    return worst
+
+
+def k1_problem(rule_kind, dtype, v, d, n, device, seed):
+    """States, sorted ids (duplicates and padding) and grads for one K1
+    check, drawn on the device from `seed`."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    table = torch.randn(v, d, device=device, generator=gen)
+    widths = {"sgd": [], "adagrad": [d], "rowwise_adagrad": [1],
+              "adam": [d, d], "ftrl": [d, d]}[rule_kind]
+    slots = [torch.rand(v, w, device=device, generator=gen) * 2 + 0.05
+             for w in widths]
+    if rule_kind == "ftrl":
+        slots[1] = torch.randn(v, d, device=device, generator=gen)
+    states = [table] + slots
+    states = [s.to(dtype).contiguous() for s in states]
+    ids = torch.randint(0, v, (n,), device=device, generator=gen)
+    dup = torch.randint(0, n, (n // 4,), device=device, generator=gen)
+    ids[: n // 4] = ids[dup]
+    ids[-8:] = v                                   # padding
+    ids = torch.sort(ids, stable=True).values.to(torch.int32)
+    grads = torch.randn(n, d, device=device, generator=gen)
+    return states, ids, grads
+
+
+def k1_bound_ms(states, ids) -> float:
+    """Bytes K1 must move: every touched row of every state read and
+    written once, the grads and ids read once."""
+    v = states[0].shape[0]
+    touched = int(torch.unique(ids[ids < v]).numel())
+    row_bytes = sum(s.shape[1] * s.element_size() for s in states)
+    n, d = ids.shape[0], states[0].shape[1]
+    total = 2 * touched * row_bytes + n * d * 4 + n * 4
+    return total / HBM_BYTES_PER_S * 1e3
+
+
+def check_k1(size: TrainSize, device, launches: int, seed: int) -> dict:
+    """K1 against its twin for every rule, f32 and bf16 + SR states, at
+    V = items, D = dim, n = batch; the report row is the main path's
+    rule (adagrad, bf16 + SR)."""
+    v, d, n = size.items, size.dim, size.batch
+    row = None
+    for kind in KINDS:
+        spec = emb_config.OptimizerSpec(kind=kind, learning_rate=0.05)
+        _, scalars, rule, _ = sparse_optimizer._kernel_rule(spec, 7)
+        for dtype, sr_seed in ((torch.float32, None),
+                               (torch.bfloat16, 123457)):
+            states, ids, grads = k1_problem(kind, dtype, v, d, n, device,
+                                            seed)
+            got = [s.clone() for s in states]
+            want = [s.clone() for s in states]
+            sparse_apply.sorted_block_apply(
+                got, ids, grads, rule, scalars=scalars,
+                stochastic_round_seed=sr_seed)
+            sparse_apply.sorted_block_apply_reference(
+                want, ids, grads, rule, scalars=scalars,
+                stochastic_round_seed=sr_seed)
+            sync(device)
+            # Tolerance: 2 ulps of the largest of the result, the value
+            # before and the update (f32), 1 ulp (bf16). The kernel takes
+            # the twin's IEEE operations in its order; only rowwise
+            # adagrad's row mean (a warp tree sum) and ftrl's pow may
+            # round differently.
+            max_ulp = 1 if dtype == torch.bfloat16 else 2
+            worst_err, worst_ulp, equal = 0.0, 0.0, 1.0
+            for g, w, b in zip(got, want, states):
+                err, ulps, eq = ulp_report(g, w, b)
+                worst_err = max(worst_err, err)
+                worst_ulp = max(worst_ulp, ulps)
+                equal = min(equal, eq)
+            label = f"{kind} {'bf16+SR' if sr_seed else 'f32'}"
+            check(worst_ulp <= max_ulp,
+                  f"K1 {label}: {worst_ulp} ulps from its twin")
+            print(f"  K1 {label}: max |err| {worst_err:.3g}, "
+                  f"{worst_ulp:.2f} ulp, bit-equal share {equal:.6f}")
+            if kind == "adagrad" and sr_seed is not None:
+                on_device = scalars.to(device)
+
+                def kernel():
+                    sparse_apply.sorted_block_apply(
+                        got, ids, grads, rule, scalars=on_device,
+                        stochastic_round_seed=sr_seed)
+
+                def twin():
+                    sparse_apply.sorted_block_apply_reference(
+                        want, ids, grads, rule, scalars=scalars,
+                        stochastic_round_seed=sr_seed)
+
+                row = {
+                    "name": "sorted_block_apply[adagrad bf16+SR]",
+                    "route": "cuda",
+                    "source": K1_SOURCE,
+                    "replaces": K1_REPLACES,
+                    "launches": launches,
+                    "max_abs_err": worst_err,
+                    "ms": graph_ms(kernel, device),
+                    "call_ms": device_ms(kernel, device, iters=50),
+                    "plain_ms": device_ms(twin, device, iters=5),
+                    "bound_ms": k1_bound_ms(states, ids),
+                    "bound_by": "bytes",
+                    # No single PyTorch call computes this function.
+                    "library_ms": None,
+                    "shape": f"V={v} D={d} n={n} bf16 table + bf16 slot",
+                }
+                print(f"  K1 timing: kernel {row['ms']:.4f} ms (graph "
+                      f"replay), {row['call_ms']:.4f} ms a wrapper call, "
+                      f"twin {row['plain_ms']:.3f} ms, bound "
+                      f"{row['bound_ms']:.4f} ms", flush=True)
+    return row
+
+
+def k2_inputs(size: TrainSize, device, seed):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    b = c = size.batch
+    std = size.dim ** -0.25        # scores of standard deviation ~1
+    q = torch.randn(b, size.dim, device=device, generator=gen) * std
+    cand = torch.randn(c, size.dim, device=device, generator=gen) * std
+    ids = torch.randint(0, K2_ID_RANGE, (c,), device=device, generator=gen)
+    probs = torch.rand(c, device=device, generator=gen) * 0.99 + 0.01
+    w = torch.rand(b, device=device, generator=gen) * 1.9 + 0.1
+    return q, cand, dict(sample_weight=w,
+                         candidate_sampling_probability=probs,
+                         candidate_ids=ids)
+
+
+def value_and_grads(fn, q, cand, kwargs):
+    q = q.detach().clone().requires_grad_(True)
+    cand = cand.detach().clone().requires_grad_(True)
+    loss = fn(q, cand, **kwargs)
+    loss.backward()
+    return loss.detach(), q.grad, cand.grad
+
+
+def check_k2(size: TrainSize, device, launches: dict, seed: int) -> list:
+    """K2 (forward, dq, dc) against its twin with temperature, log-q,
+    accidental hits and weights, f32 and bf16 scores, at B = C = batch;
+    the report rows are for bf16 scores, the main path's."""
+    q, cand, kw = k2_inputs(size, device, seed)
+    b, d = q.shape
+    rows = []
+    for score_dtype in (torch.float32, torch.bfloat16):
+        fkw = dict(kw, temperature=K2_TEMPERATURE,
+                   remove_accidental_hits=True, score_dtype=score_dtype)
+        loss, dq, dc = value_and_grads(
+            fused_retrieval.fused_retrieval_loss, q, cand, fkw)
+        tloss, tdq, tdc = value_and_grads(
+            fused_retrieval.fused_retrieval_loss_reference, q, cand, fkw)
+        sync(device)
+        # Tolerance. f32 scores: the loss to rtol 1e-5, the grads (sums
+        # of C terms in another order) to 1e-4 of their largest
+        # magnitude. bf16 scores: the kernel rounds the backward's
+        # probability coefficients to bf16 before each product, as the
+        # TPU kernel does, where the twin's autograd keeps them f32:
+        # grads to 2e-2 relative plus 2e-3 of their largest magnitude.
+        bf16 = score_dtype == torch.bfloat16
+        loss_err = float((loss - tloss).abs())
+        check(loss_err <= 1e-5 * float(tloss.abs()),
+              f"K2 {score_dtype}: loss {float(loss)} vs twin {float(tloss)}")
+        errs = {}
+        for name, g, t in (("dq", dq, tdq), ("dc", dc, tdc)):
+            scale = float(t.abs().max())
+            err = (g - t).abs()
+            tol = ((2e-2 * t.abs() + 2e-3 * scale) if bf16
+                   else (1e-5 * t.abs() + 1e-4 * scale))
+            check(bool((err <= tol).all()),
+                  f"K2 {score_dtype} {name}: max |err| {float(err.max())}")
+            errs[name] = float(err.max())
+        print(f"  K2 {'bf16' if bf16 else 'f32'} scores: loss "
+              f"{float(loss):.6f} vs twin {float(tloss):.6f}, max |err| "
+              f"dq {errs['dq']:.3g}, dc {errs['dc']:.3g}")
+        if not bf16:
+            continue
+        # Times, at the main path's bf16 scores.
+        config = (1.0 / K2_TEMPERATURE, True)
+        q32, c32 = q.float().contiguous(), cand.float().contiguous()
+        logq = torch.log(torch.clamp(kw["candidate_sampling_probability"],
+                                     1e-6, 1.0)).float().contiguous()
+        ids32 = kw["candidate_ids"].to(torch.int32).contiguous()
+        w = kw["sample_weight"].float().contiguous()
+        task = tasks.Retrieval(temperature=K2_TEMPERATURE,
+                               remove_accidental_hits=True,
+                               score_dtype=torch.bfloat16)
+        no_grad_twin = lambda: fused_retrieval.fused_retrieval_loss_reference(
+            q, cand, **fkw)
+        grad_twin = lambda: value_and_grads(
+            fused_retrieval.fused_retrieval_loss_reference, q, cand, fkw)
+        library_value = lambda: task(q, cand, **kw).loss
+        library_grads = lambda: value_and_grads(
+            lambda a, c_, **k: task(a, c_, **k).loss, q, cand, kw)
+        if device.type == "cuda":
+            lse, _ = fused_retrieval.forward_kernel(q32, c32, logq, ids32,
+                                                    config)
+            kernels = {
+                "fwd": lambda: fused_retrieval.forward_kernel(
+                    q32, c32, logq, ids32, config),
+                "dq": lambda: fused_retrieval.backward_kernel(
+                    "dq", q32, c32, logq, ids32, w, lse, config),
+                "dc": lambda: fused_retrieval.backward_kernel(
+                    "dc", q32, c32, logq, ids32, w, lse, config),
+            }
+        else:   # The CPU rehearsal has no kernel; its twin stands in.
+            kernels = {"fwd": no_grad_twin, "dq": grad_twin,
+                       "dc": grad_twin}
+        with torch.no_grad():
+            plain_fwd = device_ms(no_grad_twin, device, iters=3)
+            lib_fwd = device_ms(library_value, device, iters=3)
+        plain_grad = device_ms(grad_twin, device, iters=3)
+        lib_grad = device_ms(library_grads, device, iters=3)
+        # Model work: one [B, C, D] product per kernel, against the bf16
+        # peak (the backward's recomputed scores are not counted); bytes:
+        # q, c, the [C] vectors and the outputs once each.
+        ops_ms = 2.0 * b * cand.shape[0] * d / PEAK_OPS_PER_S["bf16"] * 1e3
+        vec = cand.shape[0] * 8 + b * 8
+        out_bytes = {"fwd": b * 8, "dq": b * d * 4,
+                     "dc": cand.shape[0] * d * 4}
+        for name in ("fwd", "dq", "dc"):
+            bytes_ms = ((q32.nbytes + c32.nbytes + vec + out_bytes[name])
+                        / HBM_BYTES_PER_S * 1e3)
+            ms = graph_ms(kernels[name], device)
+            rows.append({
+                "name": f"fused_retrieval_{name}[bf16 scores]",
+                "route": "cuda",
+                "source": K2_SOURCE,
+                "replaces": K2_REPLACES[name],
+                "launches": launches[name],
+                "max_abs_err": loss_err if name == "fwd" else errs[name],
+                "ms": ms,
+                "plain_ms": plain_fwd if name == "fwd" else plain_grad,
+                "bound_ms": max(ops_ms, bytes_ms),
+                "bound_by": "operations" if ops_ms > bytes_ms else "bytes",
+                "library_ms": lib_fwd if name == "fwd" else lib_grad,
+                "call_ms": device_ms(kernels[name], device, iters=20),
+                "shape": f"B=C={b} D={d}",
+            })
+            print(f"  K2 {name}: kernel {ms:.3f} ms (graph replay), "
+                  f"{rows[-1]['call_ms']:.3f} ms a call, twin "
+                  f"{rows[-1]['plain_ms']:.3f} ms, library "
+                  f"{rows[-1]['library_ms']:.3f} ms, bound "
+                  f"{rows[-1]['bound_ms']:.4f} ms", flush=True)
+    return rows
+
+
+def train(device: torch.device, size: TrainSize, seed: int) -> list:
+    """Drives the training slice on `device`; returns K1's and K2's
+    report rows."""
+    engine = train_engine(size, device)
+    initial = logical_state(size, seed)
+    batches = train_batches(size, seed, 2 * size.steps, device)
+
+    # 9. Train: the main path, pipelined, unfused then fused.
+    started = time.perf_counter()
+    state = convert.engine_state_from_logical(engine, initial)
+    sync(device)
+    reset_train_counts()
+    losses = {}
+    for fused, part in ((False, batches[:size.steps]),
+                        (True, batches[size.steps:])):
+        state, got = run_steps(engine, state, part, fused, pipelined=True)
+        losses[fused] = torch.stack(got).float().cpu()
+    sync(device)
+    k1_launches = sparse_apply.sorted_block_apply.launches
+    k2_launches = dict(fused_retrieval.fused_retrieval_loss.launches_by_kernel)
+    phase("train", started,
+          f"K1 launches {k1_launches}, K2 launches {k2_launches}")
+    for fused, vals in losses.items():
+        check(bool(torch.isfinite(vals).all()),
+              f"non-finite training loss (fused={fused})")
+        print(f"  losses {'fused' if fused else 'unfused'}: first "
+              f"{float(vals[0]):.4f}, last {float(vals[-1]):.4f}")
+    check(state.step == 2 * size.steps, f"engine step {state.step}")
+    if device.type == "cuda":
+        check(k1_launches == 2 * 2 * size.steps,
+              f"{k1_launches} K1 launches, expected one a table an update")
+        for name, count in k2_launches.items():
+            check(count == size.steps,
+                  f"{count} K2 {name} launches, expected one a fused step")
+
+    # 10. Step parity: the card against the CPU's twins, and the same
+    # check against planted faults on the CPU side, which it must reject.
+    started = time.perf_counter()
+    cpu_engines = {lr: train_engine(size, "cpu", lr)
+                   for lr in {TRAIN_LR} | {f[2] for f in PARITY_FAULTS}}
+    start = clone_state(state)
+    parity = train_batches(size, seed + 3, size.parity_steps, device)
+    cpu_batches = [{k: v.cpu() for k, v in b.items()} for b in parity]
+
+    def host_run(fused, step_shift=0, lr=TRAIN_LR):
+        begin = clone_state(start, "cpu")
+        begin.step += step_shift
+        return run_steps(cpu_engines[lr], begin, cpu_batches, fused,
+                         pipelined=False)
+
+    for fused in (False, True):
+        form = "fused" if fused else "unfused"
+        card, card_losses = run_steps(engine, clone_state(start), parity,
+                                      fused, pipelined=False)
+        host, host_losses = host_run(fused)
+        card_l = torch.stack(card_losses).float().cpu()
+        host_l = torch.stack(host_losses).float()
+        readings = {"card": state_parity(card, host, start)}
+        for label, step_shift, lr in PARITY_FAULTS:
+            readings[label] = state_parity(host_run(fused, step_shift, lr)[0],
+                                           host, start)
+        print(f"  parity {form}: losses "
+              f"{[round(x, 4) for x in card_l.tolist()]} vs CPU "
+              f"{[round(x, 4) for x in host_l.tolist()]}; state over the "
+              f"changed rows (ulps at the row's scale, bit-equal share): "
+              + ", ".join(f"{k} {u:.2f} / {eq:.6f}"
+                          for k, (u, eq) in readings.items()),
+              flush=True)
+        check(bool(torch.allclose(card_l, host_l, rtol=1e-4, atol=0)),
+              f"step losses {card_l.tolist()} vs CPU {host_l.tolist()}")
+        ulps, eq = readings.pop("card")
+        check(parity_holds(fused, ulps, eq),
+              f"card state vs CPU ({form}): {ulps} ulps, {eq} bit-equal")
+        for label, (ulps, eq) in readings.items():
+            check(not parity_holds(fused, ulps, eq),
+                  f"the {form} parity limits pass a planted fault "
+                  f"({label}: {ulps} ulps, {eq} bit-equal)")
+    del start, card, host
+    phase("parity", started, f"{size.parity_steps} steps, card vs CPU, "
+          f"{len(PARITY_FAULTS)} planted faults rejected")
+
+    # 11. Kernels against their twins, and their times.
+    started = time.perf_counter()
+    report = [check_k1(size, device, k1_launches, seed)]
+    report += check_k2(size, device, k2_launches, seed)
+    phase("train kernels", started, "K1 and K2 held against their twins")
+
+    # 12. Step timings.
+    started = time.perf_counter()
+    for pipelined in (False, True):
+        for fused in (False, True):
+            steps = train_batches(size, seed + 5, size.timed_steps + 2,
+                                  device)
+            state, _ = run_steps(engine, state, steps[:2], fused, pipelined)
+            sync(device)
+            if device.type == "cuda":
+                torch.cuda.reset_peak_memory_stats(device)
+            t = time.perf_counter()
+            state, _ = run_steps(engine, state, steps[2:], fused, pipelined)
+            sync(device)
+            ms = (time.perf_counter() - t) * 1e3 / size.timed_steps
+            peak = (torch.cuda.max_memory_allocated(device) / 1e6
+                    if device.type == "cuda" else float("nan"))
+            print(f"  step {'pipelined' if pipelined else 'plain'} "
+                  f"{'fused' if fused else 'unfused'}: {ms:.3f} ms/step, "
+                  f"{size.batch / ms * 1e3:.0f} examples/s, peak device "
+                  f"memory {peak:.1f} MB", flush=True)
+    phase("train timing", started, f"{size.timed_steps} steps a form")
+    return report
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -520,6 +1094,7 @@ def main() -> int:
     torch.cuda.set_device(device)
     print(nvidia_smi(), flush=True)
     report = run(device, Size(requests=args.requests), args.seed)
+    report += train(device, TrainSize(), args.seed)
     print(f"total {time.perf_counter() - started:.1f} s")
     print(json.dumps({"kernels": report}))
     print(json.dumps({"ok": True, "device": {

@@ -1,7 +1,8 @@
 """recommenders_tpu_torch: the PyTorch + CUDA port of `recommenders_tpu`.
 
 The package mirrors `recommenders_tpu`'s layout (`ops/`, `layers/`,
-`models/`, `utils/`) so each module sits where its JAX counterpart does.
+`embedding/`, `tasks/`, `models/`, `utils/`) so each module sits where
+its JAX counterpart does.
 It imports `torch` and never JAX or the JAX package; the JAX package is
 the reference every part of the port is tested against.
 
@@ -9,17 +10,23 @@ Entry points take an explicit `device` argument that defaults to
 `"cuda"`. They run on the CPU only when the caller passes `device="cpu"`,
 and raise when CUDA is asked for and missing.
 
-Ported so far: the two-tower retrieval serving path — `EmbeddingTower`
-/ `TwoTowerRetrieval.query_embeddings` → `BruteForce` / `Bucketed`
-indexes → `ops.scoring.bucketed_top_k` → the hand-written CUDA kernel
-`csrc/bucketed_scores.cu`.
+Ported so far:
+  - serving: `EmbeddingTower` / `TwoTowerRetrieval.query_embeddings` →
+    `BruteForce` / `Bucketed` indexes → `ops.scoring.bucketed_top_k` →
+    the hand-written CUDA kernel `csrc/bucketed_scores.cu`;
+  - training: `embedding.EmbeddingEngine.lookup` → `tasks.Retrieval`
+    (unfused, or `fused=True` through `csrc/fused_retrieval.cu`) →
+    activation gradients → `EmbeddingEngine.update` →
+    `sparse_optimizer.apply_sparse` → `csrc/sparse_apply.cu`.
 """
 
 __version__ = "0.1.0"
 
+from recommenders_tpu_torch import embedding
 from recommenders_tpu_torch import layers
 from recommenders_tpu_torch import models
 from recommenders_tpu_torch import ops
+from recommenders_tpu_torch import tasks
 from recommenders_tpu_torch import utils
 
-__all__ = ["layers", "models", "ops", "utils"]
+__all__ = ["embedding", "layers", "models", "ops", "tasks", "utils"]

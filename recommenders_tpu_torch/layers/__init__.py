@@ -1,6 +1,7 @@
-"""Layers: retrieval indexes and tower blocks."""
+"""Layers: retrieval indexes, tower blocks and loss shaping."""
 
 from recommenders_tpu_torch.layers import blocks
 from recommenders_tpu_torch.layers import factorized_top_k
+from recommenders_tpu_torch.layers import loss
 
-__all__ = ["blocks", "factorized_top_k"]
+__all__ = ["blocks", "factorized_top_k", "loss"]

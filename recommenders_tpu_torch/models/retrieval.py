@@ -1,10 +1,11 @@
-"""Two-tower retrieval model: the serving half.
+"""Two-tower retrieval model.
 
 Port of `recommenders_tpu/models/retrieval.py`: `EmbeddingTower`
-(`:41-69`) and the parts of `TwoTowerRetrieval` that serving runs —
-`query_embeddings`, `candidate_embeddings` and `_tower_input`
-(`:180-192`). The loss, the batch metrics, `SequenceTower` and
-`make_corpus_eval_step` come with the training slice.
+(`:41-69`) and `TwoTowerRetrieval`'s `query_embeddings`,
+`candidate_embeddings`, `_tower_input` (`:180-192`) and `compute_loss`
+(`:194-243`) with the retrieval task. The batch metrics, `SequenceTower`
+and `make_corpus_eval_step` come with the slice that ports `metrics/`
+and `models/base.py`.
 
 Flax modules take factories and build their towers in `setup`; here the
 towers are `nn.Module`s handed to the model. Weights of a flax model
@@ -19,6 +20,7 @@ import torch
 from torch import nn
 
 from recommenders_tpu_torch.layers import blocks
+from recommenders_tpu_torch.tasks import retrieval as retrieval_task
 from recommenders_tpu_torch.utils import device as device_lib
 
 Tensor = torch.Tensor
@@ -75,14 +77,28 @@ class EmbeddingTower(nn.Module):
 
 
 class TwoTowerRetrieval(nn.Module):
-    """Two-tower retrieval model (serving half).
+    """Two-tower retrieval model with in-batch sampled softmax.
+
+    Batches carry `query_key` and `candidate_key` entries, and optionally
+    `sample_weight` and `candidate_sampling_probability`.
 
     Args:
       query_tower: Module mapping the query input to embeddings.
       candidate_tower: Module mapping the candidate input to embeddings.
       query_key: Batch key feeding the query tower; a tuple of keys passes
         the tower a sub-dict.
-      candidate_key: Batch key feeding the candidate tower (or a tuple).
+      candidate_key: Batch key feeding the candidate tower (or a tuple);
+        scalar ids there are the candidate ids for accidental hits.
+      temperature: Softmax temperature.
+      remove_accidental_hits: Mask in-batch negatives that share the
+        positive's id.
+      num_hard_negatives: Keep only this many top negatives in the loss.
+      num_extra_negatives: In training, this many uniformly drawn
+        candidate ids are embedded and appended as shared negatives.
+      candidate_vocab_size: Id range for those draws.
+      score_dtype: Optional dtype (`torch.bfloat16`) of the scoring
+        inputs; scores stay f32.
+      fused: Compute the loss with the flash-CE kernel K2.
     """
 
     def __init__(
@@ -91,12 +107,28 @@ class TwoTowerRetrieval(nn.Module):
         candidate_tower: nn.Module,
         query_key: Key = "user_id",
         candidate_key: Key = "movie_id",
+        temperature: Optional[float] = None,
+        remove_accidental_hits: bool = False,
+        num_hard_negatives: Optional[int] = None,
+        num_extra_negatives: int = 0,
+        candidate_vocab_size: Optional[int] = None,
+        score_dtype: Optional[torch.dtype] = None,
+        fused: bool = False,
     ) -> None:
         super().__init__()
         self.query_tower = query_tower
         self.candidate_tower = candidate_tower
         self.query_key = query_key
         self.candidate_key = candidate_key
+        self.num_extra_negatives = num_extra_negatives
+        self.candidate_vocab_size = candidate_vocab_size
+        self.task = retrieval_task.Retrieval(
+            temperature=temperature,
+            remove_accidental_hits=remove_accidental_hits,
+            num_hard_negatives=num_hard_negatives,
+            score_dtype=score_dtype,
+            fused=fused,
+        )
 
     @staticmethod
     def _tower_input(batch: Mapping, key: Key):
@@ -111,3 +143,63 @@ class TwoTowerRetrieval(nn.Module):
         return self.candidate_tower(
             self._tower_input(batch, self.candidate_key)
         )
+
+    def compute_loss(
+        self,
+        batch: Mapping,
+        training: bool = False,
+        generator: Optional[torch.Generator] = None,
+    ) -> Tuple[Tensor, dict]:
+        """`(loss, {"retrieval": RetrievalOutput})` of one batch.
+
+        In training with `num_extra_negatives`, the extra negative ids are
+        drawn uniformly from `[0, candidate_vocab_size)` with `generator`
+        (on the model's device); they take a log-q of
+        `num_extra_negatives / candidate_vocab_size` when the batch
+        carries sampling probabilities.
+        """
+        q = self.query_embeddings(batch)
+        c = self.candidate_embeddings(batch)
+        candidate_ids = None
+        if self.task.remove_accidental_hits:
+            ids = batch[self.candidate_key]
+            if ids.dim() != 1:
+                raise ValueError(
+                    "Accidental-hit removal needs scalar candidate ids; "
+                    f"got shape {tuple(ids.shape)} for "
+                    f"{self.candidate_key!r}."
+                )
+            candidate_ids = ids
+        sampling_probability = batch.get("candidate_sampling_probability")
+        if training and self.num_extra_negatives:
+            if self.candidate_vocab_size is None:
+                raise ValueError(
+                    "num_extra_negatives requires candidate_vocab_size."
+                )
+            neg_ids = torch.randint(
+                0, self.candidate_vocab_size, (self.num_extra_negatives,),
+                generator=generator, device=c.device,
+            )
+            c = torch.cat([c, self.candidate_tower(neg_ids)], dim=0)
+            if candidate_ids is not None:
+                candidate_ids = torch.cat(
+                    [candidate_ids, neg_ids.to(candidate_ids.dtype)]
+                )
+            if sampling_probability is not None:
+                uniform = torch.full(
+                    (self.num_extra_negatives,),
+                    self.num_extra_negatives / self.candidate_vocab_size,
+                    dtype=sampling_probability.dtype,
+                    device=sampling_probability.device,
+                )
+                sampling_probability = torch.cat(
+                    [sampling_probability, uniform]
+                )
+        out = self.task(
+            q,
+            c,
+            sample_weight=batch.get("sample_weight"),
+            candidate_sampling_probability=sampling_probability,
+            candidate_ids=candidate_ids,
+        )
+        return out.loss, {"retrieval": out}

@@ -1,8 +1,12 @@
-"""Low-level ops: top-k primitives, quantization, scoring kernels."""
+"""Low-level ops: top-k primitives, quantization, and the kernels'
+wrappers (scoring K3, sparse apply K1, fused retrieval CE K2)."""
 
 from recommenders_tpu_torch.ops import cuda_build
+from recommenders_tpu_torch.ops import fused_retrieval
 from recommenders_tpu_torch.ops import quantization
 from recommenders_tpu_torch.ops import scoring
+from recommenders_tpu_torch.ops import sparse_apply
 from recommenders_tpu_torch.ops import topk
 
-__all__ = ["cuda_build", "quantization", "scoring", "topk"]
+__all__ = ["cuda_build", "fused_retrieval", "quantization", "scoring",
+           "sparse_apply", "topk"]

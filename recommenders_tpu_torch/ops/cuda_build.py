@@ -24,7 +24,7 @@ CSRC = _PACKAGE / "csrc"
 BUILD_DIR = _PACKAGE.parent / "build" / "recommenders_tpu_torch"
 
 # Every CUDA source of the port, by name (`csrc/<name>.cu`).
-SOURCES = ("bucketed_scores",)
+SOURCES = ("bucketed_scores", "sparse_apply", "fused_retrieval")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",

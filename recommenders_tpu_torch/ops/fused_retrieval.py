@@ -1,0 +1,277 @@
+"""Fused in-batch sampled-softmax retrieval loss (flash-CE, kernel K2).
+
+Port of `recommenders_tpu/ops/fused_retrieval.py`. The loss of
+`tasks.Retrieval` for its fused knob set (temperature, log-q correction,
+accidental-hit removal, per-query weights, extra negatives C > B) without
+the `[B, C]` score matrix: the forward keeps per-row running (max,
+sum-exp) and the diagonal logit, and the backward recomputes the score
+tiles from the saved log-sum-exp for `dQ` and `dC`.
+
+`fused_retrieval_loss` is the wrapper of the hand-written CUDA kernels
+`csrc/fused_retrieval.cu` (forward, dq, dc) behind one
+`torch.autograd.Function`. For tensors on the CPU it runs the plain
+PyTorch twin `fused_retrieval_loss_reference` (differentiable through
+autograd); for CUDA tensors it launches the kernels or raises. The
+kernels mask ragged tile edges, so every B, C ≥ B and D ≤ 256 runs on
+the kernels (the JAX package falls back to its reference for shapes its
+tiles do not divide). `launches` counts kernel launches (and
+`launches_by_kernel` splits them into fwd, dq and dc).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Optional
+
+import torch
+
+from recommenders_tpu_torch.layers import loss as loss_layers
+from recommenders_tpu_torch.ops import cuda_build
+from recommenders_tpu_torch.ops import scoring
+
+Tensor = torch.Tensor
+
+MIN_FLOAT = loss_layers.MIN_FLOAT
+
+# Widths the kernels take: each thread owns D/16 accumulator columns.
+_MAX_DIM = 256
+
+
+def _check(q: Tensor, c: Tensor, remove_accidental_hits: bool,
+           candidate_ids: Optional[Tensor]) -> None:
+    if q.dim() != 2 or c.dim() != 2:
+        raise ValueError(
+            "fused_retrieval_loss expects 2D [B, D] / [C, D] inputs, "
+            f"got {tuple(q.shape)} and {tuple(c.shape)}; maxsim queries "
+            "use the unfused task."
+        )
+    if c.shape[0] < q.shape[0] or c.shape[1] != q.shape[1]:
+        raise ValueError(
+            f"candidates {tuple(c.shape)} must have C >= B rows of the "
+            f"queries' width, queries {tuple(q.shape)}"
+        )
+    if remove_accidental_hits and candidate_ids is None:
+        raise ValueError(
+            "When accidental hit removal is enabled, candidate ids "
+            "must be supplied."
+        )
+
+
+def fused_retrieval_loss(
+    query_embeddings: Tensor,
+    candidate_embeddings: Tensor,
+    sample_weight: Optional[Tensor] = None,
+    candidate_sampling_probability: Optional[Tensor] = None,
+    candidate_ids: Optional[Tensor] = None,
+    *,
+    temperature: Optional[float] = None,
+    remove_accidental_hits: bool = False,
+    score_dtype: Optional[torch.dtype] = None,
+) -> Tensor:
+    """In-batch sampled-softmax CE loss, summed over the batch.
+
+    Same value and gradients (with respect to the queries and the
+    candidates) as `tasks.Retrieval(...)(q, c, ...).loss` for the
+    supported knobs.
+
+    Args:
+      query_embeddings: `[B, D]` queries.
+      candidate_embeddings: `[C, D]` candidates, `C >= B`; row i is the
+        positive of query i.
+      sample_weight: Optional `[B]` per-query weights.
+      candidate_sampling_probability: Optional `[C]` probabilities for
+        the log-q correction.
+      candidate_ids: `[C]` int ids, required with `remove_accidental_hits`.
+      temperature: Optional softmax temperature.
+      remove_accidental_hits: Mask negatives sharing the positive's id.
+      score_dtype: Optional dtype (`torch.bfloat16`) the products' inputs
+        are rounded to; sums are f32.
+    """
+    q, c = query_embeddings, candidate_embeddings
+    _check(q, c, remove_accidental_hits, candidate_ids)
+    if q.device.type == "cpu":
+        return fused_retrieval_loss_reference(
+            q, c, sample_weight, candidate_sampling_probability,
+            candidate_ids, temperature=temperature,
+            remove_accidental_hits=remove_accidental_hits,
+            score_dtype=score_dtype,
+        )
+    if score_dtype not in (None, torch.float32, torch.bfloat16):
+        raise TypeError(f"score_dtype {score_dtype}: f32 or bf16 only")
+    b, d = q.shape
+    cn = c.shape[0]
+    if d > _MAX_DIM:
+        raise ValueError(f"embedding dim {d} > {_MAX_DIM}, the kernel limit")
+    device = q.device
+    logq = None
+    if candidate_sampling_probability is not None:
+        logq = torch.log(torch.clamp(candidate_sampling_probability, 1e-6,
+                                     1.0)).to(device, torch.float32)
+        logq = logq.reshape(cn).contiguous()
+    ids = None
+    if remove_accidental_hits:
+        ids = candidate_ids.to(device, torch.int32).reshape(cn).contiguous()
+    w = None
+    if sample_weight is not None:
+        w = sample_weight.to(device, torch.float32).reshape(b).contiguous()
+    inv_temp = 1.0 / temperature if temperature is not None else 1.0
+    config = (inv_temp, score_dtype == torch.bfloat16)
+    return _FusedRetrievalCE.apply(
+        q.to(torch.float32).contiguous(), c.to(torch.float32).contiguous(),
+        logq, ids, w, config,
+    )
+
+
+fused_retrieval_loss.launches = 0
+fused_retrieval_loss.launches_by_kernel = {"fwd": 0, "dq": 0, "dc": 0}
+
+
+@functools.lru_cache(maxsize=None)
+def _kernel_fns():
+    lib = cuda_build.library("fused_retrieval")
+    ptr, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    fwd = lib.fused_retrieval_fwd
+    fwd.argtypes = [ptr, ptr, i, i, i, ptr, ptr, i, f, i, ptr, ptr, ptr]
+    fwd.restype = i
+    bwd = lib.fused_retrieval_bwd
+    bwd.argtypes = [i, ptr, ptr, i, i, i, ptr, ptr, i, f, i, ptr, ptr, f,
+                    ptr, ptr]
+    bwd.restype = i
+    lib.fused_retrieval_error_string.argtypes = [i]
+    lib.fused_retrieval_error_string.restype = ctypes.c_char_p
+    return fwd, bwd, lib.fused_retrieval_error_string
+
+
+def _ptr(t: Optional[Tensor]):
+    return None if t is None else t.data_ptr()
+
+
+def _raise_on(err: int, name: str, error_string) -> None:
+    if err != 0:
+        raise RuntimeError(
+            f"fused_retrieval {name} kernel launch failed: "
+            f"{error_string(err).decode()} (cudaError {err})"
+        )
+
+
+def _score_args(inv_temp: float, bf16: bool):
+    """(has_div, divisor, bf16) as the kernels take them: the divisor is
+    `1/inv_temp`, so a temperature T divides by 1/(1/T), as the TPU
+    kernel does."""
+    has_div = inv_temp != 1.0
+    return int(has_div), (1.0 / inv_temp) if has_div else 1.0, int(bf16)
+
+
+def forward_kernel(q, c, logq, ids, config):
+    """Launches the forward kernel: `(lse [B], pos [B])` f32.
+
+    `q [B, D]` and `c [C, D]` are contiguous f32 CUDA tensors; `logq`
+    (`[C]` f32) and `ids` (`[C]` int32) may be None; `config` is
+    `(inv_temp, bf16)`.
+    """
+    inv_temp, bf16 = config
+    b, d = q.shape
+    cn = c.shape[0]
+    for t in (c, logq, ids):
+        if t is not None and t.device != q.device:
+            raise ValueError(f"tensor on {t.device}, queries on {q.device}")
+    lse = torch.empty(b, dtype=torch.float32, device=q.device)
+    pos = torch.empty(b, dtype=torch.float32, device=q.device)
+    fwd, _, error_string = _kernel_fns()
+    has_div, divisor, bf = _score_args(inv_temp, bf16)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = fwd(q.data_ptr(), c.data_ptr(), b, cn, d, _ptr(logq),
+                  _ptr(ids), has_div, divisor, bf, lse.data_ptr(),
+                  pos.data_ptr(), stream)
+    _raise_on(err, "fwd", error_string)
+    fused_retrieval_loss.launches += 1
+    fused_retrieval_loss.launches_by_kernel["fwd"] += 1
+    return lse, pos
+
+
+def backward_kernel(name, q, c, logq, ids, w, lse, config):
+    """Launches the dq (`name="dq"`, → `[B, D]`) or dc (`"dc"`, →
+    `[C, D]`) kernel: the gradient of the summed loss for an upstream
+    grad of 1, without dq's per-query weights (dc applies `w`, which may
+    be None)."""
+    inv_temp, bf16 = config
+    b, d = q.shape
+    cn = c.shape[0]
+    if w is not None and w.device != q.device:
+        raise ValueError(f"weights on {w.device}, queries on {q.device}")
+    _, bwd, error_string = _kernel_fns()
+    has_div, divisor, bf = _score_args(inv_temp, bf16)
+    out = torch.empty_like(q if name == "dq" else c)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = bwd({"dq": 0, "dc": 1}[name], q.data_ptr(), c.data_ptr(), b,
+                  cn, d, _ptr(logq), _ptr(ids), has_div, divisor, bf,
+                  lse.data_ptr(), _ptr(w), inv_temp, out.data_ptr(), stream)
+    _raise_on(err, name, error_string)
+    fused_retrieval_loss.launches += 1
+    fused_retrieval_loss.launches_by_kernel[name] += 1
+    return out
+
+
+class _FusedRetrievalCE(torch.autograd.Function):
+    """Forward and backward of the fused loss, each a CUDA kernel."""
+
+    @staticmethod
+    def forward(ctx, q, c, logq, ids, w, config):
+        lse, pos = forward_kernel(q, c, logq, ids, config)
+        per_example = lse - pos
+        if w is not None:
+            per_example = per_example * w
+        ctx.save_for_backward(q, c, logq, ids, w, lse)
+        ctx.config = config
+        return torch.sum(per_example)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, c, logq, ids, w, lse = ctx.saved_tensors
+        dq = backward_kernel("dq", q, c, logq, ids, w, lse, ctx.config)
+        dc = backward_kernel("dc", q, c, logq, ids, w, lse, ctx.config)
+        wg = g if w is None else (w * g)[:, None]
+        return dq * wg, dc * g, None, None, None, None
+
+
+def fused_retrieval_loss_reference(
+    query_embeddings: Tensor,
+    candidate_embeddings: Tensor,
+    sample_weight: Optional[Tensor] = None,
+    candidate_sampling_probability: Optional[Tensor] = None,
+    candidate_ids: Optional[Tensor] = None,
+    *,
+    temperature: Optional[float] = None,
+    remove_accidental_hits: bool = False,
+    score_dtype: Optional[torch.dtype] = None,
+) -> Tensor:
+    """Materialized-scores twin of `fused_retrieval_loss` (any device,
+    differentiable through autograd): the math of `tasks.Retrieval`
+    restricted to the fused knob set, with f32 scores (TF32 off)."""
+    q, c = query_embeddings, candidate_embeddings
+    _check(q, c, remove_accidental_hits, candidate_ids)
+    if score_dtype is not None:
+        q = q.to(score_dtype)
+        c = c.to(score_dtype)
+    s = scoring.reference_scores(q, c)
+    b, cn = s.shape
+    if temperature is not None:
+        s = loss_layers.divide_by_temperature(s, temperature)
+    if candidate_sampling_probability is not None:
+        s = s - torch.log(torch.clamp(candidate_sampling_probability,
+                                      1e-6, 1.0))
+    y = torch.eye(b, cn, dtype=torch.float32, device=s.device)
+    if remove_accidental_hits:
+        pos = candidate_ids[:b]
+        dup = (pos[:, None] == candidate_ids[None, :]).to(torch.float32)
+        s = s + (dup - y) * MIN_FLOAT
+    log_probs = torch.log_softmax(s, dim=-1)
+    per_example = -torch.sum(y * log_probs, dim=-1)
+    if sample_weight is not None:
+        per_example = per_example * torch.reshape(
+            sample_weight, per_example.shape
+        )
+    return torch.sum(per_example)

@@ -1,4 +1,4 @@
-"""Weights carried between the JAX package's flax models and the port's.
+"""Weights and state carried between the JAX package and the port.
 
 `load_flax_params` takes the flax `params` of a `TwoTowerRetrieval` as a
 nested dict of NumPy arrays (e.g. `jax.tree.map(np.asarray, params)`) and
@@ -11,6 +11,14 @@ names map as:
     MLP_0/Dense_i/bias            ↔ mlp.layers.i.bias
 
 Any missing or extra key raises, as does a shape that does not match.
+
+`engine_state_from_logical` takes the JAX engine's `logical_state(...)`
+as nested NumPy dicts (e.g. `jax.tree.map(np.asarray, logical)`) and
+builds the port engine's `EngineState`; `engine_state_to_logical` is the
+inverse. bf16 arrays cross as bits: a NumPy array whose dtype is named
+"bfloat16" (ml_dtypes' type, which `torch.from_numpy` refuses) is viewed
+as uint16 and reinterpreted as `torch.bfloat16`; the way back gives the
+uint16 bits (view them as a NumPy bf16 dtype to hand them to JAX).
 """
 
 from __future__ import annotations
@@ -26,6 +34,23 @@ _TOWERS = {"_query": "query_tower", "_candidate": "candidate_tower"}
 _TOWERS_INV = {v: k for k, v in _TOWERS.items()}
 
 Path = Tuple[str, ...]
+
+
+def tensor_from_numpy(array) -> torch.Tensor:
+    """A torch tensor of `array`'s values, bf16 arrays moved as bits."""
+    array = np.asarray(array)
+    if array.dtype.name == "bfloat16":
+        bits = np.ascontiguousarray(array).view(np.uint16)
+        return torch.from_numpy(bits.copy()).view(torch.bfloat16)
+    return torch.from_numpy(np.array(array))
+
+
+def tensor_to_numpy(tensor: torch.Tensor) -> np.ndarray:
+    """NumPy values of `tensor`; bf16 comes out as its uint16 bits."""
+    tensor = tensor.detach().cpu()
+    if tensor.dtype == torch.bfloat16:
+        return tensor.contiguous().view(torch.int16).numpy().view(np.uint16)
+    return tensor.numpy().copy()
 
 
 def _flax_to_torch(path: Path) -> Tuple[str, bool]:
@@ -115,3 +140,34 @@ def to_flax_params(model: nn.Module) -> Dict:
             node = node.setdefault(key, {})
         node[path[-1]] = array.T.copy() if transpose else array.copy()
     return tree
+
+
+def engine_state_from_logical(engine, logical: Mapping):
+    """The port engine's `EngineState` from the JAX engine's
+    `logical_state` (nested dicts of NumPy arrays): tables, slots and the
+    step, on the engine's device."""
+    return engine.state_from_logical({
+        "tables": {k: tensor_from_numpy(v)
+                   for k, v in logical["tables"].items()},
+        "slots": {
+            name: {k: tensor_from_numpy(v) for k, v in planes.items()}
+            for name, planes in logical["slots"].items()
+        },
+        "step": int(np.asarray(logical["step"])),
+    })
+
+
+def engine_state_to_logical(engine, state) -> Dict:
+    """The port engine's state in the JAX engine's `logical_state` form,
+    as NumPy arrays (bf16 planes as uint16 bits)."""
+    logical = engine.logical_state(state)
+    return {
+        "tables": {k: tensor_to_numpy(v)
+                   for k, v in logical["tables"].items()},
+        "slots": {
+            name: {k: tensor_to_numpy(v)
+                   for k, v in planes.items()}
+            for name, planes in logical["slots"].items()
+        },
+        "step": np.int32(logical["step"]),
+    }

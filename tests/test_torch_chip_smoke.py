@@ -2,8 +2,9 @@
 
 The script's `main()` runs only where CUDA is; its phases take a device,
 so here they run with `device="cpu"` (where each kernel's wrapper runs
-its plain twin) on a small model. Every check of the script must pass,
-and the kernels' report must carry every key the script promises.
+its plain twin) on a small model and a small training step. Every check
+of the script must pass, and the kernels' report must carry every key
+the script promises.
 """
 
 import subprocess
@@ -43,6 +44,50 @@ def test_smoke_phases_pass_on_cpu_at_a_tiny_size(capsys):
     for name in ("build", "towers", "embed", "index", "serve", "outputs",
                  "kernels", "recall"):
         assert f"phase {name}: ok" in out
+
+
+TRAIN_KERNELS = {
+    "sorted_block_apply[adagrad bf16+SR]": "def _kernel(",
+    "fused_retrieval_fwd[bf16 scores]": "def _fwd_kernel(",
+    "fused_retrieval_dq[bf16 scores]": "def _dq_kernel(",
+    "fused_retrieval_dc[bf16 scores]": "def _dc_kernel(",
+}
+
+
+def test_training_phases_pass_on_cpu_at_a_tiny_size(capsys):
+    size = chip_smoke.TrainSize(users=512, items=1024, dim=16, batch=64,
+                                steps=3, timed_steps=2, parity_steps=2)
+    report = chip_smoke.train(torch.device("cpu"), size, seed=0)
+    assert [r["name"] for r in report] == list(TRAIN_KERNELS)
+    for row in report:
+        assert REPORT_KEYS <= set(row)
+        assert row["route"] == "cuda"
+        assert (ROOT / row["source"]).is_file()
+        path, line = row["replaces"].split(":")
+        assert (ROOT / path).read_text().splitlines()[
+            int(line) - 1
+        ].startswith(TRAIN_KERNELS[row["name"]])
+        assert row["bound_by"] in ("bytes", "operations")
+        assert row["bound_ms"] > 0
+        assert row["max_abs_err"] == 0.0   # the twin against itself
+    assert report[0]["library_ms"] is None
+    assert all(r["library_ms"] > 0 for r in report[1:])
+    out = capsys.readouterr().out
+    for name in ("train", "parity", "train kernels", "train timing"):
+        assert f"phase {name}: ok" in out
+    for kind in chip_smoke.KINDS:
+        assert f"K1 {kind} bf16+SR" in out and f"K1 {kind} f32" in out
+    assert "step pipelined fused" in out
+
+
+def test_train_state_loads_through_convert_as_bf16():
+    size = chip_smoke.TrainSize(users=256, items=512, dim=8, batch=16)
+    engine = chip_smoke.train_engine(size, "cpu")
+    state = chip_smoke.convert.engine_state_from_logical(
+        engine, chip_smoke.logical_state(size, 0))
+    assert state.tables["item"].shape == (512, 8)
+    assert state.tables["item"].dtype == torch.bfloat16
+    assert state.slots["user"]["accumulator"].dtype == torch.bfloat16
 
 
 def test_main_fails_without_cuda_and_prints_no_result():

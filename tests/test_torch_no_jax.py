@@ -39,7 +39,18 @@ def test_every_package_file_is_checked():
         "ops/topk.py", "ops/quantization.py", "ops/scoring.py",
         "utils/activations.py", "layers/blocks.py",
         "layers/factorized_top_k.py", "models/retrieval.py",
-        "utils/convert.py",
+        "utils/convert.py", "embedding/config.py", "embedding/embedding.py",
+        "embedding/engine.py", "embedding/sparse_optimizer.py",
+        "ops/sparse_apply.py", "ops/fused_retrieval.py", "layers/loss.py",
+        "tasks/base.py", "tasks/retrieval.py",
     ):
         assert f"recommenders_tpu_torch/{module}" in names
     assert "chip_smoke.py" in names
+
+
+def test_every_cuda_source_names_the_tpu_kernel_it_replaces():
+    for source in sorted((ROOT / "recommenders_tpu_torch" / "csrc").glob(
+            "*.cu")):
+        text = source.read_text()
+        assert "Replaces the TPU kernel" in text, source.name
+        assert "What bounds it on the H100" in text, source.name
