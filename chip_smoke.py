@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Runs the PyTorch port's retrieval serving and training slices on one
-NVIDIA GPU and checks them.
+"""Runs the PyTorch port's retrieval serving, ScaNN serving and training
+slices on one NVIDIA GPU and checks them.
 
     python3 chip_smoke.py [--seed 0] [--requests 3]
 
@@ -26,6 +26,34 @@ Phases, each fatal when it fails:
      the library call that serves the same request exactly;
   8. hold recall@100 of the f32 and bf16 indexes against BruteForce.
 
+ScaNN probed serving: a clustered corpus of 1,000,000 × 128 rows drawn as
+`benchmarks/serving.py:339-348` draws it (1,024 Gaussian centres at scale
+3.0 plus unit noise, NumPy from `--seed`), 1024-query requests drawn the
+same way, and six `ScaNN` indexes at k=100, built on the device: the main
+path `int8_bucketed` (L=1024, P=256, int8, B=4096, probe tile 64;
+`benchmarks/serving.py:190-197`), `int8_reorder` (L=2000, P=40, reorder
+400; `benchmarks/serving.py:403-410`), `bf16_gather`,
+`int4_gather_reorder` and `int4_bucketed_reorder` (`benchmarks/ann.py:374-
+388` at L=1024), and `bf16_bucketed`. Phases, each fatal when it fails:
+
+ 13. build every index; print build seconds and index bytes;
+ 14. serve `--requests` requests through every index, one more through
+     `query_with_exclusions` and one through `ScaNN(query_fn=...)` with
+     the serving slice's query tower; the launch counts of K4 and K5
+     (`csrc/leaf_scoring.cu`) are zeroed just before and read just after,
+     and each format on a served path must have launched as often as its
+     chunks say;
+ 15. check the served results (shapes, finite descending scores, ids in
+     the corpus, each score against the stored row of its id, the
+     exclusions);
+ 16. hold K4 and K5 against their plain twins at the served shapes, for
+     f32 and bf16 rows, int8 and int4 (f32 by direct calls on the bf16
+     indexes' leaves cast to f32), and time the kernels, the twins and the
+     gather + matmul formulation;
+ 17. recall@100 of every index against BruteForce, each above its floor
+     (`SCANN_RECALL_FLOORS`), and the kernel path against the twin path
+     (the index copied to the CPU) on 64 queries.
+
 Training: `bench.py`'s step at its full width. An embedding engine with
 tables `user` 65,536 × 64 and `item` 131,072 × 64, bf16 tables and bf16
 adagrad slots (lr 0.1) written with stochastic rounding, unstacked, and
@@ -48,7 +76,8 @@ fatal when it fails:
      their plain twins at the step's shapes, and time them;
  12. time the four step forms (plain and pipelined, unfused and fused).
 
-It prints the card's name and power limit, one `{"kernels": [...]}` line
+The phases run in the order serving, ScaNN, training. It prints the card's
+name and power limit, one `{"kernels": [...]}` line
 and, last, `{"ok": true, "device": {...}}`. Without CUDA, or run outside
 a checkout of the repository, it exits non-zero and prints no result.
 """
@@ -56,6 +85,7 @@ a checkout of the repository, it exits non-zero and prints no result.
 from __future__ import annotations
 
 import argparse
+import copy
 import dataclasses
 import json
 import subprocess
@@ -72,10 +102,12 @@ from recommenders_tpu_torch import tasks  # noqa: E402
 from recommenders_tpu_torch.embedding import config as emb_config  # noqa: E402
 from recommenders_tpu_torch.embedding import engine as emb_engine  # noqa: E402
 from recommenders_tpu_torch.embedding import sparse_optimizer  # noqa: E402
+from recommenders_tpu_torch.layers import approximate  # noqa: E402
 from recommenders_tpu_torch.layers import factorized_top_k  # noqa: E402
 from recommenders_tpu_torch.models import retrieval  # noqa: E402
 from recommenders_tpu_torch.ops import cuda_build  # noqa: E402
 from recommenders_tpu_torch.ops import fused_retrieval  # noqa: E402
+from recommenders_tpu_torch.ops import leaf_scoring  # noqa: E402
 from recommenders_tpu_torch.ops import quantization  # noqa: E402
 from recommenders_tpu_torch.ops import scoring  # noqa: E402
 from recommenders_tpu_torch.ops import sparse_apply  # noqa: E402
@@ -1076,6 +1108,618 @@ def train(device: torch.device, size: TrainSize, seed: int) -> list:
     return report
 
 
+# --- ScaNN probed serving ---------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class ScannSize:
+    items: int = 1_000_000     # benchmarks/serving.py's clustered corpus
+    centers: int = 1024        # benchmarks/serving.py:339
+    batch: int = 1024
+    requests: int = 3
+    leaves: int = 1024         # benchmarks/serving.py:190, ann.py:374
+    leaves_2000: int = 2000    # benchmarks/serving.py:405
+    users: int = 65_536        # the composed request's query tower
+
+
+# Queries (K4) and query tiles (K5) the twins score against the kernels.
+K4_TWIN_QUERIES = 16
+K5_TWIN_TILES = 2
+# Queries that both the kernel path and the twin path serve.
+PATH_QUERIES = 64
+# Recall@100 floors; they hold for the full corpus (`full_corpus`) only.
+# int8_reorder's is the JAX package's recorded 0.939 less its margin. The
+# L=1024 indexes read 0.850-0.855 on the H100 at seed 0 (PERF.md §6):
+# at cap 1280 = 1.31 × the mean leaf, 17.6 % of the rows find no space in
+# their 8 nearest leaves and fill far ones that no probe reaches (phase 17
+# prints that share; tests/test_torch_scann_spill.py finds the JAX build
+# in the same regime). Each of their floors is 0.02 below that first
+# reading.
+SCANN_RECALL_FLOORS = {
+    "int8_reorder": 0.92,
+    "int8_bucketed": 0.83,
+    "bf16_gather": 0.83,
+    "int4_gather_reorder": 0.83,
+    "int4_bucketed_reorder": 0.83,
+    "bf16_bucketed": 0.83,
+}
+MAIN_INDEX = "int8_bucketed"
+LEAF_SOURCE = "recommenders_tpu_torch/csrc/leaf_scoring.cu"
+LEAF_REPLACES = {
+    ("K4", "f32"): "recommenders_tpu/ops/leaf_scoring.py:56",
+    ("K4", "bf16"): "recommenders_tpu/ops/leaf_scoring.py:56",
+    ("K4", "int8"): "recommenders_tpu/ops/leaf_scoring.py:66",
+    ("K4", "int4"): "recommenders_tpu/ops/leaf_scoring.py:102",
+    ("K5", "f32"): "recommenders_tpu/ops/leaf_scoring.py:248",
+    ("K5", "bf16"): "recommenders_tpu/ops/leaf_scoring.py:248",
+    ("K5", "int8"): "recommenders_tpu/ops/leaf_scoring.py:268",
+    ("K5", "int4"): "recommenders_tpu/ops/leaf_scoring.py:288",
+}
+KERNEL_FNS = {"K4": leaf_scoring.probed_leaf_scores,
+              "K5": leaf_scoring.probed_bucketed_scores}
+
+
+def full_corpus(size: ScannSize) -> bool:
+    """Whether `size` has the full corpus and partitions, the shape the
+    recall floors were set on (the request count does not matter)."""
+    full = ScannSize()
+    return ((size.items, size.centers, size.leaves, size.leaves_2000)
+            == (full.items, full.centers, full.leaves, full.leaves_2000))
+
+
+def scann_configs(size: ScannSize) -> dict:
+    """name → (ScaNN settings, kernel, leaf format), as their sources set
+    them (k = 100 for all)."""
+    n_leaves, n_2000 = size.leaves, size.leaves_2000
+    main = dict(num_leaves=n_leaves, num_leaves_to_search=n_leaves // 4,
+                quantize="int8", scoring_buckets=4096, probe_tile=64,
+                query_batch=1024, kmeans_sample_size=2**21,
+                training_iterations=8)
+    ann = dict(kmeans_sample_size=min(size.items, 2**21),
+               training_iterations=8, query_batch=256)
+    return {
+        MAIN_INDEX: (main, "K5", "int8"),
+        "int8_reorder": (dict(
+            num_leaves=n_2000, num_leaves_to_search=max(1, n_2000 // 50),
+            quantize=True, num_reordering_candidates=4 * K,
+            query_batch=128), "K4", "int8"),
+        "bf16_gather": (dict(
+            ann, num_leaves=n_leaves, num_leaves_to_search=n_leaves // 8,
+            leaf_dtype=torch.bfloat16), "K4", "bf16"),
+        "int4_gather_reorder": (dict(
+            ann, num_leaves=n_leaves, num_leaves_to_search=n_leaves // 8,
+            quantize="int4", num_reordering_candidates=4 * K,
+            reorder_dtype=torch.bfloat16), "K4", "int4"),
+        "int4_bucketed_reorder": (dict(
+            ann, num_leaves=n_leaves, num_leaves_to_search=n_leaves // 4,
+            quantize="int4", num_reordering_candidates=4 * K,
+            reorder_dtype=torch.bfloat16, scoring_buckets=4096,
+            probe_tile=64), "K5", "int4"),
+        "bf16_bucketed": (dict(main, quantize=False,
+                               leaf_dtype=torch.bfloat16), "K5", "bf16"),
+    }
+
+
+def clustered_data(size: ScannSize, seed: int):
+    """The corpus and the requests as `benchmarks/serving.py:339-348`
+    draws them: Gaussian centres at scale 3.0 plus unit noise, NumPy
+    `RandomState(seed)`, the corpus first."""
+    rng = np.random.RandomState(seed)
+    centers = rng.normal(scale=3.0, size=(size.centers, DIM)).astype(
+        np.float32)
+
+    def draw(n):
+        return (centers[rng.randint(0, size.centers, n)]
+                + rng.normal(size=(n, DIM)).astype(np.float32))
+
+    corpus = draw(size.items)
+    return corpus, [draw(size.batch) for _ in range(size.requests)]
+
+
+def query_tower(users: int, seed: int, device: torch.device):
+    """The serving slice's query tower (random weights from `seed`, the
+    same draws as `run`'s) as a ScaNN `query_fn`."""
+    params = flax_params(Size(users=users, items=1), seed)
+    model = retrieval.TwoTowerRetrieval(
+        retrieval.EmbeddingTower(users, DIM, MLP_UNITS, device=device),
+        retrieval.EmbeddingTower(1, DIM, device=device),
+    )
+    convert.load_flax_params(model, params)
+    model.eval().requires_grad_(False)
+    return model.query_embeddings
+
+
+def reset_leaf_counts() -> None:
+    for fn in KERNEL_FNS.values():
+        fn.launches = 0
+        for fmt in fn.launches_by_format:
+            fn.launches_by_format[fmt] = 0
+
+
+def index_bytes(index) -> int:
+    return sum(getattr(index, name).nbytes
+               for name in convert.SCANN_ARRAYS
+               if getattr(index, name) is not None)
+
+
+def leaf_rows_f32(index) -> torch.Tensor:
+    """The index's stored leaves as f32 `[L, cap, D]` values (codes
+    unpacked and scaled)."""
+    leaves = index._leaf_embs
+    if index._quantize == "int4":
+        leaves = quantization.unpack_nibbles(leaves)
+    rows = leaves.to(torch.float32)
+    if index._leaf_scales is not None:
+        rows *= index._leaf_scales[..., None]
+    return rows
+
+
+def max_row_norm(index) -> float:
+    """Largest norm of a stored row (dequantized) or of a reorder row."""
+    norm = float(leaf_rows_f32(index)[index._leaf_valid].norm(dim=1).max())
+    if index._corpus is not None:
+        norm = max(norm, float(index._corpus.float().norm(dim=1).max()))
+    return norm
+
+
+def scann_scored(index, queries: torch.Tensor) -> torch.Tensor:
+    """The queries as the leaves score them: bf16-rounded for codes."""
+    q = queries.to(torch.float32)
+    return q.to(torch.bfloat16).to(torch.float32) if index._quantize else q
+
+
+def slot_of_rows(leaf_rows: torch.Tensor, n: int) -> torch.Tensor:
+    """`[n]` flat slot (leaf · cap + slot) of each corpus row in a
+    `[L, cap]` table of global rows (-1 = padding); -1 for a row stored
+    nowhere. A row stored twice keeps one of its slots."""
+    flat = leaf_rows.reshape(-1)
+    where = torch.full((n,), -1, dtype=torch.long, device=flat.device)
+    live = flat >= 0
+    where[flat[live].long()] = torch.nonzero(live).squeeze(1)
+    return where
+
+
+def near_share(leaf_rows: torch.Tensor, centroids: torch.Tensor,
+               corpus: torch.Tensor, rounds: int) -> float:
+    """Share of the corpus's rows stored in one of their `rounds` nearest
+    leaves, the leaves the packing's rounds offer them; the rest went to
+    the global pool of free slots, in leaves that may lie far from them."""
+    leaf_of = slot_of_rows(leaf_rows, corpus.shape[0]) // leaf_rows.shape[1]
+    near = approximate._topr_assign_device(corpus, centroids, rounds, 16384)
+    return float((near.long() == leaf_of[:, None]).any(1).float().mean())
+
+
+def stored_scores(index, queries: torch.Tensor, ids: torch.Tensor):
+    """(exact f32 scores, tolerance) of the returned ids from what the
+    index stores: the reorder corpus where it re-ranks, else each id's
+    leaf slot (codes decoded, scale after the dot). Tolerance
+    D·ε·Σ|q||c|·|s| plus two roundings of the scale multiply."""
+    ids = ids.long()
+    ones = torch.ones(ids.shape, device=ids.device)
+    if index._reorder_n:
+        q, rows, scale = queries.to(torch.float32), index._corpus[ids], ones
+        rows = rows.to(torch.float32)
+    else:
+        cap = index._leaf_rows.shape[1]
+        slot = slot_of_rows(index._leaf_rows, index._num_candidates)[ids]
+        leaf, s = slot // cap, slot % cap
+        if index._quantize == "int4":
+            half = cap // 2
+            # Packed row s % half holds slots (s % half, s % half + half).
+            pair = quantization.unpack_nibbles(
+                index._leaf_embs[leaf, s % half][..., None, :])
+            rows = torch.where((s >= half)[..., None], pair[..., 1, :],
+                               pair[..., 0, :])
+        else:
+            rows = index._leaf_embs[leaf, s]
+        rows = rows.to(torch.float32)
+        scale = (ones if index._leaf_scales is None
+                 else index._leaf_scales[leaf, s])
+        q = scann_scored(index, queries)
+    exact = (q[:, None, :] * rows).sum(-1) * scale
+    tol = (DIM * F32_EPS * (q.abs()[:, None, :] * rows.abs()).sum(-1)
+           * scale.abs() + 2 * F32_EPS * exact.abs())
+    return exact, tol
+
+
+def leaf_inputs(index, fmt: str):
+    """(leaves, scales, packed4) of `index` as the kernel of `fmt` reads
+    them; "f32" is the bf16 index's leaves cast to f32."""
+    if fmt == "f32":
+        return index._leaf_embs.to(torch.float32), None, False
+    return index._leaf_embs, index._leaf_scales, index._quantize == "int4"
+
+
+def gather_matmul(qt, leaves, scales, probes, packed4):
+    """The gather + `torch.matmul` formulation of the same scores, for
+    query tiles `qt [t, T, D]` and probes `[t, P]` (not one call: a
+    gather, a cast and a batched matmul)."""
+    emb = leaves[probes.long()]
+    if packed4:
+        emb = quantization.unpack_nibbles(emb)
+    t, p, cap, d = emb.shape
+    if scales is not None:
+        out = torch.matmul(qt.to(torch.bfloat16), emb.to(torch.bfloat16)
+                           .view(t, p * cap, d).transpose(1, 2))
+        return out.float() * scales[probes.long()].view(t, 1, p * cap)
+    return torch.matmul(qt.to(torch.float32), emb.to(torch.float32)
+                        .view(t, p * cap, d).transpose(1, 2))
+
+
+def leaf_bytes(leaves, scales, cap: int, with_rows: bool) -> int:
+    """Bytes of one stored leaf of `cap` slots: rows or codes, scales,
+    and (K5) the slots' global rows."""
+    per = leaves[0].numel() * leaves.element_size()
+    if scales is not None:
+        per += cap * 4
+    if with_rows:
+        per += cap * 4
+    return per
+
+
+def leaf_peak(fmt: str) -> float:
+    """Peak rate of the products: f32 rows and bf16 rows (promoted) meet an
+    f32 query; codes meet a bf16 query, exact in bf16."""
+    return PEAK_OPS_PER_S["f32" if fmt in ("f32", "bf16") else "bf16"]
+
+
+def check_k4(index, fmt, chunk, launches, device) -> dict:
+    """K4 of format `fmt` against its twin on `index`'s leaves, at the
+    served chunk `chunk` [query_batch, D]; times and bound."""
+    leaves, scales, packed4 = leaf_inputs(index, fmt)
+    cap = index._leaf_rows.shape[1]
+    with scoring._full_f32_matmul():
+        probes = torch.topk(chunk @ index._centroids.T, index._num_probes,
+                            dim=1).indices.to(torch.int32)
+
+    def kernel(q=chunk, p=probes):
+        return leaf_scoring.probed_leaf_scores(q, leaves, scales, p,
+                                               packed4=packed4)
+
+    out = kernel()
+    nq = min(K4_TWIN_QUERIES, chunk.shape[0])
+    sub_q, sub_p = chunk[:nq], probes[:nq]
+
+    def twin():
+        return leaf_scoring.probed_scores_reference(sub_q, leaves, scales,
+                                                    sub_p, packed4=packed4)
+
+    want = twin()
+    # |values| of the stored rows (the f32 leaves are the bf16 ones).
+    abs_rows = leaf_rows_f32(index).abs()
+    abs_dot = leaf_scoring.probed_scores_reference(
+        scann_scored(index, sub_q).abs(), abs_rows, None, sub_p)
+    del abs_rows
+    tol = DIM * F32_EPS * abs_dot + 2 * F32_EPS * want.abs()
+    err = (out[:nq] - want).abs()
+    check(bool((err <= tol).all()),
+          f"K4 {fmt}: scores off the twin by {float(err.max())}")
+    qn, p = probes.shape
+    ms = device_ms(kernel, device, iters=10)
+    sub_ms = device_ms(lambda: kernel(sub_q, sub_p), device, iters=10)
+    plain_ms = device_ms(twin, device, iters=3)
+    gm_ms = device_ms(lambda: gather_matmul(sub_q[:, None], leaves, scales,
+                                            sub_p, packed4), device, iters=3)
+    unique = int(torch.unique(probes).numel())
+    in_bytes = (unique * leaf_bytes(leaves, scales, cap, False)
+                + chunk.numel() * 4 + probes.numel() * 4)
+    bytes_ms = (in_bytes + out.nbytes) / HBM_BYTES_PER_S * 1e3
+    ops_ms = 2.0 * qn * p * cap * DIM / leaf_peak(fmt) * 1e3
+    # JAX's cost estimate (`leaf_scoring.py:188-197`) reads the probed
+    # leaf once per (query, probe); printed beside the bound, not a bound.
+    jax_bytes = (qn * p * leaves[0].numel() * leaves.element_size()
+                 + qn * DIM * 4 + qn * p * cap * 4)
+    row = {
+        "name": f"probed_leaf_scores[{fmt}]",
+        "route": "cuda",
+        "source": LEAF_SOURCE,
+        "replaces": LEAF_REPLACES[("K4", fmt)],
+        "launches": launches,
+        "max_abs_err": float(err.max()),
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": max(bytes_ms, ops_ms),
+        "bound_by": "bytes" if bytes_ms > ops_ms else "operations",
+        # No single PyTorch call computes this function.
+        "library_ms": None,
+        # The f32 body runs by a direct call only.
+        "on_main_path": fmt != "f32",
+        "gather_matmul_ms": gm_ms,
+        "subset_ms": sub_ms,
+        "shape": f"Q={qn} P={p} cap={cap} D={DIM} L={leaves.shape[0]}"
+                 f" ({unique} leaves probed); twin, gather+matmul and "
+                 f"subset on {nq} queries",
+    }
+    print(f"  K4 {fmt}: max |err| {float(err.max()):.3g}; kernel {ms:.3f} ms"
+          f" at Q={qn}, {sub_ms:.3f} ms at Q={nq}; twin {plain_ms:.3f} ms, "
+          f"gather+matmul {gm_ms:.3f} ms at Q={nq}; bound "
+          f"{row['bound_ms']:.4f} ms ({row['bound_by']}); JAX's cost "
+          f"estimate counts {jax_bytes / 1e9:.4f} GB", flush=True)
+    return row
+
+
+def check_k5(index, fmt, chunk, launches, device) -> dict:
+    """K5 of format `fmt` against its twin on `index`'s leaves, at the
+    served chunk; rows equal wherever the twin's winner beats the
+    bucket's best other row by more than twice the score bound."""
+    leaves, scales, packed4 = leaf_inputs(index, fmt)
+    rows_tbl = index._leaf_rows
+    cap = rows_tbl.shape[1]
+    tile = index._probe_tile
+    buckets = min(index._scoring_buckets, cap)
+    with scoring._full_f32_matmul():
+        cscores = chunk @ index._centroids.T
+    qs, probes, _ = approximate._tile_probes(chunk, cscores,
+                                             index._num_probes, tile)
+
+    def kernel(q=qs, p=probes):
+        return leaf_scoring.probed_bucketed_scores(
+            q, leaves, scales, rows_tbl, p, buckets, query_tile=tile,
+            packed4=packed4)
+
+    vals, rows = kernel()
+    nt = min(K5_TWIN_TILES, probes.shape[0])
+    sub_q, sub_p = qs[:nt * tile], probes[:nt]
+
+    def twin():
+        return leaf_scoring.probed_bucketed_reference(
+            sub_q, leaves, scales, rows_tbl, sub_p, buckets, query_tile=tile,
+            packed4=packed4)
+
+    want_v, want_r = twin()
+    cand, cand_rows = leaf_scoring.probed_bucket_candidates(
+        sub_q, leaves, scales, rows_tbl, sub_p, buckets, tile, packed4)
+    abs_rows = leaf_rows_f32(index).abs()
+    abs_cand, _ = leaf_scoring.probed_bucket_candidates(
+        scann_scored(index, sub_q).abs(), abs_rows, None, rows_tbl, sub_p,
+        buckets, tile)
+    del abs_rows
+    best = cand.argmax(dim=1, keepdim=True)
+    abs_dot = torch.gather(abs_cand, 1, best).squeeze(1).clamp(min=0)
+    tol = DIM * F32_EPS * abs_dot + 2 * F32_EPS * want_v.abs()
+    runner_up = cand.masked_fill(cand_rows == torch.gather(cand_rows, 1, best),
+                                 leaf_scoring.MIN_FLOAT).amax(dim=1)
+    del cand, cand_rows, abs_cand
+    got_v, got_r = vals[:nt * tile], rows[:nt * tile]
+    empty = want_v <= leaf_scoring.MIN_FLOAT
+    err = (got_v - want_v).abs().masked_fill(empty, 0)
+    check(bool((got_v[empty] == leaf_scoring.MIN_FLOAT).all()
+               and (got_r[empty] == -1).all()),
+          f"K5 {fmt}: an empty bucket is not MIN_FLOAT / -1")
+    check(bool((err <= tol).all()),
+          f"K5 {fmt}: scores off the twin by {float(err.max())}")
+    separated = (want_v - runner_up > 2 * tol) & ~empty
+    share = float(separated.sum()) / max(1, int((~empty).sum()))
+    check(share >= 0.9, f"K5 {fmt}: only {share:.4f} of buckets separated")
+    check(torch.equal(got_r[separated], want_r[separated]),
+          f"K5 {fmt}: rows differ from the twin's in a separated bucket")
+    qn = qs.shape[0]
+    ms = device_ms(kernel, device, iters=10)
+    sub_ms = device_ms(lambda: kernel(sub_q, sub_p), device, iters=10)
+    plain_ms = device_ms(twin, device, iters=3)
+    gm_ms = device_ms(lambda: gather_matmul(
+        sub_q.view(nt, tile, DIM), leaves, scales, sub_p, packed4),
+        device, iters=3)
+    # Least work: each tile scores each distinct probed leaf once.
+    sp = torch.sort(probes.long(), dim=1).values
+    pairs = int(probes.shape[0] + (sp[:, 1:] != sp[:, :-1]).sum())
+    unique = int(torch.unique(probes).numel())
+    in_bytes = (unique * leaf_bytes(leaves, scales, cap, True)
+                + qs.numel() * 4 + probes.numel() * 4)
+    bytes_ms = (in_bytes + vals.nbytes + rows.nbytes) / HBM_BYTES_PER_S * 1e3
+    ops_ms = 2.0 * tile * pairs * cap * DIM / leaf_peak(fmt) * 1e3
+    tiles, p = probes.shape
+    # JAX's cost estimate (`leaf_scoring.py:439-449`): each tile reads each
+    # of its probed leaves, duplicates too.
+    jax_bytes = (tiles * p * (leaf_bytes(leaves, scales, cap, True))
+                 + qn * DIM * 4 + 2 * qn * buckets * 4)
+    row = {
+        "name": f"probed_bucketed_scores[{fmt}]",
+        "route": "cuda",
+        "source": LEAF_SOURCE,
+        "replaces": LEAF_REPLACES[("K5", fmt)],
+        "launches": launches,
+        "max_abs_err": float(err.max()),
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": max(bytes_ms, ops_ms),
+        "bound_by": "bytes" if bytes_ms > ops_ms else "operations",
+        "library_ms": None,
+        "on_main_path": fmt != "f32",
+        "gather_matmul_ms": gm_ms,
+        "subset_ms": sub_ms,
+        "shape": f"Q={qn} T={tile} P={p} cap={cap} B={buckets} D={DIM} "
+                 f"L={leaves.shape[0]} ({pairs} distinct tile-leaf pairs); "
+                 f"twin, gather+matmul and subset on {nt} tiles",
+    }
+    print(f"  K5 {fmt}: max |err| {float(err.max()):.3g}, rows equal in "
+          f"every separated bucket ({share:.4f} of all); kernel {ms:.3f} ms "
+          f"at Q={qn}, {sub_ms:.3f} ms on {nt} tiles; twin {plain_ms:.3f} ms,"
+          f" gather+matmul {gm_ms:.3f} ms on {nt} tiles; bound "
+          f"{row['bound_ms']:.4f} ms ({row['bound_by']}); JAX's cost "
+          f"estimate counts {jax_bytes / 1e9:.4f} GB", flush=True)
+    return row
+
+
+def path_parity(index, settings, queries, device) -> int:
+    """Serves `queries` through the kernel path on `device` and through
+    the twin path on a CPU copy of the index; returns the queries whose id
+    sets differ beyond a tie within D·ε·‖q‖·max‖c‖."""
+    card_s, card_i = index(queries)
+    host = convert.scann_state_from_numpy(
+        approximate.ScaNN(device="cpu", k=K, **settings),
+        convert.scann_state_to_numpy(index))
+    host_s, host_i = host(queries.cpu())
+    card_s, card_i = card_s.cpu(), card_i.cpu()
+    tol = (DIM * F32_EPS * queries.float().norm(dim=1).cpu()
+           * max_row_norm(index))
+    bad = 0
+    for q in range(queries.shape[0]):
+        if set(card_i[q].tolist()) == set(host_i[q].tolist()):
+            continue
+        diff = (card_s[q].sort().values - host_s[q].sort().values).abs()
+        bad += int(bool((diff > tol[q]).any()))
+    return bad
+
+
+def scann(device: torch.device, size: ScannSize, seed: int) -> list:
+    """Drives ScaNN probed serving on `device`; returns K4's and K5's
+    report rows."""
+    configs = scann_configs(size)
+    started = time.perf_counter()
+    corpus_np, requests_np = clustered_data(size, seed)
+    corpus = torch.from_numpy(corpus_np).to(device)
+    requests = [torch.from_numpy(r).to(device) for r in requests_np]
+    del corpus_np, requests_np
+    sync(device)
+    phase("scann data", started, f"corpus {tuple(corpus.shape)}, "
+          f"{size.requests} requests of {size.batch}")
+
+    # 13. Build each index on the device.
+    started = time.perf_counter()
+    indexes, build_s = {}, {}
+    for name, (settings, _, _) in configs.items():
+        t = time.perf_counter()
+        indexes[name] = approximate.ScaNN(k=K, device=device,
+                                          **settings).index(corpus)
+        sync(device)
+        build_s[name] = time.perf_counter() - t
+    phase("scann build", started, ", ".join(
+        f"{name} {build_s[name]:.2f} s {index_bytes(index) / 1e6:.1f} MB"
+        for name, index in indexes.items()))
+
+    # 14. Serve; the main path's launch counts.
+    tower = query_tower(size.users, seed, device)
+    user_ids = torch.from_numpy(np.random.default_rng(seed + 4).integers(
+        0, size.users, size.batch)).to(device)
+    started = time.perf_counter()
+    reset_leaf_counts()
+    results, latency_ms, peak_mb = {}, {}, {}
+    for name, index in indexes.items():
+        if device.type == "cuda":
+            sync(device)
+            resident = torch.cuda.memory_allocated(device)
+            torch.cuda.reset_peak_memory_stats(device)
+        results[name], latency_ms[name] = [], []
+        for request in requests:
+            t = time.perf_counter()
+            results[name].append(index(request))
+            sync(device)
+            latency_ms[name].append((time.perf_counter() - t) * 1e3)
+        if device.type == "cuda":
+            peak_mb[name] = (torch.cuda.max_memory_allocated(device)
+                             - resident) / 1e6
+    main = indexes[MAIN_INDEX]
+    excluded = results[MAIN_INDEX][0][1][:, 0:2 * EXCLUDED:2]
+    _, excl_ids = main.query_with_exclusions(requests[0], excluded)
+    composed = copy.copy(main)
+    composed.query_fn = tower
+    composed_s, composed_i = composed({"user_id": user_ids})
+    sync(device)
+    counts = {kernel: dict(fn.launches_by_format)
+              for kernel, fn in KERNEL_FNS.items()}
+    phase("scann serve", started, f"launches {counts}")
+    for name in indexes:
+        lat = sorted(latency_ms[name])
+        print(f"  scann {name}: request ms "
+              f"{[round(x, 3) for x in latency_ms[name]]} (median "
+              f"{lat[len(lat) // 2]:.3f})"
+              + (f", peak device memory above the resident "
+                 f"{peak_mb[name]:.1f} MB" if name in peak_mb else ""))
+    if device.type == "cuda":
+        expected = {("K4", f): 0 for f in ("f32", "bf16", "int8", "int4")}
+        expected.update({("K5", f): 0 for f in ("f32", "bf16", "int8",
+                                                "int4")})
+        for name, (settings, kernel, fmt) in configs.items():
+            chunks = -(-size.batch // settings["query_batch"])
+            expected[(kernel, fmt)] += size.requests * chunks + (
+                2 if name == MAIN_INDEX else 0)
+        for (kernel, fmt), want in expected.items():
+            check(counts[kernel][fmt] == want,
+                  f"{counts[kernel][fmt]} {kernel} {fmt} launches, "
+                  f"expected {want}")
+            if fmt != "f32":
+                check(want > 0, f"{kernel} {fmt} is on no served path")
+
+    # 15. The served results.
+    started = time.perf_counter()
+    for name, index in indexes.items():
+        for q, (scores, ids) in zip(requests, results[name]):
+            check(scores.shape == (size.batch, K)
+                  and ids.shape == (size.batch, K),
+                  f"{name}: result shapes {scores.shape}, {ids.shape}")
+            check(bool(torch.isfinite(scores).all()),
+                  f"{name}: non-finite scores")
+            check(bool(((ids >= 0) & (ids < size.items)).all()),
+                  f"{name}: ids outside the corpus")
+            check(bool((scores[:, :-1] >= scores[:, 1:]).all()),
+                  f"{name}: scores not descending")
+            sorted_ids = ids.sort(dim=1).values
+            check(bool((sorted_ids[:, 1:] != sorted_ids[:, :-1]).all()),
+                  f"{name}: an id repeats within a row")
+            exact, tol = stored_scores(index, q, ids)
+            check(bool(((scores - exact).abs() <= tol).all()),
+                  f"{name}: returned scores are not the stored rows' "
+                  f"scores of the returned ids")
+    _, over_ids = main(requests[0], k=K + EXCLUDED)
+    hit = (over_ids[:, :, None] == excluded[:, None, :]).any(-1)
+    check(bool((hit.sum(1) == EXCLUDED).all()),
+          "over-fetch lost an excluded id")
+    kept = over_ids[~hit].view(size.batch, K)
+    check(not bool((excl_ids[:, :, None] == excluded[:, None, :]).any()),
+          "query_with_exclusions returned an excluded id")
+    check(torch.equal(kept.sort(1).values, excl_ids.sort(1).values),
+          "query_with_exclusions is not the over-fetch minus exclusions")
+    check(composed_s.shape == (size.batch, K)
+          and bool(torch.isfinite(composed_s).all())
+          and bool(((composed_i >= 0) & (composed_i < size.items)).all()),
+          "ScaNN(query_fn=query tower) gave bad results")
+    phase("scann outputs", started,
+          "shapes, stored scores, exclusions, query_fn")
+
+    # 16. Each kernel format against its twin, and its times.
+    started = time.perf_counter()
+    report = []
+    direct = {"K4": "bf16_gather", "K5": "bf16_bucketed"}
+    for kernel, check_fn in (("K4", check_k4), ("K5", check_k5)):
+        for fmt in ("f32", "bf16", "int8", "int4"):
+            name = direct[kernel] if fmt == "f32" else next(
+                n for n, (_, kn, f) in configs.items()
+                if kn == kernel and f == fmt)
+            qb = configs[name][0]["query_batch"]
+            chunk = requests[0][:qb]
+            report.append(check_fn(indexes[name], fmt, chunk,
+                                   counts[kernel][fmt], device))
+    phase("scann kernels", started, "K4 and K5, every format, held against "
+          "their twins")
+
+    # 17. Recall@100 against BruteForce; the kernel path against the twin
+    # path.
+    started = time.perf_counter()
+    exact_ids = factorized_top_k.BruteForce(k=K, device=device).index(
+        corpus)(requests[0])[1]
+    floors = SCANN_RECALL_FLOORS if full_corpus(size) else {}
+    for name, index in indexes.items():
+        value = recall(results[name][0][1], exact_ids)
+        floor = floors.get(name)
+        near = near_share(index._leaf_rows, index._centroids, corpus,
+                          index._spill_rounds)
+        bad = path_parity(index, configs[name][0], requests[0][:PATH_QUERIES],
+                          device)
+        print(f"  recall@{K} {name}: {value:.4f}"
+              + (f" (floor {floor})" if floor else "")
+              + f"; rows in their {index._spill_rounds} nearest leaves "
+                f"{near:.4f}; kernel path vs twin path on {PATH_QUERIES} "
+                f"queries: {bad} differ beyond a tie", flush=True)
+        if floor is not None:
+            check(value >= floor,
+                  f"recall@{K} of {name} is {value:.4f} < {floor}")
+        check(bad == 0, f"{name}: {bad} queries differ between the kernel "
+              f"path and the twin path")
+    del indexes
+    phase("scann recall", started)
+    return report
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -1094,6 +1738,7 @@ def main() -> int:
     torch.cuda.set_device(device)
     print(nvidia_smi(), flush=True)
     report = run(device, Size(requests=args.requests), args.seed)
+    report += scann(device, ScannSize(requests=args.requests), args.seed)
     report += train(device, TrainSize(), args.seed)
     print(f"total {time.perf_counter() - started:.1f} s")
     print(json.dumps({"kernels": report}))

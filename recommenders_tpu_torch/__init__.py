@@ -17,7 +17,11 @@ Ported so far:
   - training: `embedding.EmbeddingEngine.lookup` → `tasks.Retrieval`
     (unfused, or `fused=True` through `csrc/fused_retrieval.cu`) →
     activation gradients → `EmbeddingEngine.update` →
-    `sparse_optimizer.apply_sparse` → `csrc/sparse_apply.cu`.
+    `sparse_optimizer.apply_sparse` → `csrc/sparse_apply.cu`;
+  - probed serving: `layers.ScaNN` (k-means partition, capacity packing,
+    int8/int4/bf16 leaves) → probes → `ops.leaf_scoring` →
+    `csrc/leaf_scoring.cu` (K4 leaf scores, or K5 bucketed argmax) →
+    optional exact reorder.
 """
 
 __version__ = "0.1.0"

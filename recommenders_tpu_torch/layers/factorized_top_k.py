@@ -4,7 +4,8 @@ Port of `recommenders_tpu/layers/factorized_top_k.py:53-305,512-802`
 (the `TopK` base, `BruteForce` and `Bucketed`), itself the rebuild of the
 reference's factorized top-K layers
 (`tensorflow_recommenders/layers/factorized_top_k.py:140,515`).
-`Streaming` and the `ScaNN` re-export are not ported yet.
+`ScaNN` lives in `layers/approximate.py` and is re-exported here, as in the
+JAX package; `Streaming` is not ported yet.
 
 Identifiers may be integer tensors (kept on the index's device) or host
 string arrays: string-identified indexes run on row positions on the
@@ -531,10 +532,15 @@ def _or_nibble_(buf: Tensor, codes: Tensor, off: int, high: bool) -> None:
     nibble (`pack_nibbles` byte layout), in place. Each (row, nibble) must
     be written at most once over a zero buffer."""
     rows = slice(off, off + codes.shape[0])
-    cur = buf[rows].to(torch.int32)
-    new = codes.to(torch.int32)
-    if high:
-        merged = (cur & 255) | (new << 4)
-    else:
-        merged = cur | (new & 15)
-    buf[rows] = merged.to(torch.int8)
+    buf[rows] = quantization.merge_nibbles(buf[rows], codes, high)
+
+
+def __getattr__(name):
+    # Lazy re-export of `ScaNN`, which the reference defines in this module
+    # (layers/factorized_top_k.py:613); `approximate` imports `TopK` from
+    # here, so an import at the top would be circular.
+    if name == "ScaNN":
+        from recommenders_tpu_torch.layers import approximate
+
+        return approximate.ScaNN
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -17,14 +17,17 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Dict, Iterable, Optional
+
+import torch
 
 _PACKAGE = Path(__file__).resolve().parents[1]
 CSRC = _PACKAGE / "csrc"
 BUILD_DIR = _PACKAGE.parent / "build" / "recommenders_tpu_torch"
 
 # Every CUDA source of the port, by name (`csrc/<name>.cu`).
-SOURCES = ("bucketed_scores", "sparse_apply", "fused_retrieval")
+SOURCES = ("bucketed_scores", "sparse_apply", "fused_retrieval",
+           "leaf_scoring")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -96,3 +99,18 @@ def library(name: str) -> ctypes.CDLL:
     """The loaded shared library of `csrc/<name>.cu`, built if needed."""
     build((name,))
     return ctypes.CDLL(str(library_path(name)))
+
+
+def ptr(t: Optional[torch.Tensor]) -> Optional[int]:
+    """A tensor's device address for a `c_void_p` argument (None → NULL)."""
+    return None if t is None else t.data_ptr()
+
+
+def raise_on(err: int, what: str, error_string) -> None:
+    """Raises if a launcher returned a nonzero `cudaError_t`; its source's
+    `error_string` names it."""
+    if err != 0:
+        raise RuntimeError(
+            f"{what} kernel launch failed: {error_string(err).decode()} "
+            f"(cudaError {err})"
+        )

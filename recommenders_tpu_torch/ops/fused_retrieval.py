@@ -143,18 +143,6 @@ def _kernel_fns():
     return fwd, bwd, lib.fused_retrieval_error_string
 
 
-def _ptr(t: Optional[Tensor]):
-    return None if t is None else t.data_ptr()
-
-
-def _raise_on(err: int, name: str, error_string) -> None:
-    if err != 0:
-        raise RuntimeError(
-            f"fused_retrieval {name} kernel launch failed: "
-            f"{error_string(err).decode()} (cudaError {err})"
-        )
-
-
 def _score_args(inv_temp: float, bf16: bool):
     """(has_div, divisor, bf16) as the kernels take them: the divisor is
     `1/inv_temp`, so a temperature T divides by 1/(1/T), as the TPU
@@ -182,10 +170,10 @@ def forward_kernel(q, c, logq, ids, config):
     has_div, divisor, bf = _score_args(inv_temp, bf16)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = fwd(q.data_ptr(), c.data_ptr(), b, cn, d, _ptr(logq),
-                  _ptr(ids), has_div, divisor, bf, lse.data_ptr(),
-                  pos.data_ptr(), stream)
-    _raise_on(err, "fwd", error_string)
+        err = fwd(q.data_ptr(), c.data_ptr(), b, cn, d,
+                  cuda_build.ptr(logq), cuda_build.ptr(ids), has_div,
+                  divisor, bf, lse.data_ptr(), pos.data_ptr(), stream)
+    cuda_build.raise_on(err, "fused_retrieval fwd", error_string)
     fused_retrieval_loss.launches += 1
     fused_retrieval_loss.launches_by_kernel["fwd"] += 1
     return lse, pos
@@ -207,9 +195,10 @@ def backward_kernel(name, q, c, logq, ids, w, lse, config):
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = bwd({"dq": 0, "dc": 1}[name], q.data_ptr(), c.data_ptr(), b,
-                  cn, d, _ptr(logq), _ptr(ids), has_div, divisor, bf,
-                  lse.data_ptr(), _ptr(w), inv_temp, out.data_ptr(), stream)
-    _raise_on(err, name, error_string)
+                  cn, d, cuda_build.ptr(logq), cuda_build.ptr(ids), has_div,
+                  divisor, bf, lse.data_ptr(), cuda_build.ptr(w), inv_temp,
+                  out.data_ptr(), stream)
+    cuda_build.raise_on(err, f"fused_retrieval {name}", error_string)
     fused_retrieval_loss.launches += 1
     fused_retrieval_loss.launches_by_kernel[name] += 1
     return out

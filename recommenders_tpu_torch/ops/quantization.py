@@ -115,6 +115,16 @@ def pack_nibbles(codes: Tensor) -> Tensor:
     return ((lo & 15) | (hi << 4)).to(torch.int8)
 
 
+def merge_nibbles(current: Tensor, codes: Tensor, high: bool) -> Tensor:
+    """`current` packed bytes with 4-bit `codes` ORed into their high or
+    low nibble (`pack_nibbles` layout), as int8. The target nibble of
+    `current` must be zero: each (byte, nibble) is written once."""
+    cur = current.to(torch.int32)
+    new = codes.to(torch.int32)
+    merged = (cur & 255) | (new << 4) if high else cur | (new & 15)
+    return merged.to(torch.int8)
+
+
 def unpack_nibbles(packed: Tensor) -> Tensor:
     """Inverse of `pack_nibbles`: `[..., n/2, d]` int8 → `[..., n, d]`.
 

@@ -233,15 +233,10 @@ def _launch(
         err = fn(
             fmt, int(queries.dtype == torch.bfloat16),
             queries.data_ptr(), candidates.data_ptr(),
-            None if scales is None else scales.data_ptr(),
-            vals.data_ptr(), rows.data_ptr(),
+            cuda_build.ptr(scales), vals.data_ptr(), rows.data_ptr(),
             qn, n, d, buckets, valid_rows, MIN_FLOAT, stream,
         )
-    if err != 0:
-        raise RuntimeError(
-            f"bucketed_scores kernel launch failed: "
-            f"{error_string(err).decode()} (cudaError {err})"
-        )
+    cuda_build.raise_on(err, "bucketed_scores", error_string)
     bucketed_scores.launches += 1
     bucketed_scores.launches_by_format[name] += 1
     return vals, rows

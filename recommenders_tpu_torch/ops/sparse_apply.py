@@ -311,15 +311,11 @@ def _launch(
         err = fn(
             KIND_IDS[rule.kind], ids.data_ptr(), grads.data_ptr(),
             ids.shape[0], v, d,
-            *[None if p is None else p.data_ptr() for p in planes],
+            *[cuda_build.ptr(p) for p in planes],
             bf16_mask, sc.data_ptr(), *consts,
             int(use_sr), int(seed or 0) & 0xFFFFFFFF, stream,
         )
-    if err != 0:
-        raise RuntimeError(
-            f"sparse_apply kernel launch failed: "
-            f"{error_string(err).decode()} (cudaError {err})"
-        )
+    cuda_build.raise_on(err, "sparse_apply", error_string)
     sorted_block_apply.launches += 1
     return states
 

@@ -19,6 +19,11 @@ inverse. bf16 arrays cross as bits: a NumPy array whose dtype is named
 "bfloat16" (ml_dtypes' type, which `torch.from_numpy` refuses) is viewed
 as uint16 and reinterpreted as `torch.bfloat16`; the way back gives the
 uint16 bits (view them as a NumPy bf16 dtype to hand them to JAX).
+
+`scann_state_from_numpy` loads a built JAX `ScaNN` index's arrays (e.g.
+`{name: np.asarray(getattr(index, name)) for name in SCANN_ARRAYS}`)
+into a port `ScaNN` configured the same way, so both packages query the
+same leaves; `scann_state_to_numpy` is the inverse.
 """
 
 from __future__ import annotations
@@ -171,3 +176,87 @@ def engine_state_to_logical(engine, state) -> Dict:
         },
         "step": np.int32(logical["step"]),
     }
+
+
+# A ScaNN index's state: arrays (None where the configuration keeps none)
+# and the corpus size.
+SCANN_ARRAYS = (
+    "_centroids", "_leaf_embs", "_leaf_scales", "_leaf_ids", "_leaf_rows",
+    "_leaf_valid", "_corpus", "_identifiers", "_flat_ids",
+)
+
+
+def scann_state_from_numpy(index, arrays: Mapping):
+    """Loads a built ScaNN state into the port `index`, on its device.
+
+    `arrays` maps every name of `SCANN_ARRAYS` to a NumPy array or None,
+    plus `_num_candidates`. bf16 arrays may come as ml_dtypes bf16 or as
+    uint16 bits together with `index`'s dtypes (`leaf_dtype`,
+    `reorder_dtype`). A missing key, or an array whose shape does not fit
+    the others', raises.
+    """
+    missing = [k for k in SCANN_ARRAYS + ("_num_candidates",)
+               if k not in arrays]
+    if missing:
+        raise ValueError(f"ScaNN state lacks {missing}")
+    n = int(np.asarray(arrays["_num_candidates"]))
+    rows = np.asarray(arrays["_leaf_rows"])
+    centroids = np.asarray(arrays["_centroids"])
+    if rows.ndim != 2 or centroids.ndim != 2:
+        raise ValueError(
+            f"_leaf_rows {rows.shape} and _centroids {centroids.shape} must "
+            "be 2-D")
+    num_leaves, cap = rows.shape
+    d = centroids.shape[1]
+    packed4 = index._quantize == "int4"
+    want = {
+        "_centroids": (num_leaves, d),
+        "_leaf_embs": (num_leaves, cap // 2 if packed4 else cap, d),
+        "_leaf_scales": (num_leaves, cap),
+        "_leaf_ids": (num_leaves, cap),
+        "_leaf_rows": (num_leaves, cap),
+        "_leaf_valid": (num_leaves, cap),
+        "_corpus": (n, d),
+        "_identifiers": (n,),
+        "_flat_ids": (n,),
+    }
+    bf16_views = {"_leaf_embs": index._leaf_dtype,
+                  "_corpus": index._reorder_dtype}
+    loaded = {}
+    for name, shape in want.items():
+        array = arrays[name]
+        if array is None:
+            if name in ("_centroids", "_leaf_embs", "_leaf_ids",
+                        "_leaf_rows", "_leaf_valid"):
+                raise ValueError(f"ScaNN state {name} is None")
+            loaded[name] = None
+            continue
+        array = np.asarray(array)
+        if tuple(array.shape) != shape:
+            raise ValueError(
+                f"ScaNN state {name} has shape {array.shape}, expected "
+                f"{shape}")
+        tensor = tensor_from_numpy(array)
+        if (array.dtype == np.uint16
+                and bf16_views.get(name) == torch.bfloat16):
+            tensor = tensor.view(torch.bfloat16)
+        loaded[name] = tensor.to(index.device)
+    if (loaded["_leaf_scales"] is None) != (not index._quantize):
+        raise ValueError(
+            "ScaNN state's _leaf_scales does not match quantize="
+            f"{index._quantize!r}")
+    for name, tensor in loaded.items():
+        setattr(index, name, tensor)
+    index._num_candidates = n
+    index._built = True
+    return index
+
+
+def scann_state_to_numpy(index) -> Dict:
+    """The port index's state as NumPy arrays (bf16 as uint16 bits), in
+    the form `scann_state_from_numpy` takes."""
+    out = {name: (None if getattr(index, name) is None
+                  else tensor_to_numpy(getattr(index, name)))
+           for name in SCANN_ARRAYS}
+    out["_num_candidates"] = int(index._num_candidates)
+    return out

@@ -46,6 +46,40 @@ def test_smoke_phases_pass_on_cpu_at_a_tiny_size(capsys):
         assert f"phase {name}: ok" in out
 
 
+def test_scann_phases_pass_on_cpu_at_a_tiny_size(capsys):
+    # 10 leaves for the reorder index keep every probed leaf above k rows
+    # at this corpus size, as 2,000 do at 1M rows.
+    size = chip_smoke.ScannSize(items=30_000, batch=64, requests=2,
+                                leaves=32, leaves_2000=10, users=256)
+    report = chip_smoke.scann(torch.device("cpu"), size, seed=0)
+    assert [r["name"] for r in report] == [
+        f"{name}[{fmt}]"
+        for name in ("probed_leaf_scores", "probed_bucketed_scores")
+        for fmt in ("f32", "bf16", "int8", "int4")
+    ]
+    for row in report:
+        assert REPORT_KEYS <= set(row)
+        assert row["route"] == "cuda"
+        assert (ROOT / row["source"]).is_file()
+        path, line = row["replaces"].split(":")
+        assert (ROOT / path).read_text().splitlines()[
+            int(line) - 1
+        ].startswith("def _kernel")
+        assert row["bound_by"] in ("bytes", "operations")
+        assert row["bound_ms"] > 0
+        assert row["library_ms"] is None
+        assert row["gather_matmul_ms"] > 0
+        assert row["max_abs_err"] == 0.0   # the twin against itself
+        assert row["on_main_path"] == (not row["name"].endswith("[f32]"))
+    out = capsys.readouterr().out
+    for name in ("scann data", "scann build", "scann serve",
+                 "scann outputs", "scann kernels", "scann recall"):
+        assert f"phase {name}: ok" in out
+    for name in chip_smoke.scann_configs(size):
+        assert f"recall@100 {name}:" in out
+    assert "0 differ beyond a tie" in out
+
+
 TRAIN_KERNELS = {
     "sorted_block_apply[adagrad bf16+SR]": "def _kernel(",
     "fused_retrieval_fwd[bf16 scores]": "def _fwd_kernel(",

@@ -191,7 +191,7 @@ def test_sparse_apply_kernel_empty_update_launches_nothing(device):
         assert torch.equal(g, s)
 
 
-# --- K2: fused retrieval CE ---------------------------------------------------
+# --- K2: fused retrieval CE --------------------------------------------------
 #
 # Loss to rtol 1e-5 (the kernel's online log-sum-exp against a
 # materialized log-softmax); grads, sums of C terms in another order, to
@@ -244,3 +244,195 @@ def test_fused_retrieval_kernels_match_twin(device, score_dtype, b, c, d,
         else:
             tol = 2e-2 * want.abs() + 2e-3 * scale
         assert ((got - want).abs() <= tol).all()
+
+
+# --- K4 and K5: probed leaf scoring ------------------------------------------
+#
+# Kernel and twin take the same products in f32 in another order (the query
+# rounded to bf16 for int8 and int4, the scale after the dot), so a score
+# agrees to D·2⁻²³·Σ|q||c||s| plus two roundings of the scale multiply; a
+# K5 bucket's row must be equal wherever the twin's winner beats the
+# bucket's best candidate of another row by more than twice that.
+
+LEAF_FORMATS = ("f32", "bf16", "int8", "int4")
+F32_EPS = 2.0 ** -23
+
+
+def _leaf_case(fmt, num_leaves, cap, d, device, seed=0):
+    """(stored leaves, scales, packed4, dequantized f32 leaves, rows)."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    embs = torch.randn(num_leaves, cap, d, device=device, generator=g)
+    rows = torch.randperm(num_leaves * cap, device=device, generator=g)
+    rows = rows.view(num_leaves, cap).to(torch.int32)
+    rows[:, -3:] = -1                                   # padding slots
+    if fmt == "f32":
+        return embs, None, False, embs, rows
+    if fmt == "bf16":
+        return embs.bfloat16(), None, False, embs.bfloat16().float(), rows
+    bits = 4 if fmt == "int4" else 8
+    scales, codes = quantization.quantize_rows_device(
+        embs.view(-1, d), 0.2, bits=bits)
+    scales = scales.view(num_leaves, cap)
+    codes = codes.view(num_leaves, cap, d)
+    deq = codes.float() * scales[..., None]
+    if bits == 4:
+        codes = quantization.pack_nibbles(codes)
+    return codes, scales, bits == 4, deq, rows
+
+
+def _scored(queries, scales):
+    return queries.bfloat16().float() if scales is not None else queries
+
+
+@pytest.mark.parametrize("fmt", LEAF_FORMATS)
+@pytest.mark.parametrize("q,num_leaves,cap,d,p", [
+    (16, 8, 256, 128, 3), (5, 6, 94, 40, 4), (7, 5, 130, 200, 2),
+])
+def test_probed_leaf_kernel_matches_twin(device, fmt, q, num_leaves, cap, d,
+                                         p):
+    from recommenders_tpu_torch.ops import leaf_scoring
+
+    leaves, scales, packed4, deq, _ = _leaf_case(fmt, num_leaves, cap, d,
+                                                 device)
+    g = torch.Generator(device=device).manual_seed(1)
+    queries = torch.randn(q, d, device=device, generator=g)
+    probes = torch.randint(0, num_leaves, (q, p), device=device, generator=g)
+    probes[0, :2] = probes[0, 0]                       # a repeated probe
+    before = dict(leaf_scoring.probed_leaf_scores.launches_by_format)
+    got = leaf_scoring.probed_leaf_scores(queries, leaves, scales, probes,
+                                          packed4=packed4)
+    torch.cuda.synchronize()
+    after = leaf_scoring.probed_leaf_scores.launches_by_format
+    assert after[fmt] == before[fmt] + 1
+    want = leaf_scoring.probed_scores_reference(queries, leaves, scales,
+                                                probes, packed4=packed4)
+    abs_dot = leaf_scoring.probed_scores_reference(
+        _scored(queries, scales).abs(), deq.abs(), None, probes)
+    tol = d * F32_EPS * abs_dot + 2 * F32_EPS * want.abs()
+    assert got.shape == (q, p * cap)
+    assert ((got - want).abs() <= tol).all()
+
+
+def test_probed_leaf_kernel_masks_out_of_range_probes(device):
+    from recommenders_tpu_torch.ops import leaf_scoring
+
+    leaves, _, _, _, _ = _leaf_case("f32", 4, 64, 32, device)
+    queries = torch.randn(2, 32, device=device)
+    probes = torch.tensor([[0, 4], [-1, 3]], device=device)
+    got = leaf_scoring.probed_leaf_scores(queries, leaves, None, probes)
+    torch.cuda.synchronize()
+    assert (got[0, 64:] == leaf_scoring.MIN_FLOAT).all()
+    assert (got[1, :64] == leaf_scoring.MIN_FLOAT).all()
+    want = leaf_scoring.probed_scores_reference(
+        queries[:1], leaves, None, probes[:1, :1])
+    assert torch.allclose(got[:1, :64], want, rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("fmt", LEAF_FORMATS)
+@pytest.mark.parametrize("tile,num_leaves,cap,d,buckets,p", [
+    (1, 8, 256, 128, 128, 4),      # one query a tile, two groups a leaf
+    (8, 8, 384, 128, 256, 3),      # partial tail group
+    (70, 6, 94, 40, 40, 5),        # ragged D, cap, B; two query blocks
+    (64, 16, 1280, 128, 1280, 6),  # the served shape, one group a leaf
+])
+def test_probed_bucketed_kernel_matches_twin(device, fmt, tile, num_leaves,
+                                             cap, d, buckets, p):
+    from recommenders_tpu_torch.ops import leaf_scoring
+
+    leaves, scales, packed4, deq, rows = _leaf_case(fmt, num_leaves, cap, d,
+                                                    device)
+    tiles = 3
+    g = torch.Generator(device=device).manual_seed(2)
+    queries = torch.randn(tiles * tile, d, device=device, generator=g)
+    probes = torch.randint(0, num_leaves, (tiles, p), device=device,
+                           generator=g)
+    probes[0, 1] = probes[0, 0]                    # adjacent duplicate
+    probes = torch.sort(probes, dim=1).values.to(torch.int32)
+    rows[probes[1, 0]] = -1                        # an empty probed leaf
+    before = dict(leaf_scoring.probed_bucketed_scores.launches_by_format)
+    vals, got_rows = leaf_scoring.probed_bucketed_scores(
+        queries, leaves, scales, rows, probes, buckets, query_tile=tile,
+        packed4=packed4)
+    torch.cuda.synchronize()
+    after = leaf_scoring.probed_bucketed_scores.launches_by_format
+    assert after[fmt] == before[fmt] + 1
+    ref_v, ref_r = leaf_scoring.probed_bucketed_reference(
+        queries, leaves, scales, rows, probes, buckets, query_tile=tile,
+        packed4=packed4)
+    cand, cand_rows = leaf_scoring.probed_bucket_candidates(
+        queries, leaves, scales, rows, probes, buckets, query_tile=tile,
+        packed4=packed4)
+    abs_cand, _ = leaf_scoring.probed_bucket_candidates(
+        _scored(queries, scales).abs(), deq.abs(), None, rows, probes,
+        buckets, query_tile=tile)
+    best = cand.argmax(dim=1, keepdim=True)
+    abs_dot = torch.gather(abs_cand, 1, best).squeeze(1).clamp(min=0)
+    tol = d * F32_EPS * abs_dot + 2 * F32_EPS * ref_v.abs()
+    empty = ref_v <= leaf_scoring.MIN_FLOAT
+    assert (vals[empty] == leaf_scoring.MIN_FLOAT).all()
+    assert (got_rows[empty] == -1).all()
+    assert ((vals - ref_v).abs()[~empty] <= tol[~empty]).all()
+    # The runner-up is the best candidate of another row: a duplicate
+    # probe repeats the winner's own slot.
+    win_row = torch.gather(cand_rows, 1, best)
+    runner_up = cand.masked_fill(cand_rows == win_row, leaf_scoring.MIN_FLOAT
+                                 ).amax(dim=1)
+    separated = (ref_v - runner_up > 2 * tol) & ~empty
+    assert separated.sum() >= 0.9 * (~empty).sum()
+    assert torch.equal(got_rows[separated], ref_r[separated])
+
+
+def test_probed_kernels_refuse_bad_inputs(device):
+    from recommenders_tpu_torch.ops import leaf_scoring
+
+    leaves, scales, _, _, rows = _leaf_case("int8", 4, 64, 32, device)
+    queries = torch.randn(4, 32, device=device)
+    probes = torch.zeros((4, 2), dtype=torch.int32, device=device)
+    with pytest.raises(TypeError, match="scales must be float32"):
+        leaf_scoring.probed_leaf_scores(queries, leaves, scales.double(),
+                                        probes)
+    with pytest.raises(ValueError, match="contiguous"):
+        leaf_scoring.probed_bucketed_scores(
+            queries, leaves.transpose(0, 1).contiguous().transpose(0, 1),
+            scales, rows, probes[:1], 32, query_tile=4)
+    with pytest.raises(ValueError, match="kernel limit"):
+        leaf_scoring.probed_leaf_scores(
+            torch.randn(1, 600, device=device),
+            torch.zeros(2, 8, 600, device=device), None,
+            torch.zeros((1, 1), dtype=torch.int32, device=device))
+
+
+@pytest.mark.parametrize("settings", [
+    dict(quantize="int8", num_reordering_candidates=40),
+    dict(leaf_dtype=torch.bfloat16),
+    dict(quantize="int4", scoring_buckets=256, probe_tile=8,
+         num_leaves_to_search=12),
+])
+def test_scann_kernel_path_matches_cpu_twin_path(device, settings):
+    """The whole query path on the card (the kernels) against the same
+    index copied to the CPU (the twins): equal id sets per query, or
+    scores equal within the bound where ids differ by a tie."""
+    from recommenders_tpu_torch.layers import approximate
+    from recommenders_tpu_torch.utils import convert
+
+    g = torch.Generator(device=device).manual_seed(3)
+    centers = torch.randn(32, 128, device=device, generator=g) * 3
+    pick = torch.randint(0, 32, (6000,), device=device, generator=g)
+    corpus = centers[pick] + torch.randn(6000, 128, device=device,
+                                         generator=g)
+    queries = centers[pick[:40]] + torch.randn(40, 128, device=device,
+                                               generator=g)
+    kw = dict(dict(k=10, num_leaves=24, num_leaves_to_search=4,
+                   training_iterations=4), **settings)
+    card = approximate.ScaNN(device=device, **kw).index(corpus)
+    host = convert.scann_state_from_numpy(
+        approximate.ScaNN(device="cpu", **kw),
+        convert.scann_state_to_numpy(card))
+    cs, ci = card(queries)
+    hs, hi = host(queries.cpu())
+    cs, ci = cs.cpu(), ci.cpu()
+    tol = 128 * F32_EPS * (queries.abs().amax() * corpus.abs().amax() * 128
+                           ).cpu()
+    for a, b, sa, sb in zip(ci, hi, cs, hs):
+        if set(a.tolist()) != set(b.tolist()):
+            assert ((sa - sb).abs() <= tol).all()

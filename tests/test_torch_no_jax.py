@@ -42,7 +42,8 @@ def test_every_package_file_is_checked():
         "utils/convert.py", "embedding/config.py", "embedding/embedding.py",
         "embedding/engine.py", "embedding/sparse_optimizer.py",
         "ops/sparse_apply.py", "ops/fused_retrieval.py", "layers/loss.py",
-        "tasks/base.py", "tasks/retrieval.py",
+        "tasks/base.py", "tasks/retrieval.py", "ops/leaf_scoring.py",
+        "layers/approximate.py",
     ):
         assert f"recommenders_tpu_torch/{module}" in names
     assert "chip_smoke.py" in names
