@@ -22,8 +22,9 @@ Phases, each fatal when it fails:
   6. check the served results (shapes, finite descending scores, exact
      scores of the returned ids, the exclusions);
   7. hold each format of the bucketed-scoring kernel against its plain
-     PyTorch twin at the served shapes, and time the kernel, the twin and
-     the library call that serves the same request exactly;
+     PyTorch twin at the served shapes (two launches must agree bit for
+     bit), and time the kernel, the twin and the library call that serves
+     the same request exactly;
   8. hold recall@100 of the f32 and bf16 indexes against BruteForce.
 
 ScaNN probed serving: a clustered corpus of 1,000,000 × 128 rows drawn as
@@ -73,7 +74,10 @@ fatal when it fails:
      stochastic-rounding stream, a learning rate 1 % high);
  11. hold K1 (all five rules, f32 states and bf16 states with stochastic
      rounding) and K2 (forward, dq, dc; f32 and bf16 scores) against
-     their plain twins at the step's shapes, and time them;
+     their plain twins at the step's shapes, K2's two launches bit for
+     bit, and time them; K2's bound is the largest of its products at the
+     bf16 peak, its exps at the SFU's rate (the SM clock from
+     `nvidia-smi`) and its bytes, each printed;
  12. time the four step forms (plain and pipelined, unfused and fused).
 
 The phases run in the order serving, ScaNN, training. It prints the card's
@@ -145,6 +149,12 @@ REPLACES = {
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"f32": 67e12, "bf16": 989e12, "int8": 989e12,
                   "int4": 989e12}
+# The SFU's exponentials a clock an SM (Hopper: 16), and the H100 SXM's
+# SMs and maximum SM clock, which stand in off the card (the card's own
+# are read from it).
+SFU_EXP_PER_CLOCK = 16
+H100_SMS = 132
+H100_MAX_SM_CLOCK_HZ = 1.98e9
 F32_EPS = 2.0 ** -23
 
 
@@ -299,6 +309,19 @@ def nvidia_smi() -> str:
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip()
     return out.splitlines()[0]
+
+
+def card_rates(device: torch.device):
+    """(SMs, maximum SM clock in Hz) of the card, from the device and
+    `nvidia-smi --query-gpu=clocks.max.sm`; the H100 SXM's off the card."""
+    if device.type != "cuda":
+        return H100_SMS, H100_MAX_SM_CLOCK_HZ
+    mhz = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.splitlines()[0]
+    return cuda_build.sm_count(device), float(mhz) * 1e6
 
 
 def run(device: torch.device, size: Size, seed: int) -> list:
@@ -477,6 +500,10 @@ def run(device: torch.device, size: Size, seed: int) -> list:
                 )
 
             vals, rows = kernel()
+            again = kernel()
+            check(torch.equal(vals, again[0]) and torch.equal(rows, again[1]),
+                  f"kernel {fmt}: two launches differ")
+            del again
             nq = min(TWIN_QUERIES, size.batch)
             twin_vals, twin_rows = twin(q[:nq])
             err = (vals[:nq] - twin_vals).abs()
@@ -888,6 +915,26 @@ def value_and_grads(fn, q, cand, kwargs):
     return loss.detach(), q.grad, cand.grad
 
 
+def k2_bound_terms(name: str, q, c, sms: int, clock_hz: float) -> dict:
+    """The three least times (ms) of one K2 kernel at bf16 scores: its
+    products at the bf16 tensor-core peak (fwd one [B, C, D] product; dq
+    and dc two, the recomputed scores and the coefficient product), its
+    B·C exps at the SFU's rate, and its bytes at the HBM rate (the bf16
+    operands, the [C] log-q and ids, the [B] lse and weights it reads, and
+    its f32 outputs, each once)."""
+    b, d = q.shape
+    cn = c.shape[0]
+    products = (1 if name == "fwd" else 2) * 2.0 * b * cn * d
+    reads = q.nbytes + c.nbytes + cn * 8 + {"fwd": 0, "dq": b * 4,
+                                            "dc": b * 8}[name]
+    writes = {"fwd": b * 8, "dq": b * d * 4, "dc": cn * d * 4}[name]
+    return {
+        "products": products / PEAK_OPS_PER_S["bf16"] * 1e3,
+        "exp": b * cn / (SFU_EXP_PER_CLOCK * sms * clock_hz) * 1e3,
+        "bytes": (reads + writes) / HBM_BYTES_PER_S * 1e3,
+    }
+
+
 def check_k2(size: TrainSize, device, launches: dict, seed: int) -> list:
     """K2 (forward, dq, dc) against its twin with temperature, log-q,
     accidental hits and weights, f32 and bf16 scores, at B = C = batch;
@@ -927,9 +974,11 @@ def check_k2(size: TrainSize, device, launches: dict, seed: int) -> list:
               f"dq {errs['dq']:.3g}, dc {errs['dc']:.3g}")
         if not bf16:
             continue
-        # Times, at the main path's bf16 scores.
+        # Times, at the main path's bf16 scores, on the operands the
+        # kernels take (rounded to bf16 once, as the wrapper does).
         config = (1.0 / K2_TEMPERATURE, True)
-        q32, c32 = q.float().contiguous(), cand.float().contiguous()
+        qb = q.to(torch.bfloat16).contiguous()
+        cb = cand.to(torch.bfloat16).contiguous()
         logq = torch.log(torch.clamp(kw["candidate_sampling_probability"],
                                      1e-6, 1.0)).float().contiguous()
         ids32 = kw["candidate_ids"].to(torch.int32).contiguous()
@@ -945,16 +994,21 @@ def check_k2(size: TrainSize, device, launches: dict, seed: int) -> list:
         library_grads = lambda: value_and_grads(
             lambda a, c_, **k: task(a, c_, **k).loss, q, cand, kw)
         if device.type == "cuda":
-            lse, _ = fused_retrieval.forward_kernel(q32, c32, logq, ids32,
+            lse, _ = fused_retrieval.forward_kernel(qb, cb, logq, ids32,
                                                     config)
             kernels = {
                 "fwd": lambda: fused_retrieval.forward_kernel(
-                    q32, c32, logq, ids32, config),
+                    qb, cb, logq, ids32, config),
                 "dq": lambda: fused_retrieval.backward_kernel(
-                    "dq", q32, c32, logq, ids32, w, lse, config),
+                    "dq", qb, cb, logq, ids32, w, lse, config),
                 "dc": lambda: fused_retrieval.backward_kernel(
-                    "dc", q32, c32, logq, ids32, w, lse, config),
+                    "dc", qb, cb, logq, ids32, w, lse, config),
             }
+            for name, fn in kernels.items():
+                first, second = fn(), fn()
+                same = (all(torch.equal(x, y) for x, y in zip(first, second))
+                        if name == "fwd" else torch.equal(first, second))
+                check(same, f"K2 {name}: two launches differ")
         else:   # The CPU rehearsal has no kernel; its twin stands in.
             kernels = {"fwd": no_grad_twin, "dq": grad_twin,
                        "dc": grad_twin}
@@ -963,16 +1017,13 @@ def check_k2(size: TrainSize, device, launches: dict, seed: int) -> list:
             lib_fwd = device_ms(library_value, device, iters=3)
         plain_grad = device_ms(grad_twin, device, iters=3)
         lib_grad = device_ms(library_grads, device, iters=3)
-        # Model work: one [B, C, D] product per kernel, against the bf16
-        # peak (the backward's recomputed scores are not counted); bytes:
-        # q, c, the [C] vectors and the outputs once each.
-        ops_ms = 2.0 * b * cand.shape[0] * d / PEAK_OPS_PER_S["bf16"] * 1e3
-        vec = cand.shape[0] * 8 + b * 8
-        out_bytes = {"fwd": b * 8, "dq": b * d * 4,
-                     "dc": cand.shape[0] * d * 4}
+        sms, clock_hz = card_rates(device)
+        print(f"  K2 bound: {sms} SMs at {clock_hz / 1e9:.3f} GHz "
+              f"(nvidia-smi clocks.max.sm), {SFU_EXP_PER_CLOCK} exp a clock "
+              f"an SM", flush=True)
         for name in ("fwd", "dq", "dc"):
-            bytes_ms = ((q32.nbytes + c32.nbytes + vec + out_bytes[name])
-                        / HBM_BYTES_PER_S * 1e3)
+            terms = k2_bound_terms(name, qb, cb, sms, clock_hz)
+            bound_term = max(terms, key=terms.get)
             ms = graph_ms(kernels[name], device)
             rows.append({
                 "name": f"fused_retrieval_{name}[bf16 scores]",
@@ -983,17 +1034,19 @@ def check_k2(size: TrainSize, device, launches: dict, seed: int) -> list:
                 "max_abs_err": loss_err if name == "fwd" else errs[name],
                 "ms": ms,
                 "plain_ms": plain_fwd if name == "fwd" else plain_grad,
-                "bound_ms": max(ops_ms, bytes_ms),
-                "bound_by": "operations" if ops_ms > bytes_ms else "bytes",
+                "bound_ms": terms[bound_term],
+                "bound_by": "bytes" if bound_term == "bytes" else "operations",
                 "library_ms": lib_fwd if name == "fwd" else lib_grad,
                 "call_ms": device_ms(kernels[name], device, iters=20),
                 "shape": f"B=C={b} D={d}",
             })
-            print(f"  K2 {name}: kernel {ms:.3f} ms (graph replay), "
-                  f"{rows[-1]['call_ms']:.3f} ms a call, twin "
+            print(f"  K2 {name}: kernel {ms:.4f} ms (graph replay), "
+                  f"{rows[-1]['call_ms']:.4f} ms a call, twin "
                   f"{rows[-1]['plain_ms']:.3f} ms, library "
-                  f"{rows[-1]['library_ms']:.3f} ms, bound "
-                  f"{rows[-1]['bound_ms']:.4f} ms", flush=True)
+                  f"{rows[-1]['library_ms']:.3f} ms; bound "
+                  f"{terms[bound_term]:.4g} ms ({bound_term}; products "
+                  f"{terms['products']:.4g}, exp {terms['exp']:.4g}, bytes "
+                  f"{terms['bytes']:.4g})", flush=True)
     return rows
 
 

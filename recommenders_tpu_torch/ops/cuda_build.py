@@ -2,8 +2,9 @@
 
 Each `csrc/<name>.cu` exposes a plain C interface and compiles on its own
 into `build/recommenders_tpu_torch/lib<name>-<digest>.so` under the
-checkout's root, where `<digest>` hashes the source and the flags, so an
-edited source rebuilds and an unchanged one is reused. The build runs at
+checkout's root, where `<digest>` hashes the source, every shared header
+`csrc/*.cuh` (which any source may include) and the flags, so an edited
+source or header rebuilds and an unchanged one is reused. The build runs at
 first use, never at import: machines without `nvcc` still import every
 module.
 """
@@ -51,11 +52,11 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    source = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(
-        source.read_bytes() + " ".join(NVCC_FLAGS).encode()
-    ).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(names: Iterable[str] = SOURCES) -> Dict[str, str]:
@@ -99,6 +100,11 @@ def library(name: str) -> ctypes.CDLL:
     """The loaded shared library of `csrc/<name>.cu`, built if needed."""
     build((name,))
     return ctypes.CDLL(str(library_path(name)))
+
+
+def sm_count(device: torch.device) -> int:
+    """Streaming multiprocessors of a CUDA device (132 on an H100 SXM)."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def ptr(t: Optional[torch.Tensor]) -> Optional[int]:

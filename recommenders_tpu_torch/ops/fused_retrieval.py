@@ -14,8 +14,12 @@ PyTorch twin `fused_retrieval_loss_reference` (differentiable through
 autograd); for CUDA tensors it launches the kernels or raises. The
 kernels mask ragged tile edges, so every B, C ≥ B and D ≤ 256 runs on
 the kernels (the JAX package falls back to its reference for shapes its
-tiles do not divide). `launches` counts kernel launches (and
-`launches_by_kernel` splits them into fwd, dq and dc).
+tiles do not divide). With bf16 scores the operands are rounded to bf16
+once, in the forward, and the kernels take their products on the tensor
+cores, each split over `_parts` pieces of its loop dimension whose
+partial results a second small kernel folds in a fixed order. `launches`
+counts wrapper launches of a kernel (and `launches_by_kernel` splits
+them into fwd, dq and dc).
 """
 
 from __future__ import annotations
@@ -34,8 +38,12 @@ Tensor = torch.Tensor
 
 MIN_FLOAT = loss_layers.MIN_FLOAT
 
-# Widths the kernels take: each thread owns D/16 accumulator columns.
+# Widths the kernels take (the f32 path: each thread owns D/16
+# accumulator columns; the bf16 path: D padded to 16, at most 32 n-blocks
+# of 8 a warp), and the rows of each kernel tile.
 _MAX_DIM = 256
+_TILE = 64
+_BLOCKS_PER_SM = 2
 
 
 def _check(q: Tensor, c: Tensor, remove_accidental_hits: bool,
@@ -118,8 +126,7 @@ def fused_retrieval_loss(
     inv_temp = 1.0 / temperature if temperature is not None else 1.0
     config = (inv_temp, score_dtype == torch.bfloat16)
     return _FusedRetrievalCE.apply(
-        q.to(torch.float32).contiguous(), c.to(torch.float32).contiguous(),
-        logq, ids, w, config,
+        q.to(torch.float32), c.to(torch.float32), logq, ids, w, config,
     )
 
 
@@ -132,11 +139,12 @@ def _kernel_fns():
     lib = cuda_build.library("fused_retrieval")
     ptr, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     fwd = lib.fused_retrieval_fwd
-    fwd.argtypes = [ptr, ptr, i, i, i, ptr, ptr, i, f, i, ptr, ptr, ptr]
+    fwd.argtypes = [ptr, ptr, i, i, i, ptr, ptr, i, f, i, i, ptr, ptr, ptr,
+                    ptr]
     fwd.restype = i
     bwd = lib.fused_retrieval_bwd
-    bwd.argtypes = [i, ptr, ptr, i, i, i, ptr, ptr, i, f, i, ptr, ptr, f,
-                    ptr, ptr]
+    bwd.argtypes = [i, ptr, ptr, i, i, i, ptr, ptr, i, f, i, ptr, ptr, f, i,
+                    ptr, ptr, ptr]
     bwd.restype = i
     lib.fused_retrieval_error_string.argtypes = [i]
     lib.fused_retrieval_error_string.restype = ctypes.c_char_p
@@ -151,28 +159,54 @@ def _score_args(inv_temp: float, bf16: bool):
     return int(has_div), (1.0 / inv_temp) if has_div else 1.0, int(bf16)
 
 
+def _parts(own_rows: int, loop_rows: int, sms: int) -> int:
+    """Pieces the tensor-core kernels split their loop dimension into: a
+    block of 4 warps owns 64 rows of the output, and the grid should hold
+    `_BLOCKS_PER_SM` blocks an SM (at `bench.py`'s shape 4 were slower
+    than 2: more parts to write and fold; `tools/kernel_ab.py k2-parts`),
+    without a piece of less than one 64-row tile."""
+    blocks = -(-own_rows // _TILE)
+    want = -(-_BLOCKS_PER_SM * sms // blocks)
+    return max(1, min(-(-loop_rows // _TILE), want))
+
+
+def _check_operands(q, c, tensors, bf16):
+    want = torch.bfloat16 if bf16 else torch.float32
+    for t in (q, c):
+        if t.dtype != want or not t.is_contiguous():
+            raise TypeError(
+                f"operands must be contiguous {want} for "
+                f"{'bf16' if bf16 else 'f32'} scores, got {t.dtype}"
+            )
+    for t in (c,) + tuple(tensors):
+        if t is not None and t.device != q.device:
+            raise ValueError(f"tensor on {t.device}, queries on {q.device}")
+
+
 def forward_kernel(q, c, logq, ids, config):
     """Launches the forward kernel: `(lse [B], pos [B])` f32.
 
-    `q [B, D]` and `c [C, D]` are contiguous f32 CUDA tensors; `logq`
-    (`[C]` f32) and `ids` (`[C]` int32) may be None; `config` is
-    `(inv_temp, bf16)`.
+    `q [B, D]` and `c [C, D]` are contiguous CUDA tensors, bf16 when
+    `config = (inv_temp, bf16)` asks for bf16 scores and f32 otherwise;
+    `logq` (`[C]` f32) and `ids` (`[C]` int32) may be None.
     """
     inv_temp, bf16 = config
+    _check_operands(q, c, (logq, ids), bf16)
     b, d = q.shape
     cn = c.shape[0]
-    for t in (c, logq, ids):
-        if t is not None and t.device != q.device:
-            raise ValueError(f"tensor on {t.device}, queries on {q.device}")
     lse = torch.empty(b, dtype=torch.float32, device=q.device)
     pos = torch.empty(b, dtype=torch.float32, device=q.device)
+    parts = _parts(b, cn, cuda_build.sm_count(q.device)) if bf16 else 1
+    scratch = (torch.empty(3 * parts * b, dtype=torch.float32,
+                           device=q.device) if bf16 else None)
     fwd, _, error_string = _kernel_fns()
     has_div, divisor, bf = _score_args(inv_temp, bf16)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fwd(q.data_ptr(), c.data_ptr(), b, cn, d,
                   cuda_build.ptr(logq), cuda_build.ptr(ids), has_div,
-                  divisor, bf, lse.data_ptr(), pos.data_ptr(), stream)
+                  divisor, bf, parts, cuda_build.ptr(scratch),
+                  lse.data_ptr(), pos.data_ptr(), stream)
     cuda_build.raise_on(err, "fused_retrieval fwd", error_string)
     fused_retrieval_loss.launches += 1
     fused_retrieval_loss.launches_by_kernel["fwd"] += 1
@@ -181,23 +215,26 @@ def forward_kernel(q, c, logq, ids, config):
 
 def backward_kernel(name, q, c, logq, ids, w, lse, config):
     """Launches the dq (`name="dq"`, → `[B, D]`) or dc (`"dc"`, →
-    `[C, D]`) kernel: the gradient of the summed loss for an upstream
-    grad of 1, without dq's per-query weights (dc applies `w`, which may
-    be None)."""
+    `[C, D]`) kernel, f32: the gradient of the summed loss for an
+    upstream grad of 1, without dq's per-query weights (dc applies `w`,
+    which may be None). Operands as `forward_kernel` takes them."""
     inv_temp, bf16 = config
+    _check_operands(q, c, (logq, ids, w, lse), bf16)
     b, d = q.shape
     cn = c.shape[0]
-    if w is not None and w.device != q.device:
-        raise ValueError(f"weights on {w.device}, queries on {q.device}")
+    own, loop = (b, cn) if name == "dq" else (cn, b)
     _, bwd, error_string = _kernel_fns()
     has_div, divisor, bf = _score_args(inv_temp, bf16)
-    out = torch.empty_like(q if name == "dq" else c)
+    out = torch.empty((own, d), dtype=torch.float32, device=q.device)
+    parts = _parts(own, loop, cuda_build.sm_count(q.device)) if bf16 else 1
+    scratch = (torch.empty(parts * own * d, dtype=torch.float32,
+                           device=q.device) if bf16 else None)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = bwd({"dq": 0, "dc": 1}[name], q.data_ptr(), c.data_ptr(), b,
                   cn, d, cuda_build.ptr(logq), cuda_build.ptr(ids), has_div,
                   divisor, bf, lse.data_ptr(), cuda_build.ptr(w), inv_temp,
-                  out.data_ptr(), stream)
+                  parts, cuda_build.ptr(scratch), out.data_ptr(), stream)
     cuda_build.raise_on(err, f"fused_retrieval {name}", error_string)
     fused_retrieval_loss.launches += 1
     fused_retrieval_loss.launches_by_kernel[name] += 1
@@ -205,10 +242,15 @@ def backward_kernel(name, q, c, logq, ids, w, lse, config):
 
 
 class _FusedRetrievalCE(torch.autograd.Function):
-    """Forward and backward of the fused loss, each a CUDA kernel."""
+    """Forward and backward of the fused loss, each a CUDA kernel. With
+    bf16 scores the f32 operands are rounded to bf16 once, here (the RN
+    rounding the twin applies), and the bf16 copies are what the backward
+    keeps."""
 
     @staticmethod
     def forward(ctx, q, c, logq, ids, w, config):
+        dtype = torch.bfloat16 if config[1] else torch.float32
+        q, c = q.to(dtype).contiguous(), c.to(dtype).contiguous()
         lse, pos = forward_kernel(q, c, logq, ids, config)
         per_example = lse - pos
         if w is not None:

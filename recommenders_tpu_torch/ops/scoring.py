@@ -13,8 +13,11 @@ Port of `recommenders_tpu/ops/scoring.py:48-499`. The serving op is
 `bucketed_scores` is the wrapper of the hand-written CUDA kernel
 `csrc/bucketed_scores.cu`. For a tensor on the CPU it runs the kernel's
 plain PyTorch twin `bucketed_scores_reference`; for a CUDA tensor it
-launches the kernel or raises. Its `launches` attribute counts the
-launches (and `launches_by_format` splits them by corpus format).
+launches the kernel or raises. The bf16, int8 and int4 bodies multiply on
+the tensor cores; `_tc_plan` picks their query tile and how many blocks
+share one tile's walk over the row groups (a second small kernel merges
+those). Its `launches` attribute counts wrapper launches of the kernel
+(and `launches_by_format` splits them by corpus format).
 """
 
 from __future__ import annotations
@@ -39,12 +42,17 @@ MIN_FLOAT = topk_ops.MIN_FLOAT
 # of index settings is valid for both packages.
 _LANES = 128
 
-# Limits of the CUDA kernel: the query tile [64, D] f32 lives in shared
-# memory (≤ 227 KB a block), row ids are int32, and the grid's second
-# dimension holds one block per 64 queries.
+# Limits of the CUDA kernel: the query tile ([64, D] f32, or [128, D] /
+# [64, D] bf16 on the tensor-core path) lives in shared memory (≤ 227 KB
+# a block), row ids are int32, and the grid's second dimension holds one
+# block per 64 or 128 queries.
 _MAX_DIM = 768
 _MAX_ROWS = 2**31 - 1
 _MAX_QUERIES = 65535 * 64
+# Buckets a block owns, and the widest D the tensor-core path holds 128
+# queries of in shared memory (64 above it).
+_BUCKET_TILE = 64
+_TC_WIDE_DIM = 512
 
 _FORMAT_ROWS, _FORMAT_INT8, _FORMAT_PACKED4 = 0, 1, 2
 
@@ -162,12 +170,23 @@ def _kernel_fn():
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-        ctypes.c_longlong, ctypes.c_float, ctypes.c_void_p,
+        ctypes.c_longlong, ctypes.c_float, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
     ]
     fn.restype = ctypes.c_int
     lib.bucketed_scores_error_string.argtypes = [ctypes.c_int]
     lib.bucketed_scores_error_string.restype = ctypes.c_char_p
     return fn, lib.bucketed_scores_error_string
+
+
+def _tc_plan(qn: int, n: int, d: int, buckets: int,
+             sms: int) -> Tuple[int, int]:
+    """(query tile, splits) of the tensor-core path: a block owns a query
+    tile × 64 buckets; where those blocks are fewer than two an SM, the
+    walk over the `n / buckets` row groups is split over more blocks."""
+    tq = 128 if d <= _TC_WIDE_DIM else 64
+    blocks = -(-buckets // _BUCKET_TILE) * -(-qn // tq)
+    return tq, max(1, min(n // buckets, -(-2 * sms // blocks)))
 
 
 def _launch(
@@ -227,6 +246,14 @@ def _launch(
 
     vals = torch.empty((qn, buckets), dtype=torch.float32, device=device)
     rows = torch.empty((qn, buckets), dtype=torch.int32, device=device)
+    tq, splits, split_vals, split_rows = 64, 1, None, None
+    if name != "f32":
+        tq, splits = _tc_plan(qn, n, d, buckets, cuda_build.sm_count(device))
+    if splits > 1:
+        split_vals = torch.empty((splits, qn, buckets), dtype=torch.float32,
+                                 device=device)
+        split_rows = torch.empty((splits, qn, buckets), dtype=torch.int32,
+                                 device=device)
     fn, error_string = _kernel_fn()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
@@ -234,7 +261,8 @@ def _launch(
             fmt, int(queries.dtype == torch.bfloat16),
             queries.data_ptr(), candidates.data_ptr(),
             cuda_build.ptr(scales), vals.data_ptr(), rows.data_ptr(),
-            qn, n, d, buckets, valid_rows, MIN_FLOAT, stream,
+            qn, n, d, buckets, valid_rows, MIN_FLOAT, tq, splits,
+            cuda_build.ptr(split_vals), cuda_build.ptr(split_rows), stream,
         )
     cuda_build.raise_on(err, "bucketed_scores", error_string)
     bucketed_scores.launches += 1

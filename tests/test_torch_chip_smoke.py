@@ -7,6 +7,7 @@ of the script must pass, and the kernels' report must carry every key
 the script promises.
 """
 
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -106,7 +107,33 @@ def test_training_phases_pass_on_cpu_at_a_tiny_size(capsys):
         assert row["max_abs_err"] == 0.0   # the twin against itself
     assert report[0]["library_ms"] is None
     assert all(r["library_ms"] > 0 for r in report[1:])
+    # K2's bound is the largest of its products at the bf16 peak, its
+    # exps at the SFU rate and its bytes; each term is printed on the
+    # kernel's own line, and the row carries the largest as `bound_ms`.
     out = capsys.readouterr().out
+    for row in report[1:]:
+        name = row["name"].split("_")[-1].split("[")[0]
+        line = re.search(
+            rf"K2 {name}: kernel .* bound (\S+) ms \((\w+); products (\S+), "
+            rf"exp (\S+), bytes (\S+)\)", out)
+        assert line is not None
+        terms = dict(zip(("products", "exp", "bytes"),
+                         map(float, line.groups()[2:])))
+        assert all(v > 0 for v in terms.values())
+        assert line[2] == max(terms, key=terms.get)
+        assert float(line[1]) == terms[line[2]]
+        assert row["bound_ms"] == pytest.approx(terms[line[2]], rel=1e-3)
+        assert row["bound_by"] == ("bytes" if line[2] == "bytes"
+                                   else "operations")
+    q, c = torch.zeros(4096, 64), torch.zeros(4096, 64)
+    fwd, dq, dc = (chip_smoke.k2_bound_terms(n, q, c, 132, 1.98e9)
+                   for n in ("fwd", "dq", "dc"))
+    assert set(fwd) == {"products", "exp", "bytes"}
+    assert dq["products"] == dc["products"] == pytest.approx(
+        2 * fwd["products"])
+    assert dq["exp"] == dc["exp"] == fwd["exp"]
+    assert fwd["exp"] == pytest.approx(4096 * 4096 / (16 * 132 * 1.98e9)
+                                       * 1e3)
     for name in ("train", "parity", "train kernels", "train timing"):
         assert f"phase {name}: ok" in out
     for kind in chip_smoke.KINDS:
@@ -134,3 +161,18 @@ def test_main_fails_without_cuda_and_prints_no_result():
     assert proc.returncode != 0
     assert '"ok"' not in proc.stdout
     assert "CUDA is not available" in proc.stderr
+
+
+@pytest.mark.parametrize("what", ["k2-parts", "k3-f32"])
+def test_kernel_ab_fails_without_cuda(what):
+    if torch.cuda.is_available():
+        pytest.skip("CUDA is present; this checks the CPU-only refusal")
+    proc = subprocess.run(
+        [sys.executable,
+         str(ROOT / "recommenders_tpu_torch" / "tools" / "kernel_ab.py"),
+         what],
+        capture_output=True, text=True, timeout=300,
+    )
+    assert proc.returncode != 0
+    assert proc.stdout == ""
+    assert "no CUDA device" in proc.stderr

@@ -1,0 +1,74 @@
+"""The port's kernel build digest and the launch plans of its tensor-core
+kernels, on the CPU (no `nvcc` and no card needed: these are the parts of
+the build and the launch decided in Python)."""
+
+import shutil
+
+import pytest
+
+from recommenders_tpu_torch.ops import cuda_build
+from recommenders_tpu_torch.ops import fused_retrieval
+from recommenders_tpu_torch.ops import scoring
+
+
+@pytest.fixture
+def csrc_copy(tmp_path, monkeypatch):
+    copy = tmp_path / "csrc"
+    shutil.copytree(cuda_build.CSRC, copy)
+    monkeypatch.setattr(cuda_build, "CSRC", copy)
+    return copy
+
+
+def test_every_source_exists_and_paths_differ():
+    paths = {cuda_build.library_path(n) for n in cuda_build.SOURCES}
+    assert len(paths) == len(cuda_build.SOURCES)
+    for name in cuda_build.SOURCES:
+        assert (cuda_build.CSRC / f"{name}.cu").is_file()
+
+
+@pytest.mark.parametrize("name", cuda_build.SOURCES)
+def test_edited_header_changes_every_library_path(csrc_copy, name):
+    headers = sorted(csrc_copy.glob("*.cuh"))
+    assert headers, "the tensor-core kernels share a header"
+    before = cuda_build.library_path(name)
+    assert cuda_build.library_path(name) == before   # stable
+    with open(headers[0], "a") as f:
+        f.write("\n// edited\n")
+    assert cuda_build.library_path(name) != before
+
+
+def test_edited_source_changes_only_its_own_path(csrc_copy):
+    before = {n: cuda_build.library_path(n) for n in cuda_build.SOURCES}
+    with open(csrc_copy / "bucketed_scores.cu", "a") as f:
+        f.write("\n// edited\n")
+    after = {n: cuda_build.library_path(n) for n in cuda_build.SOURCES}
+    for name in cuda_build.SOURCES:
+        assert (after[name] != before[name]) == (name == "bucketed_scores")
+
+
+@pytest.mark.parametrize("own,loop,parts", [
+    (4096, 4096, 5),     # bench.py's step: 64 row tiles, 320 blocks
+    (100, 333, 6),       # 2 row tiles; the loop's 6 tiles cap the parts
+    (64, 64, 1),         # one loop tile: no split
+    (40000, 4096, 1),    # enough row tiles alone
+])
+def test_fused_retrieval_parts_fill_the_card(own, loop, parts):
+    assert fused_retrieval._parts(own, loop, 132) == parts
+    blocks = -(-own // 64)
+    assert parts <= -(-loop // 64)
+    assert blocks * parts >= 2 * 132 or parts == -(-loop // 64)
+
+
+@pytest.mark.parametrize("qn,n,d,buckets,plan", [
+    (1024, 1 << 20, 128, 4096, (128, 1)),    # bf16 / int8: 512 blocks
+    (1024, 1 << 20, 128, 2048, (128, 2)),    # int4: 256 blocks, split in 2
+    (1024, 65536, 128, 2048, (128, 2)),      # the GPU tests' split case
+    (8, 1024, 128, 512, (128, 2)),           # 2 groups cap the split
+    (64, 8192, 768, 256, (64, 32)),          # wide D: 64-query tiles
+])
+def test_bucketed_plan_fills_the_card(qn, n, d, buckets, plan):
+    tq, splits = scoring._tc_plan(qn, n, d, buckets, 132)
+    assert (tq, splits) == plan
+    blocks = -(-buckets // 64) * -(-qn // tq)
+    assert splits <= n // buckets
+    assert blocks * splits >= 264 or splits == n // buckets

@@ -7,10 +7,15 @@ only torch and the port, so it also runs on a machine without JAX:
     python -m pytest tests/test_torch_cuda_kernels.py -q --noconftest
 
 Tolerance: the kernel and the twin take the same products in f32 in a
-different order, so scores agree to |Δ| ≤ D·2⁻²³·Σ|q||c| of each winner
-(the a-priori bound of an f32 sum), and ids are equal wherever the
-twin's bucket winner beats its runner-up by more than twice that.
+different order (the bf16, int8 and int4 bodies on the tensor cores,
+whose f32 sums may truncate), so scores agree to |Δ| ≤ D·2⁻²³·Σ|q||c| of
+each winner (the a-priori bound of an f32 sum that truncates), and ids
+are equal wherever the twin's bucket winner beats its runner-up by more
+than twice that. Every case launches twice and needs bit-identical
+results.
 """
+
+import math
 
 import pytest
 import torch
@@ -47,23 +52,45 @@ def _inputs(fmt, q, n, d, device):
     return queries, codes, scales, bits == 4, deq
 
 
+def _inputs_with_ties(fmt, q, n, buckets, d, device):
+    """`_inputs` whose every row group repeats group 0, so every score
+    ties across the groups of its bucket."""
+    g = torch.Generator(device=device).manual_seed(0)
+    queries = torch.randn(q, d, device=device, generator=g)
+    corpus = torch.randn(buckets, d, device=device, generator=g).repeat(
+        n // buckets, 1)
+    if fmt in ("f32", "bf16"):
+        dtype = torch.float32 if fmt == "f32" else torch.bfloat16
+        return queries.to(dtype), corpus.to(dtype), None, False
+    bits = 4 if fmt == "int4" else 8
+    scales, codes = quantization.quantize_rows_device(corpus, 0.2, bits=bits)
+    if bits == 4:
+        codes = quantization.pack_nibbles(codes)
+    return queries, codes, scales, bits == 4
+
+
 @pytest.mark.parametrize("fmt", FORMATS)
-@pytest.mark.parametrize("q,n,buckets,valid", [
-    (40, 8192, 256, 8000), (64, 4096, 512, 4096), (8, 1024, 1024, 300),
+@pytest.mark.parametrize("q,n,buckets,valid,d", [
+    (40, 8192, 256, 8000, 128), (64, 4096, 512, 4096, 128),
+    (8, 1024, 1024, 300, 128),
+    (1024, 65536, 2048, 65536, 128),  # the tensor-core bodies split the walk
+    (130, 12800, 160, 12700, 128),    # ragged query and bucket tiles
+    (70, 4096, 256, 4000, 640),       # D > 512: 64-query tiles, 5 stages a group
 ])
-def test_kernel_matches_twin(device, fmt, q, n, buckets, valid):
-    queries, stored, scales, packed4, deq = _inputs(fmt, q, n, 128, device)
+def test_kernel_matches_twin(device, fmt, q, n, buckets, valid, d):
+    queries, stored, scales, packed4, deq = _inputs(fmt, q, n, d, device)
     chunk = buckets
-    if packed4:  # int4 needs the buckets to divide chunk/2.
+    if packed4:  # int4 needs the buckets to divide chunk/2, 128 | chunk/2.
         buckets = min(buckets, n // 2)
-        chunk = 2 * buckets
+        chunk = 2 * math.lcm(buckets, 128)
     before = scoring.bucketed_scores.launches
-    vals, rows = scoring.bucketed_scores(
-        queries, stored, scales, buckets=buckets, chunk=chunk,
-        query_tile=q, valid_rows=valid, packed4=packed4,
-    )
+    kw = dict(buckets=buckets, chunk=chunk, query_tile=q, valid_rows=valid,
+              packed4=packed4)
+    vals, rows = scoring.bucketed_scores(queries, stored, scales, **kw)
+    again_v, again_r = scoring.bucketed_scores(queries, stored, scales, **kw)
     torch.cuda.synchronize()
-    assert scoring.bucketed_scores.launches == before + 1
+    assert scoring.bucketed_scores.launches == before + 2
+    assert torch.equal(vals, again_v) and torch.equal(rows, again_r)
     ref_v, ref_r = scoring.bucketed_scores_reference(
         queries, stored, scales, buckets=buckets, valid_rows=valid,
         packed4=packed4,
@@ -72,7 +99,7 @@ def test_kernel_matches_twin(device, fmt, q, n, buckets, valid):
     if scales is not None:
         qf = queries.bfloat16().float()
     abs_dot = (qf.abs()[:, None, :] * deq.abs()[ref_r.long()]).sum(-1)
-    tol = 128 * 2.0**-23 * abs_dot + 1e-30
+    tol = d * 2.0**-23 * abs_dot + 1e-30
     assert ((vals - ref_v).abs() <= tol).all()
     scores = (qf @ deq.T).masked_fill(
         torch.arange(n, device=device) >= valid, scoring.MIN_FLOAT
@@ -83,6 +110,32 @@ def test_kernel_matches_twin(device, fmt, q, n, buckets, valid):
     separated &= live
     assert separated.sum() >= 0.9 * live.sum()
     assert (rows[separated] == ref_r[separated]).all()
+
+
+@pytest.mark.parametrize("fmt", FORMATS)
+@pytest.mark.parametrize("q,n,buckets", [(64, 8192, 512), (256, 16384, 128)])
+def test_kernel_ties_go_to_the_lowest_row(device, fmt, q, n, buckets):
+    """Every group repeats group 0, so each bucket's best score ties over
+    all its rows (split walks and merges included): the kernel must
+    report group 0's row, with the twin's value."""
+    queries, stored, scales, packed4 = _inputs_with_ties(fmt, q, n, buckets,
+                                                         128, device)
+    vals, rows = scoring.bucketed_scores(
+        queries, stored, scales, buckets=buckets,
+        chunk=2 * buckets if packed4 else buckets, query_tile=q,
+        valid_rows=n, packed4=packed4)
+    torch.cuda.synchronize()
+    ref_v, _ = scoring.bucketed_scores_reference(
+        queries, stored, scales, buckets=buckets, valid_rows=n,
+        packed4=packed4)
+    want = torch.arange(buckets, dtype=torch.int32, device=device)
+    assert torch.equal(rows, want.expand(q, buckets))
+    qf = queries.bfloat16().float() if scales is not None else queries.float()
+    deq = (quantization.unpack_nibbles(stored) if packed4 else stored).float()
+    if scales is not None:
+        deq = deq * scales[:, None]
+    tol = 128 * 2.0**-23 * (qf.abs() @ deq[:buckets].abs().T)
+    assert ((vals - ref_v).abs() <= tol).all()
 
 
 def test_kernel_refuses_bad_inputs(device):
@@ -203,7 +256,8 @@ def test_sparse_apply_kernel_empty_update_launches_nothing(device):
 
 @pytest.mark.parametrize("score_dtype", [None, torch.bfloat16])
 @pytest.mark.parametrize("b,c,d", [(256, 256, 64), (100, 333, 40),
-                                   (64, 64, 256)])
+                                   (64, 64, 256), (4096, 4096, 64),
+                                   (129, 4099, 72), (70, 200, 36)])
 @pytest.mark.parametrize("knobs", ["none", "all"])
 def test_fused_retrieval_kernels_match_twin(device, score_dtype, b, c, d,
                                             knobs):
@@ -232,9 +286,12 @@ def test_fused_retrieval_kernels_match_twin(device, score_dtype, b, c, d,
 
     before = dict(fused_retrieval.fused_retrieval_loss.launches_by_kernel)
     loss, dq, dc = run(fused_retrieval.fused_retrieval_loss)
+    again = run(fused_retrieval.fused_retrieval_loss)
     torch.cuda.synchronize()
     after = fused_retrieval.fused_retrieval_loss.launches_by_kernel
-    assert all(after[k] == before[k] + 1 for k in before)
+    assert all(after[k] == before[k] + 2 for k in before)
+    # Parts fold in a fixed order, without atomics: bit-identical runs.
+    assert all(torch.equal(x, y) for x, y in zip((loss, dq, dc), again))
     tloss, tdq, tdc = run(fused_retrieval.fused_retrieval_loss_reference)
     assert abs(float(loss - tloss)) <= 1e-5 * abs(float(tloss))
     for got, want in ((dq, tdq), (dc, tdc)):
