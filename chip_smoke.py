@@ -49,8 +49,13 @@ path `int8_bucketed` (L=1024, P=256, int8, B=4096, probe tile 64;
      exclusions);
  16. hold K4 and K5 against their plain twins at the served shapes, for
      f32 and bf16 rows, int8 and int4 (f32 by direct calls on the bf16
-     indexes' leaves cast to f32), and time the kernels, the twins and the
-     gather + matmul formulation;
+     indexes' leaves cast to f32; two launches must agree bit for bit),
+     and time the kernels (as eager wrapper calls between CUDA events, and
+     by CUDA-graph replay of the wrapper, its plan included), the twins
+     and the gather +
+     matmul formulation (at the full shape, in chunks of at most 4 GB of
+     gather, and on the twins' subset); bf16 rows' bound counts three
+     bf16 passes;
  17. recall@100 of every index against BruteForce, each above its floor
      (`SCANN_RECALL_FLOORS`), and the kernel path against the twin path
      (the index copied to the CPU) on 64 queries.
@@ -1177,6 +1182,9 @@ class ScannSize:
 # Queries (K4) and query tiles (K5) the twins score against the kernels.
 K4_TWIN_QUERIES = 16
 K5_TWIN_TILES = 2
+# Bytes of the gather (and its casts) one chunk of the full-shape gather +
+# matmul yardstick may form.
+GATHER_CHUNK_BYTES = 4 * 2**30
 # Queries that both the kernel path and the twin path serve.
 PATH_QUERIES = 64
 # Recall@100 floors; they hold for the full corpus (`full_corpus`) only.
@@ -1398,6 +1406,20 @@ def gather_matmul(qt, leaves, scales, probes, packed4):
                         .view(t, p * cap, d).transpose(1, 2))
 
 
+def gather_matmul_chunks(qt, leaves, scales, probes, packed4):
+    """`gather_matmul` over all of `qt [t, T, D]`, in chunks of tiles whose
+    gather and casts stay within GATHER_CHUNK_BYTES; returns the call."""
+    t, num_probes = probes.shape
+    elems = num_probes * leaves[0].numel() * (2 if packed4 else 1)
+    stored = leaves.element_size() / (2 if packed4 else 1)
+    per_tile = elems * (stored + (1 if packed4 else 0)
+                        + (2 if scales is not None else 4))
+    step = max(1, int(GATHER_CHUNK_BYTES // per_tile))
+    return lambda: [gather_matmul(qt[i:i + step], leaves, scales,
+                                  probes[i:i + step], packed4)
+                    for i in range(0, t, step)]
+
+
 def leaf_bytes(leaves, scales, cap: int, with_rows: bool) -> int:
     """Bytes of one stored leaf of `cap` slots: rows or codes, scales,
     and (K5) the slots' global rows."""
@@ -1409,26 +1431,83 @@ def leaf_bytes(leaves, scales, cap: int, with_rows: bool) -> int:
     return per
 
 
-def leaf_peak(fmt: str) -> float:
-    """Peak rate of the products: f32 rows and bf16 rows (promoted) meet an
-    f32 query; codes meet a bf16 query, exact in bf16."""
-    return PEAK_OPS_PER_S["f32" if fmt in ("f32", "bf16") else "bf16"]
+def leaf_passes(fmt: str) -> int:
+    """bf16 products per product: bf16 rows meet the f32 query as three
+    exact bf16 terms (h + m + l); codes meet it rounded once."""
+    return 3 if fmt == "bf16" else 1
+
+
+def leaf_ops_ms(fmt: str, products: float) -> float:
+    """Least time of `products` multiply-adds: f32 rows at the f32 peak
+    (CUDA cores), the others' bf16 passes at the bf16 tensor-core peak."""
+    if fmt == "f32":
+        return 2.0 * products / PEAK_OPS_PER_S["f32"] * 1e3
+    return 2.0 * leaf_passes(fmt) * products / PEAK_OPS_PER_S["bf16"] * 1e3
+
+
+def leaf_bound_terms(fmt: str, bytes_ms: float, ops_ms: float) -> str:
+    passes = ("f32" if fmt == "f32"
+              else f"{leaf_passes(fmt)} bf16 pass(es)")
+    return f"bytes {bytes_ms:.4f} ms, operations {ops_ms:.4f} ms ({passes})"
+
+
+@dataclasses.dataclass(frozen=True)
+class LeafCall:
+    """K4's or K5's call on an index's leaves in one format for a served
+    chunk, with the inputs the index's search gives the kernel; calling it
+    runs the wrapper on `queries` and `probes`, or on other ones."""
+    kernel: str                 # "K4" or "K5"
+    leaves: torch.Tensor
+    scales: torch.Tensor | None
+    packed4: bool
+    rows: torch.Tensor          # [L, cap] global row of each slot
+    tile: int                   # K5: queries a probe tile
+    buckets: int                # K5: buckets, clamped to cap
+    queries: torch.Tensor       # K4: the chunk; K5: in tile order
+    probes: torch.Tensor        # K4: [Q, P]; K5: [tiles, P]
+
+    def __call__(self, queries=None, probes=None):
+        q = self.queries if queries is None else queries
+        p = self.probes if probes is None else probes
+        if self.kernel == "K4":
+            return leaf_scoring.probed_leaf_scores(
+                q, self.leaves, self.scales, p, packed4=self.packed4)
+        return leaf_scoring.probed_bucketed_scores(
+            q, self.leaves, self.scales, self.rows, p, self.buckets,
+            query_tile=self.tile, packed4=self.packed4)
+
+
+def leaf_call(index, kernel: str, fmt: str, chunk) -> LeafCall:
+    """`kernel`'s call in format `fmt` on `index`'s leaves for `chunk`
+    [query_batch, D], its probes taken as the index's search takes them
+    (K4: each query's top centroids; K5: `_tile_probes`)."""
+    leaves, scales, packed4 = leaf_inputs(index, fmt)
+    rows = index._leaf_rows
+    with scoring._full_f32_matmul():
+        cscores = chunk @ index._centroids.T
+    tile, buckets = index._probe_tile, 0
+    if kernel == "K4":
+        queries = chunk
+        probes = torch.topk(cscores, index._num_probes,
+                            dim=1).indices.to(torch.int32)
+    else:
+        queries, probes, _ = approximate._tile_probes(
+            chunk, cscores, index._num_probes, tile)
+        buckets = min(index._scoring_buckets, rows.shape[1])
+    return LeafCall(kernel, leaves, scales, packed4, rows, tile, buckets,
+                    queries, probes)
 
 
 def check_k4(index, fmt, chunk, launches, device) -> dict:
     """K4 of format `fmt` against its twin on `index`'s leaves, at the
     served chunk `chunk` [query_batch, D]; times and bound."""
-    leaves, scales, packed4 = leaf_inputs(index, fmt)
+    kernel = leaf_call(index, "K4", fmt, chunk)
+    leaves, scales, packed4 = kernel.leaves, kernel.scales, kernel.packed4
+    probes = kernel.probes
     cap = index._leaf_rows.shape[1]
-    with scoring._full_f32_matmul():
-        probes = torch.topk(chunk @ index._centroids.T, index._num_probes,
-                            dim=1).indices.to(torch.int32)
-
-    def kernel(q=chunk, p=probes):
-        return leaf_scoring.probed_leaf_scores(q, leaves, scales, p,
-                                               packed4=packed4)
 
     out = kernel()
+    check(torch.equal(out, kernel()), f"K4 {fmt}: two launches differ")
     nq = min(K4_TWIN_QUERIES, chunk.shape[0])
     sub_q, sub_p = chunk[:nq], probes[:nq]
 
@@ -1448,15 +1527,18 @@ def check_k4(index, fmt, chunk, launches, device) -> dict:
           f"K4 {fmt}: scores off the twin by {float(err.max())}")
     qn, p = probes.shape
     ms = device_ms(kernel, device, iters=10)
+    replay_ms = graph_ms(kernel, device, launches=10, replays=3)
     sub_ms = device_ms(lambda: kernel(sub_q, sub_p), device, iters=10)
     plain_ms = device_ms(twin, device, iters=3)
-    gm_ms = device_ms(lambda: gather_matmul(sub_q[:, None], leaves, scales,
-                                            sub_p, packed4), device, iters=3)
+    gm_sub_ms = device_ms(lambda: gather_matmul(
+        sub_q[:, None], leaves, scales, sub_p, packed4), device, iters=3)
+    gm_ms = device_ms(gather_matmul_chunks(chunk[:, None], leaves, scales,
+                                           probes, packed4), device, iters=2)
     unique = int(torch.unique(probes).numel())
     in_bytes = (unique * leaf_bytes(leaves, scales, cap, False)
                 + chunk.numel() * 4 + probes.numel() * 4)
     bytes_ms = (in_bytes + out.nbytes) / HBM_BYTES_PER_S * 1e3
-    ops_ms = 2.0 * qn * p * cap * DIM / leaf_peak(fmt) * 1e3
+    ops_ms = leaf_ops_ms(fmt, qn * p * cap * DIM)
     # JAX's cost estimate (`leaf_scoring.py:188-197`) reads the probed
     # leaf once per (query, probe); printed beside the bound, not a bound.
     jax_bytes = (qn * p * leaves[0].numel() * leaves.element_size()
@@ -1476,16 +1558,21 @@ def check_k4(index, fmt, chunk, launches, device) -> dict:
         "library_ms": None,
         # The f32 body runs by a direct call only.
         "on_main_path": fmt != "f32",
+        "graph_ms": replay_ms,
         "gather_matmul_ms": gm_ms,
+        "gather_matmul_subset_ms": gm_sub_ms,
         "subset_ms": sub_ms,
         "shape": f"Q={qn} P={p} cap={cap} D={DIM} L={leaves.shape[0]}"
-                 f" ({unique} leaves probed); twin, gather+matmul and "
-                 f"subset on {nq} queries",
+                 f" ({unique} leaves probed); gather+matmul at full shape "
+                 f"and on {nq} queries; twin and subset on {nq} queries",
     }
-    print(f"  K4 {fmt}: max |err| {float(err.max()):.3g}; kernel {ms:.3f} ms"
-          f" at Q={qn}, {sub_ms:.3f} ms at Q={nq}; twin {plain_ms:.3f} ms, "
-          f"gather+matmul {gm_ms:.3f} ms at Q={nq}; bound "
-          f"{row['bound_ms']:.4f} ms ({row['bound_by']}); JAX's cost "
+    print(f"  K4 {fmt}: max |err| {float(err.max()):.3g}, two launches "
+          f"bit-identical; kernel {ms:.3f} ms a wrapper call at Q={qn} "
+          f"({replay_ms:.3f} by graph replay), {sub_ms:.3f} ms at Q={nq}; "
+          f"gather+matmul {gm_ms:.3f} ms at Q={qn}, {gm_sub_ms:.3f} "
+          f"ms at Q={nq}; twin {plain_ms:.3f} ms at Q={nq}; bound "
+          f"{row['bound_ms']:.4f} ms "
+          f"({leaf_bound_terms(fmt, bytes_ms, ops_ms)}); JAX's cost "
           f"estimate counts {jax_bytes / 1e9:.4f} GB", flush=True)
     return row
 
@@ -1494,22 +1581,17 @@ def check_k5(index, fmt, chunk, launches, device) -> dict:
     """K5 of format `fmt` against its twin on `index`'s leaves, at the
     served chunk; rows equal wherever the twin's winner beats the
     bucket's best other row by more than twice the score bound."""
-    leaves, scales, packed4 = leaf_inputs(index, fmt)
-    rows_tbl = index._leaf_rows
+    kernel = leaf_call(index, "K5", fmt, chunk)
+    leaves, scales, packed4 = kernel.leaves, kernel.scales, kernel.packed4
+    rows_tbl, tile, buckets = kernel.rows, kernel.tile, kernel.buckets
+    qs, probes = kernel.queries, kernel.probes
     cap = rows_tbl.shape[1]
-    tile = index._probe_tile
-    buckets = min(index._scoring_buckets, cap)
-    with scoring._full_f32_matmul():
-        cscores = chunk @ index._centroids.T
-    qs, probes, _ = approximate._tile_probes(chunk, cscores,
-                                             index._num_probes, tile)
-
-    def kernel(q=qs, p=probes):
-        return leaf_scoring.probed_bucketed_scores(
-            q, leaves, scales, rows_tbl, p, buckets, query_tile=tile,
-            packed4=packed4)
 
     vals, rows = kernel()
+    again = kernel()
+    check(torch.equal(vals, again[0]) and torch.equal(rows, again[1]),
+          f"K5 {fmt}: two launches differ")
+    del again
     nt = min(K5_TWIN_TILES, probes.shape[0])
     sub_q, sub_p = qs[:nt * tile], probes[:nt]
 
@@ -1547,11 +1629,15 @@ def check_k5(index, fmt, chunk, launches, device) -> dict:
           f"K5 {fmt}: rows differ from the twin's in a separated bucket")
     qn = qs.shape[0]
     ms = device_ms(kernel, device, iters=10)
+    replay_ms = graph_ms(kernel, device, launches=10, replays=3)
     sub_ms = device_ms(lambda: kernel(sub_q, sub_p), device, iters=10)
     plain_ms = device_ms(twin, device, iters=3)
-    gm_ms = device_ms(lambda: gather_matmul(
+    gm_sub_ms = device_ms(lambda: gather_matmul(
         sub_q.view(nt, tile, DIM), leaves, scales, sub_p, packed4),
         device, iters=3)
+    gm_ms = device_ms(gather_matmul_chunks(
+        qs.view(-1, tile, DIM), leaves, scales, probes, packed4),
+        device, iters=2)
     # Least work: each tile scores each distinct probed leaf once.
     sp = torch.sort(probes.long(), dim=1).values
     pairs = int(probes.shape[0] + (sp[:, 1:] != sp[:, :-1]).sum())
@@ -1559,8 +1645,12 @@ def check_k5(index, fmt, chunk, launches, device) -> dict:
     in_bytes = (unique * leaf_bytes(leaves, scales, cap, True)
                 + qs.numel() * 4 + probes.numel() * 4)
     bytes_ms = (in_bytes + vals.nbytes + rows.nbytes) / HBM_BYTES_PER_S * 1e3
-    ops_ms = 2.0 * tile * pairs * cap * DIM / leaf_peak(fmt) * 1e3
+    ops_ms = leaf_ops_ms(fmt, tile * pairs * cap * DIM)
     tiles, p = probes.shape
+    splits = leaf_scoring.bucketed_splits(
+        tiles, tile, buckets, p,
+        cuda_build.sm_count(device) if device.type == "cuda"
+        else H100_SMS)
     # JAX's cost estimate (`leaf_scoring.py:439-449`): each tile reads each
     # of its probed leaves, duplicates too.
     jax_bytes = (tiles * p * (leaf_bytes(leaves, scales, cap, True))
@@ -1578,17 +1668,23 @@ def check_k5(index, fmt, chunk, launches, device) -> dict:
         "bound_by": "bytes" if bytes_ms > ops_ms else "operations",
         "library_ms": None,
         "on_main_path": fmt != "f32",
+        "graph_ms": replay_ms,
         "gather_matmul_ms": gm_ms,
+        "gather_matmul_subset_ms": gm_sub_ms,
         "subset_ms": sub_ms,
         "shape": f"Q={qn} T={tile} P={p} cap={cap} B={buckets} D={DIM} "
                  f"L={leaves.shape[0]} ({pairs} distinct tile-leaf pairs); "
-                 f"twin, gather+matmul and subset on {nt} tiles",
+                 f"gather+matmul at full shape and on {nt} tiles; twin and "
+                 f"subset on {nt} tiles",
     }
     print(f"  K5 {fmt}: max |err| {float(err.max()):.3g}, rows equal in "
-          f"every separated bucket ({share:.4f} of all); kernel {ms:.3f} ms "
-          f"at Q={qn}, {sub_ms:.3f} ms on {nt} tiles; twin {plain_ms:.3f} ms,"
-          f" gather+matmul {gm_ms:.3f} ms on {nt} tiles; bound "
-          f"{row['bound_ms']:.4f} ms ({row['bound_by']}); JAX's cost "
+          f"every separated bucket ({share:.4f} of all), two launches "
+          f"bit-identical; kernel {ms:.3f} ms a wrapper call at Q={qn} "
+          f"({replay_ms:.3f} by graph replay; {splits} splits), "
+          f"{sub_ms:.3f} ms on {nt} tiles; gather+matmul {gm_ms:.3f} ms at "
+          f"Q={qn}, {gm_sub_ms:.3f} ms on {nt} tiles; twin {plain_ms:.3f} "
+          f"ms on {nt} tiles; bound {row['bound_ms']:.4f} ms "
+          f"({leaf_bound_terms(fmt, bytes_ms, ops_ms)}); JAX's cost "
           f"estimate counts {jax_bytes / 1e9:.4f} GB", flush=True)
     return row
 

@@ -220,29 +220,6 @@ bucketed_f32_kernel(const float* __restrict__ q, const float* __restrict__ c,
 constexpr int kKC = 128;           // feature columns per stage
 constexpr int kSlab = kKC + 8;     // bf16 stride of a staged slab row
 
-// Two int8 codes, bytes i and i + 1 of w ^ 0x80808080 (x + 128 each), as
-// bf16 pairs without the quarter-rate int-to-float unit: the f32 with bits
-// 0x4B000000 | (x + 128) is 2^23 + x + 128, so one subtraction gives x
-// exactly, and x (8 significant bits) is the f32's upper half.
-__device__ __forceinline__ uint32_t int8x2_to_bf16x2(uint32_t w, int i) {
-  const float f0 =
-      __uint_as_float(__byte_perm(w, 0x4B000000u, 0x7540 + i)) - 8388736.f;
-  const float f1 =
-      __uint_as_float(__byte_perm(w, 0x4B000000u, 0x7541 + i)) - 8388736.f;
-  return __byte_perm(__float_as_uint(f0), __float_as_uint(f1), 0x7632);
-}
-
-// Two int4 codes as a bf16 pair, from the nibbles n (two's complement) in
-// bits [0, 4) of each 16-bit half of h: 0x4300 | (n ^ 8) is the bf16
-// 128 + n + 8, and subtracting 136 leaves n exactly.
-__device__ __forceinline__ uint32_t int4x2_to_bf16x2(uint32_t h) {
-  const uint32_t v = (h & 0x000F000Fu) ^ 0x43084308u;
-  const __nv_bfloat162 r =
-      __hsub2(*reinterpret_cast<const __nv_bfloat162*>(&v),
-              __floats2bfloat162_rn(136.f, 136.f));
-  return *reinterpret_cast<const uint32_t*>(&r);
-}
-
 // Shared bytes: the query tile, and the slab ring (bf16 rows), or the
 // decoded slab plus the ring of raw code slabs (int8, int4).
 size_t tc_smem(int fmt, int tq, int d) {
@@ -375,16 +352,16 @@ bucketed_tc_kernel(const bf16* __restrict__ q, const void* __restrict__ c,
         for (int j = 0; j < 2; ++j) {
           const uint32_t w = j == 0 ? word.x : word.y;
           if constexpr (FMT == kInt8) {
-            packed[2 * j] = int8x2_to_bf16x2(w ^ 0x80808080u, 0);
-            packed[2 * j + 1] = int8x2_to_bf16x2(w ^ 0x80808080u, 2);
+            packed[2 * j] = tc::int8x2_to_bf16x2(w ^ 0x80808080u, 0);
+            packed[2 * j + 1] = tc::int8x2_to_bf16x2(w ^ 0x80808080u, 2);
           } else {
             // Bytes (0, 1) and (2, 3) spread to the two 16-bit halves;
             // the group's half of the corpus picks the nibble.
             const int shift = high ? 4 : 0;
             packed[2 * j] =
-                int4x2_to_bf16x2(__byte_perm(w, 0u, 0x4140) >> shift);
+                tc::int4x2_to_bf16x2(__byte_perm(w, 0u, 0x4140) >> shift);
             packed[2 * j + 1] =
-                int4x2_to_bf16x2(__byte_perm(w, 0u, 0x4342) >> shift);
+                tc::int4x2_to_bf16x2(__byte_perm(w, 0u, 0x4342) >> shift);
           }
         }
         *reinterpret_cast<uint4*>(slabs + i * kSlab + u * 8) =

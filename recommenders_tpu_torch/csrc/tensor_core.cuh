@@ -37,6 +37,15 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src,
                : "memory");
 }
 
+// The same for 4 bytes (through L1: cp.async.cg takes only 16).
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
@@ -84,6 +93,29 @@ __device__ __forceinline__ void mma_bf16(float d[4], const uint32_t a[4],
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// Two int8 codes, bytes i and i + 1 of w ^ 0x80808080 (x + 128 each), as
+// bf16 pairs without the quarter-rate int-to-float unit: the f32 with bits
+// 0x4B000000 | (x + 128) is 2^23 + x + 128, so one subtraction gives x
+// exactly, and x (8 significant bits) is the f32's upper half.
+__device__ __forceinline__ uint32_t int8x2_to_bf16x2(uint32_t w, int i) {
+  const float f0 =
+      __uint_as_float(__byte_perm(w, 0x4B000000u, 0x7540 + i)) - 8388736.f;
+  const float f1 =
+      __uint_as_float(__byte_perm(w, 0x4B000000u, 0x7541 + i)) - 8388736.f;
+  return __byte_perm(__float_as_uint(f0), __float_as_uint(f1), 0x7632);
+}
+
+// Two int4 codes as a bf16 pair, from the nibbles n (two's complement) in
+// bits [0, 4) of each 16-bit half of h: 0x4300 | (n ^ 8) is the bf16
+// 128 + n + 8, and subtracting 136 leaves n exactly.
+__device__ __forceinline__ uint32_t int4x2_to_bf16x2(uint32_t h) {
+  const uint32_t v = (h & 0x000F000Fu) ^ 0x43084308u;
+  const __nv_bfloat162 r =
+      __hsub2(*reinterpret_cast<const __nv_bfloat162*>(&v),
+              __floats2bfloat162_rn(136.f, 136.f));
+  return *reinterpret_cast<const uint32_t*>(&r);
 }
 
 // A fragment of rows [0, 16) and columns [k0, k0 + 16) of a row-major

@@ -27,6 +27,14 @@ kernel (`csrc/leaf_scoring.cu`) for CUDA tensors, or raises. The twins
 loop over query chunks so the gather they form stays bounded. Each
 wrapper counts its launches in `launches` and, by leaf format,
 `launches_by_format`.
+
+The kernels' plans are plain PyTorch, run on the device without a host
+synchronisation and tested on the CPU: `leaf_groups` inverts K4's
+`[Q, P]` probes into groups of at most `GROUP` (query, probe) pairs of one
+leaf, a block each; `bucketed_splits` picks how many blocks share K5's
+walk over a tile's probes (`probe_splits` gives their ranges), and
+`merge_probe_splits_reference` is the twin of the kernel that merges
+their partial results.
 """
 
 from __future__ import annotations
@@ -55,6 +63,19 @@ _MAX_DIM = 512
 # Elements of the `[chunk, P, cap, D]` gather one twin chunk may form
 # (512 MB as f32).
 _TWIN_CHUNK_ELEMENTS = 1 << 27
+# K4: (query, probe) pairs of one leaf a block scores (its query rows;
+# `kTQ` in the kernel).
+GROUP = 64
+# K5: a block owns 64 queries x 64 buckets of a tile; the probe walk is
+# split until the grid holds this many blocks an SM, about two waves of
+# the 2-3 blocks an SM holds. Each split stages its queries again and
+# adds a plane to the merge: on an H100 (PERF.md) 3 to 6 blocks an
+# SM read fastest, 12 to 48 slower.
+_QUERY_BLOCK = 64
+_BUCKET_BLOCK = 64
+_K5_BLOCKS_PER_SM = 6
+# K5: most probes one split walks (the kernel keeps them in shared memory).
+_SPLIT_PROBES = 256
 
 
 def _format(leaf_embs: Tensor, leaf_scales: Optional[Tensor],
@@ -316,6 +337,74 @@ def probed_bucketed_reference(
     return torch.cat(vals), torch.cat(rows)
 
 
+# --- The kernels' plans -----------------------------------------------------
+
+@functools.lru_cache(maxsize=None)
+def _arange(n: int, device: torch.device) -> Tensor:
+    return torch.arange(n, dtype=torch.int32, device=device)
+
+
+def leaf_groups(probes: Tensor,
+                num_leaves: int) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
+    """K4's leaf-major plan: `(order, bounds, last, block_leaf)`, int32.
+
+    `order` `[Q·P]` lists the flat pairs `q·P + p` sorted by leaf
+    (stable); leaf l's pairs sit at `[bounds[l], bounds[l + 1])` of it
+    (`bounds` `[L + 2]`), probes outside `[0, L)` as leaf `L`. Each leaf's
+    pairs are cut into groups of at most `GROUP`, one block each, the
+    leaf's groups the blocks `[last[l] − groups_l, last[l])` (`last`
+    `[L + 1]`, cumulative); `block_leaf` `[⌈Q·P/GROUP⌉ + L]` gives each
+    block's leaf, `L + 1` past the live groups (Σ⌈c_l/GROUP⌉ over L + 1
+    runs is at most ⌈Q·P/GROUP⌉ + L). Ten device ops and no value read
+    back to the host, so the call stays asynchronous and graph-capturable.
+    """
+    device = probes.device
+    n = probes.numel()
+    # Ids outside [0, L) → L: -1 and L both land on L modulo L + 1.
+    key = (probes.reshape(-1).to(torch.int32).clamp(-1, num_leaves)
+           .remainder_(num_leaves + 1))
+    keys, order = torch.sort(key, stable=True)
+    bounds = torch.searchsorted(keys, _arange(num_leaves + 2, device),
+                                out_int32=True)
+    per = bounds.diff().add_(GROUP - 1).div_(GROUP, rounding_mode="floor")
+    last = torch.cumsum(per, 0, dtype=torch.int32)
+    block_leaf = torch.searchsorted(
+        last, _arange(-(-n // GROUP) + num_leaves, device), right=True,
+        out_int32=True)
+    return order.to(torch.int32), bounds, last, block_leaf
+
+
+def probe_splits(num_probes: int, splits: int) -> list:
+    """K5's probe range `[P·z/S, P·(z+1)/S)` of each split z, as the
+    kernel computes it."""
+    return [(num_probes * z // splits, num_probes * (z + 1) // splits)
+            for z in range(splits)]
+
+
+def bucketed_splits(tiles: int, query_tile: int, buckets: int,
+                    num_probes: int, sms: int) -> int:
+    """Splits of K5's probe walk: enough that the grid holds
+    `_K5_BLOCKS_PER_SM` blocks an SM and no split walks more than
+    `_SPLIT_PROBES` probes, at most one a probe."""
+    blocks = (-(-buckets // _BUCKET_BLOCK) * tiles
+              * -(-query_tile // _QUERY_BLOCK))
+    want = max(-(-_K5_BLOCKS_PER_SM * sms // max(1, blocks)),
+               -(-num_probes // _SPLIT_PROBES))
+    return max(1, min(num_probes, want))
+
+
+def merge_probe_splits_reference(vals: Tensor,
+                                 rows: Tensor) -> Tuple[Tensor, Tensor]:
+    """Twin of the kernel merging K5's split planes `[S, Q, B]` in order
+    of split: a later split replaces only where strictly greater."""
+    best_v, best_r = vals[0], rows[0]
+    for v, r in zip(vals[1:], rows[1:]):
+        better = v > best_v
+        best_v = torch.where(better, v, best_v)
+        best_r = torch.where(better, r, best_r)
+    return best_v, best_r
+
+
 # --- The CUDA kernels --------------------------------------------------------
 
 @functools.lru_cache(maxsize=None)
@@ -323,11 +412,11 @@ def _kernel_fns():
     lib = cuda_build.library("leaf_scoring")
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     leaf = lib.probed_leaf_scores_launch
-    leaf.argtypes = [i, p, p, p, p, p, i, i, i, i, i, f, p]
+    leaf.argtypes = [i, p, p, p, p, p, p, p, i, p, i, i, i, i, i, f, p]
     leaf.restype = i
     bucketed = lib.probed_bucketed_scores_launch
-    bucketed.argtypes = [i, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, f,
-                         p]
+    bucketed.argtypes = [i, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i,
+                         p, p, f, p]
     bucketed.restype = i
     lib.leaf_scoring_error_string.argtypes = [i]
     lib.leaf_scoring_error_string.restype = ctypes.c_char_p
@@ -366,24 +455,36 @@ def _prepare(queries, leaf_embs, leaf_scales, probes, packed4):
     return fmt, queries, probes
 
 
+def _vec(fmt: str, leaf_embs: Tensor) -> int:
+    """Whether every stored row is 16-byte aligned, so the kernels stage
+    rows by 16-byte copies (else by plain loads)."""
+    per_chunk = {"f32": 8, "bf16": 8}.get(fmt, 16)  # elements of 16 bytes
+    return int(leaf_embs.shape[2] % per_chunk == 0
+               and leaf_embs.data_ptr() % 16 == 0)
+
+
 def _launch_leaf(queries, leaf_embs, leaf_scales, probes, cap, packed4):
     fmt, queries, probes = _prepare(queries, leaf_embs, leaf_scales, probes,
                                     packed4)
     qn, d = queries.shape
     num_probes = probes.shape[1]
+    num_leaves = leaf_embs.shape[0]
     out = torch.empty((qn, num_probes * cap), dtype=torch.float32,
                       device=queries.device)
     if qn * num_probes * cap == 0:
         return out
     if qn * num_probes > 2**31 - 1:
-        raise ValueError(f"{qn} × {num_probes} blocks exceed the grid")
+        raise ValueError(f"{qn} × {num_probes} pairs exceed int32")
+    order, bounds, last, block_leaf = leaf_groups(probes, num_leaves)
     leaf_fn, _, error_string = _kernel_fns()
     with torch.cuda.device(queries.device):
         stream = torch.cuda.current_stream(queries.device).cuda_stream
         err = leaf_fn(
             _FORMATS[fmt], *map(cuda_build.ptr, (
-                queries, leaf_embs, leaf_scales, probes, out)),
-            qn, num_probes, leaf_embs.shape[0], cap, d, MIN_FLOAT, stream,
+                queries, leaf_embs, leaf_scales, order, bounds, last,
+                block_leaf)),
+            block_leaf.shape[0], cuda_build.ptr(out), num_probes, num_leaves,
+            cap, d, _vec(fmt, leaf_embs), MIN_FLOAT, stream,
         )
     cuda_build.raise_on(err, "probed_leaf_scores", error_string)
     probed_leaf_scores.launches += 1
@@ -399,26 +500,33 @@ def _launch_bucketed(queries, leaf_embs, leaf_scales, leaf_rows, probes,
         raise TypeError("leaf_rows must be contiguous int32")
     if leaf_rows.device != queries.device:
         raise ValueError(f"leaf_rows on {leaf_rows.device}")
+    device = queries.device
     qn, d = queries.shape
     tiles, num_probes = probes.shape
-    vals = torch.empty((qn, buckets), dtype=torch.float32,
-                       device=queries.device)
-    rows = torch.empty((qn, buckets), dtype=torch.int32,
-                       device=queries.device)
+    vals = torch.empty((qn, buckets), dtype=torch.float32, device=device)
+    rows = torch.empty((qn, buckets), dtype=torch.int32, device=device)
     if qn == 0:
         return vals, rows
-    if tiles * -(-query_tile // 64) > 65535:
+    if tiles * -(-query_tile // _QUERY_BLOCK) > 65535:
         raise ValueError(f"{tiles} tiles of {query_tile} exceed the grid")
-    # 16-byte loads need 8-column rows and aligned tables.
-    vec = int(d % 8 == 0 and leaf_embs.data_ptr() % 16 == 0)
+    splits = bucketed_splits(tiles, query_tile, buckets, num_probes,
+                             cuda_build.sm_count(device))
+    split_vals = split_rows = None
+    if splits > 1:
+        split_vals = torch.empty((splits, qn, buckets), dtype=torch.float32,
+                                 device=device)
+        split_rows = torch.empty((splits, qn, buckets), dtype=torch.int32,
+                                 device=device)
     _, bucketed_fn, error_string = _kernel_fns()
-    with torch.cuda.device(queries.device):
-        stream = torch.cuda.current_stream(queries.device).cuda_stream
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
         err = bucketed_fn(
             _FORMATS[fmt], *map(cuda_build.ptr, (
                 queries, leaf_embs, leaf_scales, leaf_rows, probes, vals,
                 rows)),
-            tiles, query_tile, num_probes, leaf_embs.shape[0], cap, d, buckets, vec,
+            tiles, query_tile, num_probes, leaf_embs.shape[0], cap, d,
+            buckets, _vec(fmt, leaf_embs), splits,
+            cuda_build.ptr(split_vals), cuda_build.ptr(split_rows),
             MIN_FLOAT, stream,
         )
     cuda_build.raise_on(err, "probed_bucketed_scores", error_string)

@@ -5,6 +5,9 @@ settings in turn, so that both readings share the card and its clock.
     python3 recommenders_tpu_torch/tools/kernel_ab.py k2-parts \
         [--blocks-per-sm 2 4 4 2]
     python3 recommenders_tpu_torch/tools/kernel_ab.py k3-f32 [--root DIR]
+    python3 recommenders_tpu_torch/tools/kernel_ab.py leaf [--root DIR]
+    python3 recommenders_tpu_torch/tools/kernel_ab.py k5-splits \
+        [--blocks-per-sm 3 6 12 24 48]
 
 `k2-parts`: K2's fwd, dq and dc (`csrc/fused_retrieval.cu`) at `bench.py`'s
 shape (B = C = 4096, D = 64, bf16 scores, with temperature, log-q,
@@ -15,9 +18,24 @@ replay, with `fused_retrieval._BLOCKS_PER_SM` set to each value of
 `k3-f32`: the f32 body of K3 (`csrc/bucketed_scores.cu`) at the serving
 smoke's shape (1024 queries, 1,000,000 rows padded to 1,001,472, D = 128,
 2048 buckets), the mean of 10 calls between CUDA events, 3 times.
-It imports the port from the checkout `--root` (this one by default), so
-that two checkouts are compared by running it once for each, in turn:
-parent, change, change, parent.
+
+`leaf`: K4 and K5 (`csrc/leaf_scoring.cu`), each format, at
+`chip_smoke.py`'s ScaNN shapes: its clustered 1M x 128 corpus and first
+request from the seed, its six indexes built on the device, each kernel
+called on the served chunk by `chip_smoke.leaf_call`, as phase 16 calls
+it (the f32 bodies on the bf16 indexes' leaves cast to f32); the mean of
+10 wrapper calls between CUDA events, 3 times a format, and the device
+time of one call by CUDA-graph replay (10 calls captured, 3 replays).
+
+`k5-splits`: K5's bf16, int8 and int4 bodies as `leaf` calls them, by
+CUDA-graph replay, with `leaf_scoring._K5_BLOCKS_PER_SM` (the blocks an
+SM its probe-walk split aims for) set to each value of `--blocks-per-sm`
+in turn, and restored after.
+
+`k3-f32` and `leaf` import the port's package from the checkout `--root`
+(this one by default) and set up and time it with this checkout's
+`chip_smoke.py`, so that two checkouts are compared by the same code,
+running the mode once for each, in turn: parent, change, change, parent.
 
 Each prints the card's name and power limit, a line a reading, and last a
 JSON object of the readings. Without CUDA it exits non-zero.
@@ -26,6 +44,7 @@ JSON object of the readings. Without CUDA it exits non-zero.
 from __future__ import annotations
 
 import argparse
+import importlib.util
 import json
 import sys
 from pathlib import Path
@@ -84,30 +103,101 @@ def k3_f32(cs) -> dict:
     ms = [cs.device_ms(lambda: scoring.bucketed_scores(q, corpus, None,
                                                        **kw),
                        device, iters=10) for _ in range(READS)]
-    print(f"  K3 f32 ({cs.__file__}): " + " / ".join(f"{t:.3f}" for t in ms)
+    print("  K3 f32: " + " / ".join(f"{t:.3f}" for t in ms)
           + " ms", flush=True)
     return {"k3_f32_ms": ms}
 
 
+def leaf_calls(cs, device: torch.device, size=None):
+    """Yields (kernel, format, index name, call) for K4 and K5 in every
+    format on `chip_smoke.py`'s ScaNN indexes: the calls phase 16 times
+    (`chip_smoke.leaf_call`)."""
+    size = size or cs.ScannSize(requests=1)
+    corpus_np, requests_np = cs.clustered_data(size, SEED)
+    corpus = torch.from_numpy(corpus_np).to(device)
+    request = torch.from_numpy(requests_np[0]).to(device)
+    del corpus_np, requests_np
+    for name, (settings, kernel, fmt) in cs.scann_configs(size).items():
+        index = cs.approximate.ScaNN(k=cs.K, device=device,
+                                     **settings).index(corpus)
+        chunk = request[:settings["query_batch"]]
+        for f in (fmt, "f32") if fmt == "bf16" else (fmt,):
+            yield kernel, f, name, cs.leaf_call(index, kernel, f, chunk)
+        del index
+
+
+def leaf(cs, device: torch.device, size=None) -> dict:
+    readings = {}
+    for kernel, f, name, fn in leaf_calls(cs, device, size):
+        ms = [cs.device_ms(fn, device, iters=10) for _ in range(READS)]
+        graph = cs.graph_ms(fn, device, launches=10, replays=3)
+        readings[f"{kernel} {f}"] = {"call_ms": ms, "graph_ms": graph}
+        print(f"  {kernel} {f} ({name}): calls "
+              + " / ".join(f"{t:.4f}" for t in ms)
+              + f" ms; graph replay {graph:.4f} ms", flush=True)
+    return {"leaf_ms": readings}
+
+
+def k5_splits(cs, device: torch.device, values, size=None) -> dict:
+    leaf_scoring = cs.leaf_scoring
+    default = leaf_scoring._K5_BLOCKS_PER_SM
+    readings = {}
+    try:
+        for kernel, f, name, fn in leaf_calls(cs, device, size):
+            if kernel != "K5" or f == "f32":
+                continue
+            for value in values:
+                leaf_scoring._K5_BLOCKS_PER_SM = value
+                ms = cs.graph_ms(fn, device, launches=10, replays=3)
+                readings.setdefault(f"K5 {f}", []).append(
+                    {"blocks_per_sm": value, "ms": ms})
+                print(f"  K5 {f} ({name}) blocks/SM {value}: {ms:.4f} ms "
+                      "(graph replay)", flush=True)
+    finally:
+        leaf_scoring._K5_BLOCKS_PER_SM = default
+    return {"k5_splits": readings}
+
+
+def load(root: Path):
+    """This checkout's `chip_smoke.py` over the port's package from
+    `root`: the package is imported first, so the script's own imports
+    find it, and both checkouts are set up and timed by the same code."""
+    sys.path.insert(0, str(root.resolve()))
+    import recommenders_tpu_torch  # noqa: F401  (root's package)
+
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  ROOT / "chip_smoke.py")
+    cs = importlib.util.module_from_spec(spec)
+    sys.modules["chip_smoke"] = cs
+    spec.loader.exec_module(cs)
+    return cs
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    parser.add_argument("what", choices=("k2-parts", "k3-f32"))
+    parser.add_argument("what",
+                        choices=("k2-parts", "k3-f32", "leaf", "k5-splits"))
     parser.add_argument("--root", type=Path, default=ROOT)
-    parser.add_argument("--blocks-per-sm", type=int, nargs="+",
-                        default=[2, 4, 4, 2])
+    parser.add_argument("--blocks-per-sm", type=int, nargs="+")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("kernel_ab: no CUDA device", file=sys.stderr)
         return 1
-    sys.path.insert(0, str(args.root.resolve()))
-    import chip_smoke as cs  # the checkout's, with its package
-
+    cs = load(args.root)
     print(cs.nvidia_smi(), flush=True)
+    print(f"package: {Path(cs.leaf_scoring.__file__).parents[1]}",
+          flush=True)
     cs.cuda_build.build()
+    device = torch.device("cuda")
     if args.what == "k2-parts":
-        result = k2_parts(cs, args.blocks_per_sm)
-    else:
+        result = k2_parts(cs, args.blocks_per_sm or [2, 4, 4, 2])
+    elif args.what == "k3-f32":
         result = k3_f32(cs)
+    elif args.what == "leaf":
+        result = leaf(cs, device)
+    else:
+        result = k5_splits(cs, device, args.blocks_per_sm or [3, 6, 12, 24,
+                                                              48])
     print(json.dumps(dict(result, root=str(args.root))))
     return 0
 

@@ -8,6 +8,7 @@ the script promises.
 """
 
 import re
+import shutil
 import subprocess
 import sys
 from pathlib import Path
@@ -70,6 +71,7 @@ def test_scann_phases_pass_on_cpu_at_a_tiny_size(capsys):
         assert row["bound_ms"] > 0
         assert row["library_ms"] is None
         assert row["gather_matmul_ms"] > 0
+        assert row["graph_ms"] > 0   # beside `ms`, the eager wrapper call
         assert row["max_abs_err"] == 0.0   # the twin against itself
         assert row["on_main_path"] == (not row["name"].endswith("[f32]"))
     out = capsys.readouterr().out
@@ -163,7 +165,7 @@ def test_main_fails_without_cuda_and_prints_no_result():
     assert "CUDA is not available" in proc.stderr
 
 
-@pytest.mark.parametrize("what", ["k2-parts", "k3-f32"])
+@pytest.mark.parametrize("what", ["k2-parts", "k3-f32", "leaf", "k5-splits"])
 def test_kernel_ab_fails_without_cuda(what):
     if torch.cuda.is_available():
         pytest.skip("CUDA is present; this checks the CPU-only refusal")
@@ -176,3 +178,59 @@ def test_kernel_ab_fails_without_cuda(what):
     assert proc.returncode != 0
     assert proc.stdout == ""
     assert "no CUDA device" in proc.stderr
+
+
+def test_kernel_ab_leaf_modes_time_every_format_on_cpu():
+    """`kernel_ab.py leaf` and `k5-splits` at a tiny size on the CPU (the
+    twins run): every K4 / K5 format is timed, on the calls
+    `chip_smoke.leaf_call` makes; K5's split target is restored."""
+    from recommenders_tpu_torch.ops import leaf_scoring
+    from recommenders_tpu_torch.tools import kernel_ab
+
+    size = chip_smoke.ScannSize(items=4000, centers=16, batch=64, requests=1,
+                                leaves=16, leaves_2000=8, users=64)
+    cpu = torch.device("cpu")
+    leaf = kernel_ab.leaf(chip_smoke, cpu, size)["leaf_ms"]
+    assert sorted(leaf) == sorted(f"{k} {f}" for k in ("K4", "K5")
+                                  for f in ("f32", "bf16", "int8", "int4"))
+    assert all(len(r["call_ms"]) == kernel_ab.READS and r["graph_ms"] > 0
+               for r in leaf.values())
+    default = leaf_scoring._K5_BLOCKS_PER_SM
+    splits = kernel_ab.k5_splits(chip_smoke, cpu, [3, 12], size)["k5_splits"]
+    assert sorted(splits) == ["K5 bf16", "K5 int4", "K5 int8"]
+    assert all([r["blocks_per_sm"] for r in v] == [3, 12]
+               for v in splits.values())
+    assert leaf_scoring._K5_BLOCKS_PER_SM == default
+
+
+def test_kernel_ab_times_the_root_package_with_this_checkouts_script(
+        tmp_path):
+    """`kernel_ab.load(root)`: the package comes from `root`, the set-up
+    and timing code from this checkout's `chip_smoke.py`."""
+    other = tmp_path / "other"
+    shutil.copytree(ROOT / "recommenders_tpu_torch",
+                    other / "recommenders_tpu_torch",
+                    ignore=shutil.ignore_patterns("__pycache__", "build"))
+    script = (
+        "import importlib.util, sys\n"
+        "from pathlib import Path\n"
+        "spec = importlib.util.spec_from_file_location('kernel_ab', "
+        "sys.argv[1])\n"
+        "ab = importlib.util.module_from_spec(spec)\n"
+        "spec.loader.exec_module(ab)\n"
+        "cs = ab.load(Path(sys.argv[2]))\n"
+        "print(cs.__file__)\n"
+        "print(cs.leaf_scoring.__file__)\n"
+        "print(cs.approximate.__file__)\n"
+    )
+    proc = subprocess.run(
+        [sys.executable, "-c", script,
+         str(ROOT / "recommenders_tpu_torch" / "tools" / "kernel_ab.py"),
+         str(other)],
+        capture_output=True, text=True, timeout=300, cwd=tmp_path,
+    )
+    assert proc.returncode == 0, proc.stderr
+    smoke, leaf, approx = proc.stdout.split()
+    assert Path(smoke) == ROOT / "chip_smoke.py"
+    assert Path(leaf).is_relative_to(other)
+    assert Path(approx).is_relative_to(other)

@@ -344,6 +344,8 @@ def _scored(queries, scales):
 @pytest.mark.parametrize("fmt", LEAF_FORMATS)
 @pytest.mark.parametrize("q,num_leaves,cap,d,p", [
     (16, 8, 256, 128, 3), (5, 6, 94, 40, 4), (7, 5, 130, 200, 2),
+    # bf16 rows: 128-column stages up to D = 384, 64-column from D = 385
+    (9, 5, 130, 384, 3), (9, 5, 130, 392, 3), (6, 4, 100, 512, 3),
 ])
 def test_probed_leaf_kernel_matches_twin(device, fmt, q, num_leaves, cap, d,
                                          p):
@@ -358,9 +360,12 @@ def test_probed_leaf_kernel_matches_twin(device, fmt, q, num_leaves, cap, d,
     before = dict(leaf_scoring.probed_leaf_scores.launches_by_format)
     got = leaf_scoring.probed_leaf_scores(queries, leaves, scales, probes,
                                           packed4=packed4)
+    again = leaf_scoring.probed_leaf_scores(queries, leaves, scales, probes,
+                                            packed4=packed4)
     torch.cuda.synchronize()
     after = leaf_scoring.probed_leaf_scores.launches_by_format
-    assert after[fmt] == before[fmt] + 1
+    assert after[fmt] == before[fmt] + 2
+    assert torch.equal(got, again)
     want = leaf_scoring.probed_scores_reference(queries, leaves, scales,
                                                 probes, packed4=packed4)
     abs_dot = leaf_scoring.probed_scores_reference(
@@ -386,19 +391,28 @@ def test_probed_leaf_kernel_masks_out_of_range_probes(device):
 
 
 @pytest.mark.parametrize("fmt", LEAF_FORMATS)
-@pytest.mark.parametrize("tile,num_leaves,cap,d,buckets,p", [
-    (1, 8, 256, 128, 128, 4),      # one query a tile, two groups a leaf
-    (8, 8, 384, 128, 256, 3),      # partial tail group
-    (70, 6, 94, 40, 40, 5),        # ragged D, cap, B; two query blocks
-    (64, 16, 1280, 128, 1280, 6),  # the served shape, one group a leaf
+@pytest.mark.parametrize("tiles,tile,num_leaves,cap,d,buckets,p", [
+    (3, 1, 8, 256, 128, 128, 4),      # one query a tile, two groups a leaf
+    (3, 8, 8, 384, 128, 256, 3),      # partial tail group
+    (3, 70, 6, 94, 40, 40, 5),        # ragged D, cap, B; two query blocks
+    (3, 64, 16, 1280, 128, 1280, 6),  # the served shape, one group a leaf
+    # 80 blocks: the walk splits, and P = 29 (prime) is no multiple of
+    # the split count
+    (4, 64, 16, 1280, 128, 1280, 29),
+    # bf16 rows: 128-column stages up to D = 384, 64-column from D = 385
+    (3, 8, 6, 130, 384, 64, 5), (3, 8, 6, 130, 392, 64, 5),
+    (3, 8, 5, 100, 512, 48, 4),
 ])
-def test_probed_bucketed_kernel_matches_twin(device, fmt, tile, num_leaves,
-                                             cap, d, buckets, p):
+def test_probed_bucketed_kernel_matches_twin(device, fmt, tiles, tile,
+                                             num_leaves, cap, d, buckets, p):
+    from recommenders_tpu_torch.ops import cuda_build
     from recommenders_tpu_torch.ops import leaf_scoring
 
+    if p == 29:
+        assert 1 < leaf_scoring.bucketed_splits(
+            tiles, tile, buckets, p, cuda_build.sm_count(device)) < p
     leaves, scales, packed4, deq, rows = _leaf_case(fmt, num_leaves, cap, d,
                                                     device)
-    tiles = 3
     g = torch.Generator(device=device).manual_seed(2)
     queries = torch.randn(tiles * tile, d, device=device, generator=g)
     probes = torch.randint(0, num_leaves, (tiles, p), device=device,
@@ -410,9 +424,24 @@ def test_probed_bucketed_kernel_matches_twin(device, fmt, tile, num_leaves,
     vals, got_rows = leaf_scoring.probed_bucketed_scores(
         queries, leaves, scales, rows, probes, buckets, query_tile=tile,
         packed4=packed4)
+    again = leaf_scoring.probed_bucketed_scores(
+        queries, leaves, scales, rows, probes, buckets, query_tile=tile,
+        packed4=packed4)
     torch.cuda.synchronize()
     after = leaf_scoring.probed_bucketed_scores.launches_by_format
-    assert after[fmt] == before[fmt] + 1
+    assert after[fmt] == before[fmt] + 2
+    assert torch.equal(vals, again[0]) and torch.equal(got_rows, again[1])
+    _check_bucketed(queries, leaves, scales, packed4, deq, rows, probes,
+                    buckets, tile, vals, got_rows)
+
+
+def _check_bucketed(queries, leaves, scales, packed4, deq, rows, probes,
+                    buckets, tile, vals, got_rows):
+    """K5's result against its twin: scores within the bound, empty
+    buckets MIN_FLOAT / -1, rows equal in every separated bucket."""
+    from recommenders_tpu_torch.ops import leaf_scoring
+
+    d = queries.shape[1]
     ref_v, ref_r = leaf_scoring.probed_bucketed_reference(
         queries, leaves, scales, rows, probes, buckets, query_tile=tile,
         packed4=packed4)
@@ -437,6 +466,84 @@ def test_probed_bucketed_kernel_matches_twin(device, fmt, tile, num_leaves,
     separated = (ref_v - runner_up > 2 * tol) & ~empty
     assert separated.sum() >= 0.9 * (~empty).sum()
     assert torch.equal(got_rows[separated], ref_r[separated])
+
+
+@pytest.mark.parametrize("fmt", LEAF_FORMATS)
+@pytest.mark.parametrize("cap,d", [(94, 40), (256, 128)])
+def test_probed_leaf_kernel_splits_a_crowded_leaf_into_groups(device, fmt,
+                                                              cap, d):
+    """Every query probes leaf 2 first (200 pairs: four groups of at most
+    64), some probe it twice, some probe outside [0, L): each span is the
+    twin's, or MIN_FLOAT for the out-of-range probes."""
+    from recommenders_tpu_torch.ops import leaf_scoring
+
+    num_leaves, q, p = 6, 200, 4
+    leaves, scales, packed4, deq, _ = _leaf_case(fmt, num_leaves, cap, d,
+                                                 device)
+    g = torch.Generator(device=device).manual_seed(4)
+    queries = torch.randn(q, d, device=device, generator=g)
+    probes = torch.randint(0, num_leaves, (q, p), device=device, generator=g)
+    probes[:, 0] = 2
+    probes[::3, 1] = 2                                  # repeated probes
+    probes[1::7, 2] = -1                                # out of range
+    probes[2::11, 3] = num_leaves
+    got = leaf_scoring.probed_leaf_scores(queries, leaves, scales, probes,
+                                          packed4=packed4)
+    again = leaf_scoring.probed_leaf_scores(queries, leaves, scales, probes,
+                                            packed4=packed4)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    outside = (probes < 0) | (probes >= num_leaves)
+    safe = probes.masked_fill(outside, 0)
+    want = leaf_scoring.probed_scores_reference(queries, leaves, scales,
+                                                safe, packed4=packed4)
+    abs_dot = leaf_scoring.probed_scores_reference(
+        _scored(queries, scales).abs(), deq.abs(), None, safe)
+    tol = d * F32_EPS * abs_dot + 2 * F32_EPS * want.abs()
+    span = outside.repeat_interleave(cap, dim=1)
+    assert (got[span] == leaf_scoring.MIN_FLOAT).all()
+    assert ((got - want).abs()[~span] <= tol[~span]).all()
+
+
+@pytest.mark.parametrize("fmt", LEAF_FORMATS)
+@pytest.mark.parametrize("splits", [1, 2, 3, 5, 8])
+def test_probed_bucketed_first_maximum_wins_across_splits(device, monkeypatch,
+                                                          fmt, splits):
+    """All eight probed leaves hold the same codes and scales, so every
+    bucket ties across the probes; the first probe's leaf holds the
+    highest rows and must win however the walk is split."""
+    from recommenders_tpu_torch.ops import leaf_scoring
+
+    num_leaves, cap, d, buckets, tile = 8, 64, 128, 64, 64
+    leaves, scales, packed4, deq, _ = _leaf_case(fmt, 1, cap, d, device)
+    leaves = leaves.expand(num_leaves, *leaves.shape[1:]).contiguous()
+    deq = deq.expand(num_leaves, cap, d)
+    if scales is not None:
+        scales = scales.expand(num_leaves, cap).contiguous()
+    slots = torch.arange(cap, dtype=torch.int32, device=device)
+    rows = torch.stack([(num_leaves - l) * cap + slots
+                        for l in range(num_leaves)])
+    probes = torch.arange(num_leaves, dtype=torch.int32,
+                          device=device)[None].repeat(2, 1)
+    queries = torch.randn(2 * tile, d, device=device,
+                          generator=torch.Generator(device=device)
+                          .manual_seed(6))
+    monkeypatch.setattr(leaf_scoring, "bucketed_splits",
+                        lambda *args: splits)
+    vals, got_rows = leaf_scoring.probed_bucketed_scores(
+        queries, leaves, scales, rows, probes, buckets, query_tile=tile,
+        packed4=packed4)
+    torch.cuda.synchronize()
+    # One slot a bucket in each leaf: slot b of probe 0's leaf must win.
+    assert torch.equal(got_rows, rows[0].expand(2 * tile, buckets))
+    ref_v, _ = leaf_scoring.probed_bucketed_reference(
+        queries, leaves, scales, rows, probes, buckets, query_tile=tile,
+        packed4=packed4)
+    abs_cand, _ = leaf_scoring.probed_bucket_candidates(
+        _scored(queries, scales).abs(), deq.abs().contiguous(), None, rows,
+        probes, buckets, query_tile=tile)
+    tol = d * F32_EPS * abs_cand.amax(dim=1) + 2 * F32_EPS * ref_v.abs()
+    assert ((vals - ref_v).abs() <= tol).all()
 
 
 def test_probed_kernels_refuse_bad_inputs(device):
