@@ -17,52 +17,78 @@
 // row. The exact top-k over the [Q, B] state runs outside the kernel
 // (torch.topk), as it does in the JAX package.
 //
-// Corpus formats:
-//   f32 rows with an f32 query: exact f32 FMAs on the CUDA cores.
+// Corpus formats, all multiplied on the bf16 tensor cores:
 //   bf16 rows with a bf16 query; int8 codes [N, D] plus f32 scales [N];
 //   int4 codes packed two per byte along rows, [N/2, D] (byte (c, d) holds
 //   row c in its low nibble and row c + N/2 in its high nibble; it
 //   sign-extends and decodes as lo = (p << 28) >> 28, hi = p >> 4). For
 //   these three the query is bf16 (the wrapper rounds it for codes) and
-//   every code is exact in bf16, so each product is exact in f32 on the
-//   bf16 tensor cores; sums are f32 and the scale multiplies after the dot.
+//   every code is exact in bf16, so each product is exact in f32; sums are
+//   f32 and the scale multiplies after the dot.
+//   f32 rows with an f32 query, in split precision: both operands split
+//   into three bf16 terms, x = h + m + l (tc::split3, exact for normal
+//   values), and six of the nine term products taken, hh, hm, mh, hl, lh
+//   and mm, each exact in f32. The dropped ml, lm and ll are at most
+//   2 (1 + 2^-8) 2^-8 2^-16 + 2^-32 <= 1.006 * 2^-23 of |q_k||c_k| a
+//   product, so the six sum to q.c within 1.006 * 2^-23 * sum_k |q_k||c_k|
+//   (plus 2^-134 (|q_k| + |c_k|) a product for terms below 2^-110, which
+//   round onto bf16's subnormal grid). hh sums in one f32 accumulator, as
+//   the bf16 body sums its products; the other five, together 2^-7 as
+//   large, in a second, added once a group. The plain twin is a full f32
+//   dot, within gamma_D(2^-24) ~ D * 2^-24 * sum|q||c| of q.c. So the
+//   split and the twin together take 1.006 + D/2 of the D units of
+//   2^-23 * sum|q||c| in the tolerance the tests hold the kernel to
+//   (D * 2^-23 * sum|q||c|): 65 of 128 at D = 128, and the rest is the
+//   room for the kernel's own f32 sum, as for the bf16 body (the textbook
+//   worst case of that sum, (D - 1) 2^-24, is within 1 % of it).
+//   tests/test_torch_split_precision.py checks the split's bound against
+//   float64 on adversarial inputs.
 //
 // What bounds it on the H100. At Q=1024, N=1M, D=128 the work is
 // 2*Q*N*D = 2.7e11 FLOP, while one sweep of the corpus reads 512 MB (f32),
 // 256 MB (bf16), 128 MB (int8) or 64 MB (int4): hundreds of FLOP per byte,
-// so the kernel is bound by arithmetic: 0.27 ms at the bf16 tensor-core
-// peak, 3.9 ms at the f32 CUDA-core peak. On an NVIDIA H100 80GB HBM3 at
-// 700 W (chip_smoke.py) bf16 / int8 / int4 take 1.22 / 1.45 / 1.51 ms
-// (the CUDA-core design this replaces took 8.0-8.8 ms) and f32 8.54 ms.
-// The tensor cores do not set the tensor-core bodies' pace: each stage
-// waits at two (bf16) or three (codes) block barriers, and warps resident
-// matter more than shared-memory traffic (keeping a warp's query
-// fragments in registers instead of reloading them every group needs 220+
-// registers, one block an SM, and was slower on that card). wgmma with a
-// TMA ring is the next step.
+// so the kernel is bound by arithmetic: 0.27 ms a bf16 pass at the
+// tensor-core peak, so 1.6 ms for f32's six (3.9 ms at the f32 CUDA-core
+// peak, which the CUDA-core body this replaced ran at 46 % of). On an
+// NVIDIA H100 80GB HBM3 at 700 W (chip_smoke.py, tools/kernel_ab.py)
+// bf16 / int8 / int4 take 1.22 / 1.45 / 1.51 ms and f32 4.5 ms (the
+// CUDA-core body 8.5). The tensor cores do not set the one-pass bodies'
+// pace: each stage waits at two (bf16) or three (codes) block barriers,
+// and warps resident matter more than shared-memory traffic (keeping a
+// warp's query fragments in registers instead of reloading them every
+// group needs 220+ registers, one block an SM, and was slower on that
+// card). wgmma with a TMA ring is the next step.
 //
 // What the design does about it. The TPU ran its grid (query tile, corpus
 // chunk) in order and carried the running max/argmax in VMEM across
 // chunks. Here a block owns a TQ-query x 64-bucket tile of the output and
 // walks the row groups g itself, its running max/argmax in registers; the
-// [Q, N] score matrix never exists.
-//   bf16 / int8 / int4: TQ = 128 (64 for D > 512) queries in shared memory
-//   for the whole sweep; each group's 64-row corpus slab, 128 feature
-//   columns a stage, comes in by cp.async into a double buffer while the
-//   previous stage is in use, and the codes are decoded to bf16 in shared
-//   memory (int8 sign-extends; int4 takes the low or the high nibble by the
-//   group's half of the corpus) with integer and f32 tricks, not the
-//   quarter-rate int-to-float unit. Eight warps, each 32 queries x 32 buckets,
-//   multiply with mma.sync.m16n8k16 (tensor_core.cuh); the epilogue scales,
-//   masks and folds the f32 accumulator fragments into a running (max,
-//   row) held in the same fragment layout. Where the tiles leave fewer than
-//   two blocks an SM, the wrapper splits the group walk over `splits`
-//   blocks, each over a contiguous range of groups, and a second kernel
-//   merges their (value, lowest row) pairs: that merge is associative and
-//   commutative, so the result equals the unsplit walk's.
-//   f32: a block owns 64 queries x 64 buckets, each thread 4 x 4, the
-//   slab staged through shared memory 32 columns at a time (exact f32, as
-//   the plain PyTorch twin computes it).
+// [Q, N] score matrix never exists. The queries sit in shared memory for
+// the whole sweep; each group's 64-row corpus slab, 128 feature columns a
+// stage, comes in by cp.async into a double buffer while the previous
+// stage is in use. (TQ / 32) x 2 warps, each 32 queries x 32 buckets,
+// multiply with mma.sync.m16n8k16 (tensor_core.cuh); the epilogue scales,
+// masks and folds the f32 accumulator fragments into a running (max, row)
+// held in the same fragment layout. Where the tiles leave the card short
+// of blocks, the wrapper splits the group walk over `splits` blocks, each
+// over a contiguous range of groups, and a second kernel merges their
+// (value, lowest row) pairs: that merge is associative and commutative,
+// so the result equals the unsplit walk's.
+//   bf16 / int8 / int4: TQ = 128 (64 for D > 512), two blocks an SM; the
+//   codes are decoded to bf16 in shared memory (int8 sign-extends; int4
+//   takes the low or the high nibble by the group's half of the corpus)
+//   with integer and f32 tricks, not the quarter-rate int-to-float unit.
+//   f32: the query's three bf16 planes ([TQ][D + 8] each, split once) and
+//   the raw f32 slab ring ([64][136] floats a stage) take 170 KB at TQ =
+//   128, D = 128, so one block an SM; TQ = 64 from D = 256 and 32 from D =
+//   512 (the wrapper picks the largest that fits 227 KB). Each B fragment
+//   is split as it is loaded (two 8-byte shared loads a lane, no bank
+//   conflict at a 136-float stride): each of the tile's query warps splits
+//   it again, ALU work beside the tensor cores. On the H100 that was as
+//   fast as splitting the slab once a stage into three bf16 planes in
+//   shared memory (a third barrier, 51 KB more) and faster than 64-query
+//   tiles at two blocks an SM; unrolling the stage's eight k-steps fully
+//   gained 7 % (PERF.md, section 6).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -75,7 +101,13 @@ namespace {
 
 using bf16 = __nv_bfloat16;
 
-enum Format { kRows = 0, kInt8 = 1, kPacked4 = 2 };
+// kRows, kInt8 and kPacked4 are the C interface's format codes (bf16 for
+// kRows); kF32 is f32 rows, format kRows with bf16 = 0.
+enum Format { kRows = 0, kInt8 = 1, kPacked4 = 2, kF32 = 3 };
+
+constexpr int kTB = 64;            // buckets per block
+constexpr int kKC = 128;           // feature columns per stage
+constexpr int kSlab = kKC + 8;     // stride of a staged slab row (bf16 or f32)
 
 // Replaces (best, best_row) by (v, r) if v is larger, or equal with a
 // lower row.
@@ -87,145 +119,17 @@ __device__ __forceinline__ void keep_best(float& best, int& best_row, float v,
   }
 }
 
-// --- f32 rows: CUDA-core FMAs ------------------------------------------------
-
-constexpr int kTQ = 64;        // queries per block
-constexpr int kTB = 64;        // buckets per block (both paths)
-constexpr int kKC32 = 32;      // feature columns per shared-memory stage
-constexpr int kCStride = kTB + 1;  // padded row of the staged slab (no bank conflicts)
-constexpr int kThreads = 256;  // 16 x 16 threads; each owns 4 queries x 4 buckets
-
-// Loads feature columns [col, col + 8) of corpus row `row`.
-__device__ __forceinline__ void load8(const float* __restrict__ c,
-                                      int64_t row, int d, int col,
-                                      float out[8]) {
-  const float4* p = reinterpret_cast<const float4*>(c + row * d + col);
-  const float4 a = __ldg(p);
-  const float4 b = __ldg(p + 1);
-  out[0] = a.x; out[1] = a.y; out[2] = a.z; out[3] = a.w;
-  out[4] = b.x; out[5] = b.y; out[6] = b.z; out[7] = b.w;
-}
-
-__global__ void __launch_bounds__(kThreads)
-bucketed_f32_kernel(const float* __restrict__ q, const float* __restrict__ c,
-                    float* __restrict__ vals, int* __restrict__ rows,
-                    int num_q, int64_t n, int d, int buckets,
-                    int64_t valid_rows, float mask_value) {
-  extern __shared__ __align__(16) float smem[];
-  float* qs = smem;                           // [d][kTQ]: query tile, transposed
-  float* cs = smem + static_cast<size_t>(d) * kTQ;  // [kKC32][kCStride]: corpus stage
-
-  const int tid = threadIdx.x;
-  const int tx = tid % 16;  // buckets tx + 16*j
-  const int ty = tid / 16;  // queries 4*ty + i
-  const int q0 = blockIdx.y * kTQ;
-  const int b0 = blockIdx.x * kTB;
-
-  for (int idx = tid; idx < kTQ * d; idx += kThreads) {
-    const int qi = idx / d;
-    const int k = idx - qi * d;
-    const int qrow = q0 + qi;
-    qs[k * kTQ + qi] =
-        qrow < num_q ? q[static_cast<int64_t>(qrow) * d + k] : 0.f;
-  }
-
-  float best[4][4];
-  int best_row[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      // Group 0 always replaces this, so an all-masked bucket reports its
-      // first row, as argmax over the group axis does.
-      best[i][j] = -CUDART_INF_F;
-      best_row[i][j] = b0 + tx + 16 * j;
-    }
-  }
-
-  // The row and 8 columns of each stage that this thread stages.
-  const int load_bucket = tid / 4;
-  const int load_col = (tid % 4) * 8;
-  const bool load_ok = b0 + load_bucket < buckets;
-
-  const int64_t groups = n / buckets;
-  for (int64_t g = 0; g < groups; ++g) {
-    const int64_t base = g * buckets + b0;
-    float acc[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-    }
-    for (int k0 = 0; k0 < d; k0 += kKC32) {
-      float v[8];
-      if (load_ok) {
-        load8(c, base + load_bucket, d, k0 + load_col, v);
-      } else {
-#pragma unroll
-        for (int j = 0; j < 8; ++j) v[j] = 0.f;
-      }
-      __syncthreads();  // The previous stage is consumed; qs is written.
-#pragma unroll
-      for (int j = 0; j < 8; ++j) cs[(load_col + j) * kCStride + load_bucket] = v[j];
-      __syncthreads();
-#pragma unroll 8
-      for (int kk = 0; kk < kKC32; ++kk) {
-        const float4 qv =
-            *reinterpret_cast<const float4*>(&qs[(k0 + kk) * kTQ + 4 * ty]);
-        const float qa[4] = {qv.x, qv.y, qv.z, qv.w};
-        float cv[4];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) cv[j] = cs[kk * kCStride + tx + 16 * j];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-#pragma unroll
-          for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(qa[i], cv[j], acc[i][j]);
-        }
-      }
-    }
-    // Fold group g into the running per-bucket max/argmax.
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int b = b0 + tx + 16 * j;
-      const int64_t r = g * buckets + b;
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        float s = acc[i][j];
-        if (r >= valid_rows) s = mask_value;
-        if (s > best[i][j]) {
-          best[i][j] = s;
-          best_row[i][j] = static_cast<int>(r);
-        }
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int qrow = q0 + 4 * ty + i;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int b = b0 + tx + 16 * j;
-      if (qrow < num_q && b < buckets) {
-        const int64_t o = static_cast<int64_t>(qrow) * buckets + b;
-        vals[o] = best[i][j];
-        rows[o] = best_row[i][j];
-      }
-    }
-  }
-}
-
-// --- bf16 rows, int8 and int4 codes: tensor cores ---------------------------
-
-constexpr int kKC = 128;           // feature columns per stage
-constexpr int kSlab = kKC + 8;     // bf16 stride of a staged slab row
-
-// Shared bytes: the query tile, and the slab ring (bf16 rows), or the
-// decoded slab plus the ring of raw code slabs (int8, int4).
+// Shared bytes: the query tile (three bf16 planes for f32), and the slab
+// ring (bf16 or f32 rows), or the decoded slab plus the ring of raw code
+// slabs (int8, int4).
 size_t tc_smem(int fmt, int tq, int d) {
-  const size_t q_bytes = sizeof(bf16) * tq * (d + 8);
+  const size_t q_bytes = sizeof(bf16) * tq * (d + 8) * (fmt == kF32 ? 3 : 1);
   const size_t slab = sizeof(bf16) * kTB * kSlab;
-  return q_bytes + (fmt == kRows ? 2 * slab : slab + 2 * kTB * kKC);
+  switch (fmt) {
+    case kRows: return q_bytes + 2 * slab;
+    case kF32: return q_bytes + 2 * sizeof(float) * kTB * kSlab;
+    default: return q_bytes + slab + 2 * kTB * kKC;
+  }
 }
 
 // A block owns TQ queries x 64 buckets and walks groups [g_begin, g_end)
@@ -233,17 +137,20 @@ size_t tc_smem(int fmt, int tq, int d) {
 // queries x 32 buckets each. Writes its [Q, B] plane at
 // vals / rows + blockIdx.z * Q * B.
 template <int FMT, int TQ>
-__global__ void __launch_bounds__(TQ * 2, 2)
-bucketed_tc_kernel(const bf16* __restrict__ q, const void* __restrict__ c,
+__global__ void __launch_bounds__(TQ * 2, FMT == kF32 ? 1 : 2)
+bucketed_tc_kernel(const void* __restrict__ q, const void* __restrict__ c,
                    const float* __restrict__ scales,
                    float* __restrict__ vals, int* __restrict__ rows,
                    int num_q, int64_t n, int d, int buckets,
                    int64_t valid_rows, float mask_value) {
   constexpr int kThreadsTc = TQ * 2;
+  constexpr int kPlanes = FMT == kF32 ? 3 : 1;  // query planes: h, m, l
   extern __shared__ __align__(16) unsigned char smem_tc[];
   const int qstride = d + 8;
-  bf16* qs = reinterpret_cast<bf16*>(smem_tc);  // [TQ][d + 8]
-  bf16* slabs = qs + TQ * qstride;  // bf16: 2 x [kTB][kSlab]; codes: [kTB][kSlab]
+  bf16* qs = reinterpret_cast<bf16*>(smem_tc);  // kPlanes x [TQ][d + 8]
+  // bf16: 2 x [kTB][kSlab]; codes: [kTB][kSlab]; f32: 2 x [kTB][kSlab] f32.
+  bf16* slabs = qs + kPlanes * TQ * qstride;
+  float* slabs32 = reinterpret_cast<float*>(slabs);
   int8_t* raw = reinterpret_cast<int8_t*>(slabs + kTB * kSlab);  // 2 x [kTB][kKC]
 
   const int tid = threadIdx.x;
@@ -259,22 +166,56 @@ bucketed_tc_kernel(const bf16* __restrict__ q, const void* __restrict__ c,
   const int kchunks = d / kKC;
   const int64_t stages = (g_end - g_begin) * kchunks;
 
-  // The query tile, once (rows past num_q are zeros).
-  const int q_chunks = d / 8;
-  for (int idx = tid; idx < TQ * q_chunks; idx += kThreadsTc) {
-    const int r = idx / q_chunks;
-    const int ch = idx - r * q_chunks;
-    const bool ok = q0 + r < num_q;
-    tc::cp_async16(qs + r * qstride + ch * 8,
-                   ok ? q + static_cast<int64_t>(q0 + r) * d + ch * 8 : q,
-                   ok ? 16 : 0);
+  // The query tile, once (rows past num_q are zeros); f32 queries are
+  // split into their h, m and l planes.
+  if constexpr (FMT == kF32) {
+    const float* qf = static_cast<const float*>(q);
+    const int q_chunks = d / 4;
+    for (int idx = tid; idx < TQ * q_chunks; idx += kThreadsTc) {
+      const int r = idx / q_chunks;
+      const int k = (idx - r * q_chunks) * 4;
+      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (q0 + r < num_q) {
+        v = *reinterpret_cast<const float4*>(
+            qf + static_cast<int64_t>(q0 + r) * d + k);
+      }
+      uint32_t h[2], m[2], l[2];
+      tc::split3(v.x, v.y, h[0], m[0], l[0]);
+      tc::split3(v.z, v.w, h[1], m[1], l[1]);
+      bf16* dst = qs + r * qstride + k;
+      *reinterpret_cast<uint2*>(dst) = make_uint2(h[0], h[1]);
+      *reinterpret_cast<uint2*>(dst + TQ * qstride) = make_uint2(m[0], m[1]);
+      *reinterpret_cast<uint2*>(dst + 2 * TQ * qstride) =
+          make_uint2(l[0], l[1]);
+    }
+  } else {
+    const bf16* qb = static_cast<const bf16*>(q);
+    const int q_chunks = d / 8;
+    for (int idx = tid; idx < TQ * q_chunks; idx += kThreadsTc) {
+      const int r = idx / q_chunks;
+      const int ch = idx - r * q_chunks;
+      const bool ok = q0 + r < num_q;
+      tc::cp_async16(qs + r * qstride + ch * 8,
+                     ok ? qb + static_cast<int64_t>(q0 + r) * d + ch * 8 : qb,
+                     ok ? 16 : 0);
+    }
   }
 
   // Stage s: group g_begin + s / kchunks, columns (s % kchunks) * kKC.
   auto stage_slab = [&](int64_t s) {
     const int64_t grp = g_begin + s / kchunks;
     const int col0 = static_cast<int>(s % kchunks) * kKC;
-    if constexpr (FMT == kRows) {
+    if constexpr (FMT == kF32) {
+      float* dst = slabs32 + (s & 1) * kTB * kSlab;
+      const float* src = static_cast<const float*>(c);
+      for (int idx = tid; idx < kTB * (kKC / 4); idx += kThreadsTc) {
+        const int i = idx / (kKC / 4);
+        const int ch = idx % (kKC / 4);
+        const bool ok = b0 + i < buckets;
+        const float* p = src + (grp * buckets + b0 + i) * d + col0 + ch * 4;
+        tc::cp_async16(dst + i * kSlab + ch * 4, ok ? p : src, ok ? 16 : 0);
+      }
+    } else if constexpr (FMT == kRows) {
       bf16* dst = slabs + (s & 1) * kTB * kSlab;
       const bf16* src = static_cast<const bf16*>(c);
       for (int idx = tid; idx < kTB * (kKC / 8); idx += kThreadsTc) {
@@ -328,7 +269,9 @@ bucketed_tc_kernel(const bf16* __restrict__ q, const void* __restrict__ c,
 
   if (stages > 0) stage_slab(0);
   tc::cp_async_commit();
+  // acc: the products (f32: hh); small: f32's five smaller term products.
   float acc[2][4][4];
+  float small[2][4][4];
   for (int64_t s = 0; s < stages; ++s) {
     if (s + 1 < stages) stage_slab(s + 1);
     tc::cp_async_commit();
@@ -336,10 +279,10 @@ bucketed_tc_kernel(const bf16* __restrict__ q, const void* __restrict__ c,
     __syncthreads();
     const int64_t grp = g_begin + s / kchunks;
     const int kc = static_cast<int>(s % kchunks);
-    const bf16* slab;
+    const bf16* slab = slabs;
     if constexpr (FMT == kRows) {
       slab = slabs + (s & 1) * kTB * kSlab;
-    } else {
+    } else if constexpr (FMT != kF32) {
       // Decode the codes to bf16 (exact), 8 a thread per step.
       const int8_t* src = raw + (s & 1) * kTB * kKC;
       const bool high = FMT == kPacked4 && grp >= half_groups;
@@ -368,7 +311,6 @@ bucketed_tc_kernel(const bf16* __restrict__ q, const void* __restrict__ c,
             make_uint4(packed[0], packed[1], packed[2], packed[3]);
       }
       __syncthreads();
-      slab = slabs;
     }
     if (kc == 0) {
 #pragma unroll
@@ -376,26 +318,67 @@ bucketed_tc_kernel(const bf16* __restrict__ q, const void* __restrict__ c,
 #pragma unroll
         for (int nb = 0; nb < 4; ++nb) {
 #pragma unroll
-          for (int i = 0; i < 4; ++i) acc[mb][nb][i] = 0.f;
+          for (int i = 0; i < 4; ++i) {
+            acc[mb][nb][i] = 0.f;
+            small[mb][nb][i] = 0.f;
+          }
         }
       }
     }
+    if constexpr (FMT == kF32) {
+      const float* slab32 = slabs32 + (s & 1) * kTB * kSlab;
 #pragma unroll
-    for (int k0 = 0; k0 < kKC; k0 += 16) {
-      uint32_t a[2][4];
+      for (int k0 = 0; k0 < kKC; k0 += 16) {
+        uint32_t a[3][2][4];  // [plane h, m, l][m-block]
 #pragma unroll
-      for (int mb = 0; mb < 2; ++mb) {
-        tc::load_a(a[mb], qs + (wq * 32 + mb * 16) * qstride, qstride,
-                   kc * kKC + k0, lane);
+        for (int p = 0; p < 3; ++p) {
+#pragma unroll
+          for (int mb = 0; mb < 2; ++mb) {
+            tc::load_a(a[p][mb],
+                       qs + (p * TQ + wq * 32 + mb * 16) * qstride, qstride,
+                       kc * kKC + k0, lane);
+          }
+        }
+#pragma unroll
+        for (int nb = 0; nb < 4; ++nb) {
+          // B fragment of bucket row g: k = 2t, 2t+1 and 2t+8, 2t+9.
+          const float* src =
+              slab32 + (wb * 32 + nb * 8 + g) * kSlab + k0 + 2 * t;
+          const float2 lo = *reinterpret_cast<const float2*>(src);
+          const float2 hi = *reinterpret_cast<const float2*>(src + 8);
+          uint32_t bh[2], bm[2], bl[2];
+          tc::split3(lo.x, lo.y, bh[0], bm[0], bl[0]);
+          tc::split3(hi.x, hi.y, bh[1], bm[1], bl[1]);
+#pragma unroll
+          for (int mb = 0; mb < 2; ++mb) {
+            tc::mma_bf16(acc[mb][nb], a[0][mb], bh[0], bh[1]);    // hh
+            tc::mma_bf16(small[mb][nb], a[1][mb], bm[0], bm[1]);  // mm
+            tc::mma_bf16(small[mb][nb], a[2][mb], bh[0], bh[1]);  // lh
+            tc::mma_bf16(small[mb][nb], a[0][mb], bl[0], bl[1]);  // hl
+            tc::mma_bf16(small[mb][nb], a[1][mb], bh[0], bh[1]);  // mh
+            tc::mma_bf16(small[mb][nb], a[0][mb], bm[0], bm[1]);  // hm
+          }
+        }
       }
+    } else {
 #pragma unroll
-      for (int nb2 = 0; nb2 < 2; ++nb2) {
-        uint32_t bb[4];
-        tc::load_b(bb, slab + (wb * 32 + nb2 * 16) * kSlab, kSlab, k0, lane);
+      for (int k0 = 0; k0 < kKC; k0 += 16) {
+        uint32_t a[2][4];
 #pragma unroll
         for (int mb = 0; mb < 2; ++mb) {
-          tc::mma_bf16(acc[mb][2 * nb2], a[mb], bb[0], bb[1]);
-          tc::mma_bf16(acc[mb][2 * nb2 + 1], a[mb], bb[2], bb[3]);
+          tc::load_a(a[mb], qs + (wq * 32 + mb * 16) * qstride, qstride,
+                     kc * kKC + k0, lane);
+        }
+#pragma unroll
+        for (int nb2 = 0; nb2 < 2; ++nb2) {
+          uint32_t bb[4];
+          tc::load_b(bb, slab + (wb * 32 + nb2 * 16) * kSlab, kSlab, k0,
+                     lane);
+#pragma unroll
+          for (int mb = 0; mb < 2; ++mb) {
+            tc::mma_bf16(acc[mb][2 * nb2], a[mb], bb[0], bb[1]);
+            tc::mma_bf16(acc[mb][2 * nb2 + 1], a[mb], bb[2], bb[3]);
+          }
         }
       }
     }
@@ -408,7 +391,7 @@ bucketed_tc_kernel(const bf16* __restrict__ q, const void* __restrict__ c,
           const int bucket = b0 + wb * 32 + nb * 8 + 2 * t + e;
           const int64_t r = grp * buckets + bucket;
           float scale = 1.f;
-          if constexpr (FMT != kRows) {
+          if constexpr (FMT == kInt8 || FMT == kPacked4) {
             scale = bucket < buckets ? __ldg(scales + r) : 0.f;
           }
 #pragma unroll
@@ -416,7 +399,11 @@ bucketed_tc_kernel(const bf16* __restrict__ q, const void* __restrict__ c,
 #pragma unroll
             for (int h = 0; h < 2; ++h) {
               float v = acc[mb][nb][2 * h + e];
-              if constexpr (FMT != kRows) v *= scale;
+              if constexpr (FMT == kF32) {
+                v = __fadd_rn(v, small[mb][nb][2 * h + e]);
+              } else if constexpr (FMT != kRows) {
+                v *= scale;
+              }
               if (r >= valid_rows) v = mask_value;
               if (v > best[mb][nb][2 * h + e]) {
                 best[mb][nb][2 * h + e] = v;
@@ -485,7 +472,7 @@ cudaError_t launch_tc(const void* q, const void* c, const float* scales,
   if (err != cudaSuccess) return err;
   const dim3 grid((buckets + kTB - 1) / kTB, (num_q + TQ - 1) / TQ, splits);
   kernel<<<grid, TQ * 2, smem, stream>>>(
-      static_cast<const bf16*>(q), c, scales, splits > 1 ? split_vals : vals,
+      q, c, scales, splits > 1 ? split_vals : vals,
       splits > 1 ? split_rows : rows, num_q, n, d, buckets, valid_rows,
       mask_value);
   err = cudaGetLastError();
@@ -504,14 +491,25 @@ cudaError_t launch_format(int query_tile, const void* q, const void* c,
                           int64_t valid_rows, float mask_value, int splits,
                           float* split_vals, int* split_rows,
                           cudaStream_t stream) {
-  if (query_tile == 128) {
-    return launch_tc<FMT, 128>(q, c, scales, vals, rows, num_q, n, d,
-                               buckets, valid_rows, mask_value, splits,
-                               split_vals, split_rows, stream);
+  switch (query_tile) {
+    case 128:
+      return launch_tc<FMT, 128>(q, c, scales, vals, rows, num_q, n, d,
+                                 buckets, valid_rows, mask_value, splits,
+                                 split_vals, split_rows, stream);
+    case 64:
+      return launch_tc<FMT, 64>(q, c, scales, vals, rows, num_q, n, d,
+                                buckets, valid_rows, mask_value, splits,
+                                split_vals, split_rows, stream);
+    case 32:
+      if constexpr (FMT == kF32) {
+        return launch_tc<FMT, 32>(q, c, scales, vals, rows, num_q, n, d,
+                                  buckets, valid_rows, mask_value, splits,
+                                  split_vals, split_rows, stream);
+      }
+      [[fallthrough]];
+    default:
+      return cudaErrorInvalidValue;
   }
-  return launch_tc<FMT, 64>(q, c, scales, vals, rows, num_q, n, d, buckets,
-                            valid_rows, mask_value, splits, split_vals,
-                            split_rows, stream);
 }
 
 }  // namespace
@@ -522,9 +520,9 @@ extern "C" {
 // bf16: for format 0, 1 when q and the rows are bf16, 0 when both are f32;
 // q is bf16 for formats 1 and 2.
 // n is the logical row count (twice the packed rows for format 2).
-// query_tile (64 or 128) and splits (1 .. N/B groups) shape the
-// tensor-core path; with splits > 1, split_vals / split_rows hold
-// splits * Q * B entries. The f32 path ignores the three.
+// query_tile (128 or 64; f32 rows also 32) and splits (1 .. N/B groups)
+// shape the launch; with splits > 1, split_vals / split_rows hold
+// splits * Q * B entries.
 // Returns the cudaError_t of the launches (0 on success).
 int bucketed_scores_launch(int format, int bf16, const void* q, const void* c,
                            const float* scales, float* vals, int* rows,
@@ -533,30 +531,18 @@ int bucketed_scores_launch(int format, int bf16, const void* q, const void* c,
                            int query_tile, int splits, float* split_vals,
                            int* split_rows, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (num_q <= 0 || buckets <= 0 || d <= 0 || n % buckets != 0) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  if (format == kRows && !bf16) {
-    const size_t smem =
-        sizeof(float) * (static_cast<size_t>(d) * kTQ + kKC32 * kCStride);
-    cudaError_t err = cudaFuncSetAttribute(
-        bucketed_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
-    const dim3 grid((buckets + kTB - 1) / kTB, (num_q + kTQ - 1) / kTQ);
-    bucketed_f32_kernel<<<grid, kThreads, smem, s>>>(
-        static_cast<const float*>(q), static_cast<const float*>(c), vals,
-        rows, num_q, n, d, buckets, valid_rows, mask_value);
-    return cudaGetLastError();
-  }
-  const int64_t groups = n / buckets;
-  if (d % kKC != 0 || (query_tile != 64 && query_tile != 128) ||
-      splits < 1 || splits > groups ||
+  const int64_t groups = buckets > 0 ? n / buckets : 0;
+  if (num_q <= 0 || buckets <= 0 || d <= 0 || n % buckets != 0 ||
+      d % kKC != 0 || splits < 1 || splits > groups ||
       (splits > 1 && (split_vals == nullptr || split_rows == nullptr)) ||
       (format == kPacked4 && groups % 2 != 0)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  switch (format) {
+  switch (format == kRows && !bf16 ? kF32 : format) {
+    case kF32:
+      return launch_format<kF32>(query_tile, q, c, scales, vals, rows, num_q,
+                                 n, d, buckets, valid_rows, mask_value,
+                                 splits, split_vals, split_rows, s);
     case kRows:
       return launch_format<kRows>(query_tile, q, c, scales, vals, rows,
                                   num_q, n, d, buckets, valid_rows,

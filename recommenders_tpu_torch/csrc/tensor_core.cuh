@@ -1,6 +1,7 @@
 // Tensor-core building blocks shared by the port's kernels (sm_90a):
-// cp.async copies into shared memory, ldmatrix fragment loads and the
-// bf16 mma.sync.aligned.m16n8k16 product with f32 accumulators.
+// cp.async copies into shared memory, ldmatrix fragment loads, the bf16
+// mma.sync.aligned.m16n8k16 product with f32 accumulators, the exact
+// three-term bf16 split of an f32 value and the code-to-bf16 decoders.
 //
 // Fragment layout of m16n8k16 (lane = 4 * g + t, g = lane / 4, t = lane % 4):
 //   A [16 x 16] row-major, 4 registers of two bf16:
@@ -93,6 +94,24 @@ __device__ __forceinline__ void mma_bf16(float d[4], const uint32_t a[4],
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// Two floats x0, x1 as three bf16 pairs h + m + l (`x0` in the low
+// halves): h = bf16(x), m = bf16(x - h), l = bf16(x - h - m), each
+// rounded to nearest even. Both subtractions are exact (Sterbenz), and for
+// 2^-110 <= |x| < (2 - 2^-8) 2^127 h + m + l = x exactly, with |m| <=
+// (1 + 2^-8) 2^-8 |x| and |l| <= 2^-16 |x|: x's 24 bits are 3 x 8. Below
+// 2^-110, x's last bits fall under bf16's subnormal grid (2^-133) and l
+// rounds onto it: the split misses x by at most 2^-134. (Larger |x| round
+// h to infinity.)
+__device__ __forceinline__ void split3(float x0, float x1, uint32_t& h,
+                                       uint32_t& m, uint32_t& l) {
+  h = pack_bf16(x0, x1);
+  const float r0 = __fsub_rn(x0, __uint_as_float(h << 16));
+  const float r1 = __fsub_rn(x1, __uint_as_float(h & 0xFFFF0000u));
+  m = pack_bf16(r0, r1);
+  l = pack_bf16(__fsub_rn(r0, __uint_as_float(m << 16)),
+                __fsub_rn(r1, __uint_as_float(m & 0xFFFF0000u)));
 }
 
 // Two int8 codes, bytes i and i + 1 of w ^ 0x80808080 (x + 128 each), as

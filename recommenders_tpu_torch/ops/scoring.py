@@ -13,11 +13,14 @@ Port of `recommenders_tpu/ops/scoring.py:48-499`. The serving op is
 `bucketed_scores` is the wrapper of the hand-written CUDA kernel
 `csrc/bucketed_scores.cu`. For a tensor on the CPU it runs the kernel's
 plain PyTorch twin `bucketed_scores_reference`; for a CUDA tensor it
-launches the kernel or raises. The bf16, int8 and int4 bodies multiply on
-the tensor cores; `_tc_plan` picks their query tile and how many blocks
-share one tile's walk over the row groups (a second small kernel merges
-those). Its `launches` attribute counts wrapper launches of the kernel
-(and `launches_by_format` splits them by corpus format).
+launches the kernel or raises. Every body multiplies on the bf16 tensor
+cores; the f32 body splits both operands into three bf16 terms and takes
+six of their nine products (`split3` and `split_scores` model that split
+in plain PyTorch; nothing on the serving path calls them). `_tc_plan`
+picks the query tile and how many blocks share one tile's walk over the
+row groups (a second small kernel merges those). Its `launches` attribute
+counts wrapper launches of the kernel (and `launches_by_format` splits
+them by corpus format).
 """
 
 from __future__ import annotations
@@ -42,17 +45,22 @@ MIN_FLOAT = topk_ops.MIN_FLOAT
 # of index settings is valid for both packages.
 _LANES = 128
 
-# Limits of the CUDA kernel: the query tile ([64, D] f32, or [128, D] /
-# [64, D] bf16 on the tensor-core path) lives in shared memory (≤ 227 KB
-# a block), row ids are int32, and the grid's second dimension holds one
-# block per 64 or 128 queries.
+# Limits of the CUDA kernel: the query tile lives in shared memory
+# (≤ 227 KB a block), row ids are int32, and the grid's second dimension
+# holds one block per 32, 64 or 128 queries.
 _MAX_DIM = 768
 _MAX_ROWS = 2**31 - 1
-_MAX_QUERIES = 65535 * 64
-# Buckets a block owns, and the widest D the tensor-core path holds 128
+_MAX_QUERIES = 65535 * 32
+# Buckets a block owns, and the widest D the bf16 / code bodies hold 128
 # queries of in shared memory (64 above it).
 _BUCKET_TILE = 64
 _TC_WIDE_DIM = 512
+# Shared memory a block may take on the H100 (227 KB), and the f32 body's
+# ring of two f32 corpus slabs, [64][136] floats each; its three bf16
+# query planes take 6·TQ·(D + 8) bytes beside it (`tc_smem` in
+# `csrc/bucketed_scores.cu`).
+_SMEM_PER_BLOCK = 232_448
+_F32_RING_BYTES = 2 * 64 * 136 * 4
 
 _FORMAT_ROWS, _FORMAT_INT8, _FORMAT_PACKED4 = 0, 1, 2
 
@@ -179,14 +187,22 @@ def _kernel_fn():
     return fn, lib.bucketed_scores_error_string
 
 
-def _tc_plan(qn: int, n: int, d: int, buckets: int,
-             sms: int) -> Tuple[int, int]:
-    """(query tile, splits) of the tensor-core path: a block owns a query
-    tile × 64 buckets; where those blocks are fewer than two an SM, the
-    walk over the `n / buckets` row groups is split over more blocks."""
-    tq = 128 if d <= _TC_WIDE_DIM else 64
+def _tc_plan(qn: int, n: int, d: int, buckets: int, sms: int,
+             f32: bool = False) -> Tuple[int, int]:
+    """(query tile, splits) of a launch: a block owns a query tile × 64
+    buckets; where those blocks are fewer than the card holds at once (two
+    an SM; one for the f32 body, whose shared memory fills an SM), the walk
+    over the `n / buckets` row groups is split over more blocks. The f32
+    body takes the largest tile of 128, 64 and 32 queries whose planes fit
+    (128 at D = 128, 64 to D = 384, 32 to D = 768)."""
+    if f32:
+        tq = next(t for t in (128, 64, 32)
+                  if 6 * t * (d + 8) + _F32_RING_BYTES <= _SMEM_PER_BLOCK)
+    else:
+        tq = 128 if d <= _TC_WIDE_DIM else 64
+    per_sm = 1 if f32 else 2
     blocks = -(-buckets // _BUCKET_TILE) * -(-qn // tq)
-    return tq, max(1, min(n // buckets, -(-2 * sms // blocks)))
+    return tq, max(1, min(n // buckets, -(-per_sm * sms // blocks)))
 
 
 def _launch(
@@ -246,9 +262,9 @@ def _launch(
 
     vals = torch.empty((qn, buckets), dtype=torch.float32, device=device)
     rows = torch.empty((qn, buckets), dtype=torch.int32, device=device)
-    tq, splits, split_vals, split_rows = 64, 1, None, None
-    if name != "f32":
-        tq, splits = _tc_plan(qn, n, d, buckets, cuda_build.sm_count(device))
+    split_vals = split_rows = None
+    tq, splits = _tc_plan(qn, n, d, buckets, cuda_build.sm_count(device),
+                          f32=name == "f32")
     if splits > 1:
         split_vals = torch.empty((splits, qn, buckets), dtype=torch.float32,
                                  device=device)
@@ -325,6 +341,48 @@ def bucketed_scores_reference(
     vals, best = scores.view(-1, groups, buckets).max(dim=1)
     rows = best * buckets + torch.arange(buckets, device=best.device)
     return vals, rows.to(torch.int32)
+
+
+# The f32 body's term products, (query term, corpus term) of (h, m, l):
+# hh, hm, mh, hl, lh, mm; it drops ml, lm and ll.
+SPLIT_PRODUCTS = ((0, 0), (0, 1), (1, 0), (0, 2), (2, 0), (1, 1))
+# Its bound on |split dot − q·c| (`csrc/bucketed_scores.cu`): the dropped
+# terms, at most 2(1 + 2⁻⁸)2⁻⁸·2⁻¹⁶ + 2⁻³² ≤ 1.006·2⁻²³ of |q_k||c_k| a
+# product, and 2⁻¹³⁴ of the partner for each value below 2⁻¹¹⁰, where the
+# split rounds onto bf16's subnormal grid.
+SPLIT_REL_BOUND = 2 * (1 + 2.0**-8) * 2.0**-24 + 2.0**-32
+SPLIT_TINY = 2.0**-110
+SPLIT_ABS_BOUND = 2.0**-134
+
+
+def split3(x: Tensor) -> Tuple[Tensor, Tensor, Tensor]:
+    """The f32 body's split of `x` into three bf16 terms, returned as f32:
+    h = bf16(x), m = bf16(x − h), l = bf16(x − h − m), each rounded to
+    nearest even (`tc::split3`). h + m + l = x exactly for 2⁻¹¹⁰ ≤ |x| <
+    (2 − 2⁻⁸)·2¹²⁷."""
+    x = x.to(torch.float32)
+    h = x.to(torch.bfloat16).to(torch.float32)
+    r = x - h
+    m = r.to(torch.bfloat16).to(torch.float32)
+    return h, m, (r - m).to(torch.bfloat16).to(torch.float32)
+
+
+def split_scores(queries: Tensor, candidates: Tensor) -> Tensor:
+    """`[Q, N]` float64 scores as the f32 body forms them, less its f32
+    rounding: the sum of its six exact term products (`SPLIT_PRODUCTS`)."""
+    qs = [t.double() for t in split3(queries)]
+    cs = [t.double() for t in split3(candidates)]
+    return sum(qs[i] @ cs[j].T for i, j in SPLIT_PRODUCTS)
+
+
+def split_error_bound(queries: Tensor, candidates: Tensor) -> Tensor:
+    """`[Q, N]` float64 bound on |`split_scores` − q·c|."""
+    q = queries.double().abs()
+    c = candidates.double().abs()
+    bound = SPLIT_REL_BOUND * (q @ c.T)
+    bound += SPLIT_ABS_BOUND * ((q < SPLIT_TINY).double() @ c.T
+                                + q @ (c < SPLIT_TINY).double().T)
+    return bound
 
 
 def bucketed_top_k(

@@ -5,6 +5,7 @@ settings in turn, so that both readings share the card and its clock.
     python3 recommenders_tpu_torch/tools/kernel_ab.py k2-parts \
         [--blocks-per-sm 2 4 4 2]
     python3 recommenders_tpu_torch/tools/kernel_ab.py k3-f32 [--root DIR]
+    python3 recommenders_tpu_torch/tools/kernel_ab.py k1 [--root DIR]
     python3 recommenders_tpu_torch/tools/kernel_ab.py leaf [--root DIR]
     python3 recommenders_tpu_torch/tools/kernel_ab.py k5-splits \
         [--blocks-per-sm 3 6 12 24 48]
@@ -17,7 +18,17 @@ replay, with `fused_retrieval._BLOCKS_PER_SM` set to each value of
 
 `k3-f32`: the f32 body of K3 (`csrc/bucketed_scores.cu`) at the serving
 smoke's shape (1024 queries, 1,000,000 rows padded to 1,001,472, D = 128,
-2048 buckets), the mean of 10 calls between CUDA events, 3 times.
+2048 buckets), the mean of 10 calls between CUDA events, 3 times, and the
+device time of one call by CUDA-graph replay (10 calls captured, 3
+replays).
+
+`k1`: K1 (`csrc/sparse_apply.cu`) as the training step runs it, adagrad on
+a bf16 table and bf16 slot with stochastic rounding, at `chip_smoke.py`'s
+training shape (V = 131,072, D = 64, n = 4,096 sorted ids with duplicates
+and padding, drawn as its K1 check draws them) and on one run of 32 ids
+(the launch floor), each by CUDA-graph replay (20 calls captured, 5
+replays) and as eager wrapper calls (the mean of 50 between CUDA events),
+3 times.
 
 `leaf`: K4 and K5 (`csrc/leaf_scoring.cu`), each format, at
 `chip_smoke.py`'s ScaNN shapes: its clustered 1M x 128 corpus and first
@@ -32,7 +43,7 @@ CUDA-graph replay, with `leaf_scoring._K5_BLOCKS_PER_SM` (the blocks an
 SM its probe-walk split aims for) set to each value of `--blocks-per-sm`
 in turn, and restored after.
 
-`k3-f32` and `leaf` import the port's package from the checkout `--root`
+`k3-f32`, `k1` and `leaf` import the port's package from the checkout `--root`
 (this one by default) and set up and time it with this checkout's
 `chip_smoke.py`, so that two checkouts are compared by the same code,
 running the mode once for each, in turn: parent, change, change, parent.
@@ -100,12 +111,33 @@ def k3_f32(cs) -> dict:
     q = torch.randn(1024, cs.DIM, device=device, generator=gen)
     corpus = torch.randn(n, cs.DIM, device=device, generator=gen)
     kw = dict(buckets=2048, chunk=2048, query_tile=256, valid_rows=valid)
-    ms = [cs.device_ms(lambda: scoring.bucketed_scores(q, corpus, None,
-                                                       **kw),
-                       device, iters=10) for _ in range(READS)]
+
+    def call():
+        return scoring.bucketed_scores(q, corpus, None, **kw)
+
+    ms = [cs.device_ms(call, device, iters=10) for _ in range(READS)]
+    graph = cs.graph_ms(call, device, launches=10, replays=3)
     print("  K3 f32: " + " / ".join(f"{t:.3f}" for t in ms)
-          + " ms", flush=True)
-    return {"k3_f32_ms": ms}
+          + f" ms; graph replay {graph:.3f} ms", flush=True)
+    return {"k3_f32_ms": ms, "k3_f32_graph_ms": graph}
+
+
+def k1(cs, device: torch.device, size=None) -> dict:
+    size = size or cs.TrainSize()
+    spec = cs.emb_config.OptimizerSpec(kind="adagrad", learning_rate=0.05)
+    _, scalars, rule, _ = cs.sparse_optimizer._kernel_rule(spec, 7)
+    states, ids, grads = cs.k1_problem("adagrad", torch.bfloat16, size.items,
+                                       size.dim, size.batch, device, SEED)
+    step, floor = cs.k1_calls(states, ids, grads, rule, scalars)
+    readings = {}
+    for name, fn in (("step", step), ("floor", floor)):
+        graph = [cs.graph_ms(fn, device) for _ in range(READS)]
+        calls = [cs.device_ms(fn, device, iters=50) for _ in range(READS)]
+        readings[name] = {"graph_ms": graph, "call_ms": calls}
+        print(f"  K1 {name}: graph replay "
+              + " / ".join(f"{t:.5f}" for t in graph) + " ms; calls "
+              + " / ".join(f"{t:.5f}" for t in calls) + " ms", flush=True)
+    return {"k1": readings}
 
 
 def leaf_calls(cs, device: torch.device, size=None):
@@ -176,7 +208,8 @@ def load(root: Path):
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("what",
-                        choices=("k2-parts", "k3-f32", "leaf", "k5-splits"))
+                        choices=("k2-parts", "k3-f32", "k1", "leaf",
+                                 "k5-splits"))
     parser.add_argument("--root", type=Path, default=ROOT)
     parser.add_argument("--blocks-per-sm", type=int, nargs="+")
     args = parser.parse_args()
@@ -193,6 +226,8 @@ def main() -> int:
         result = k2_parts(cs, args.blocks_per_sm or [2, 4, 4, 2])
     elif args.what == "k3-f32":
         result = k3_f32(cs)
+    elif args.what == "k1":
+        result = k1(cs, device)
     elif args.what == "leaf":
         result = leaf(cs, device)
     else:

@@ -42,10 +42,22 @@ def test_smoke_phases_pass_on_cpu_at_a_tiny_size(capsys):
         ].startswith("def _bucket_kernel")
         assert row["bound_by"] in ("bytes", "operations")
         assert row["bound_ms"] > 0
+    # f32 rows' bound is six bf16 passes at the bf16 peak, every other
+    # format's one; the f32 CUDA-core figure is printed beside it.
+    ops = 2.0 * size.batch * size.items * chip_smoke.DIM
+    for row in report:
+        fmt = row["name"].split("[")[1].rstrip("]")
+        passes = 6 if fmt == "f32" else 1
+        assert chip_smoke.K3_PASSES[fmt] == passes
+        assert row["bound_ms"] >= passes * ops / 989e12 * 1e3
     out = capsys.readouterr().out
     for name in ("build", "towers", "embed", "index", "serve", "outputs",
                  "kernels", "recall"):
         assert f"phase {name}: ok" in out
+    line = re.search(r"kernel f32: .* bound (\S+) ms \(6 bf16 pass\(es\)\) "
+                     r"\(f32 CUDA-core bound (\S+) ms\)", out)
+    assert line is not None
+    assert float(line[2]) == pytest.approx(ops / 67e12 * 1e3, rel=1e-3)
 
 
 def test_scann_phases_pass_on_cpu_at_a_tiny_size(capsys):
@@ -108,6 +120,7 @@ def test_training_phases_pass_on_cpu_at_a_tiny_size(capsys):
         assert row["bound_ms"] > 0
         assert row["max_abs_err"] == 0.0   # the twin against itself
     assert report[0]["library_ms"] is None
+    assert report[0]["floor_ms"] > 0
     assert all(r["library_ms"] > 0 for r in report[1:])
     # K2's bound is the largest of its products at the bf16 peak, its
     # exps at the SFU rate and its bytes; each term is printed on the
@@ -141,6 +154,8 @@ def test_training_phases_pass_on_cpu_at_a_tiny_size(capsys):
     for kind in chip_smoke.KINDS:
         assert f"K1 {kind} bf16+SR" in out and f"K1 {kind} f32" in out
     assert "step pipelined fused" in out
+    assert re.search(r"K1 timing: .* floor \(one run of 32 ids, graph "
+                     r"replay\) \S+ ms", out)
 
 
 def test_train_state_loads_through_convert_as_bf16():
@@ -165,7 +180,8 @@ def test_main_fails_without_cuda_and_prints_no_result():
     assert "CUDA is not available" in proc.stderr
 
 
-@pytest.mark.parametrize("what", ["k2-parts", "k3-f32", "leaf", "k5-splits"])
+@pytest.mark.parametrize("what", ["k2-parts", "k3-f32", "k1", "leaf",
+                                  "k5-splits"])
 def test_kernel_ab_fails_without_cuda(what):
     if torch.cuda.is_available():
         pytest.skip("CUDA is present; this checks the CPU-only refusal")
@@ -201,6 +217,37 @@ def test_kernel_ab_leaf_modes_time_every_format_on_cpu():
     assert all([r["blocks_per_sm"] for r in v] == [3, 12]
                for v in splits.values())
     assert leaf_scoring._K5_BLOCKS_PER_SM == default
+
+
+def test_kernel_ab_k1_times_the_step_and_the_floor_on_cpu():
+    """`kernel_ab.py k1` at a tiny size on the CPU (the twin runs): the
+    step's call and the one-run floor call, each timed both ways."""
+    from recommenders_tpu_torch.tools import kernel_ab
+
+    size = chip_smoke.TrainSize(users=64, items=256, dim=16, batch=64)
+    k1 = kernel_ab.k1(chip_smoke, torch.device("cpu"), size)["k1"]
+    assert sorted(k1) == ["floor", "step"]
+    for reading in k1.values():
+        assert len(reading["graph_ms"]) == len(reading["call_ms"]) == \
+            kernel_ab.READS
+        assert all(t > 0 for t in reading["graph_ms"] + reading["call_ms"])
+
+
+def test_k1_floor_call_is_one_run_of_one_row():
+    """The floor call updates exactly one row of every state, as one run
+    of `K1_FLOOR_IDS` ids."""
+    size = chip_smoke.TrainSize(users=64, items=256, dim=16, batch=64)
+    spec = chip_smoke.emb_config.OptimizerSpec(kind="adagrad",
+                                               learning_rate=0.05)
+    _, scalars, rule, _ = chip_smoke.sparse_optimizer._kernel_rule(spec, 7)
+    states, ids, grads = chip_smoke.k1_problem(
+        "adagrad", torch.bfloat16, size.items, size.dim, size.batch, "cpu", 0)
+    before = [s.clone() for s in states]
+    _, floor = chip_smoke.k1_calls(states, ids, grads, rule, scalars)
+    floor()
+    for s, b in zip(states, before):
+        changed = (s != b).any(dim=1).nonzero().flatten().tolist()
+        assert changed == [int(ids[0])]
 
 
 def test_kernel_ab_times_the_root_package_with_this_checkouts_script(

@@ -72,3 +72,29 @@ def test_bucketed_plan_fills_the_card(qn, n, d, buckets, plan):
     blocks = -(-buckets // 64) * -(-qn // tq)
     assert splits <= n // buckets
     assert blocks * splits >= 264 or splits == n // buckets
+
+
+@pytest.mark.parametrize("qn,n,d,buckets,plan", [
+    (1024, 1_001_472, 128, 2048, (128, 1)),  # the serving smoke: 256 blocks
+    (40, 8192, 128, 256, (128, 32)),         # 4 blocks; 32 groups cap it
+    (48, 4096, 384, 256, (64, 16)),          # 64-query tiles to D = 384
+    (70, 4096, 640, 256, (32, 11)),          # 32-query tiles from D = 512
+    (40, 2048, 768, 128, (32, 16)),          # the widest D
+])
+def test_f32_plan_fills_the_card_one_block_an_sm(qn, n, d, buckets, plan):
+    tq, splits = scoring._tc_plan(qn, n, d, buckets, 132, f32=True)
+    assert (tq, splits) == plan
+    blocks = -(-buckets // 64) * -(-qn // tq)
+    assert splits <= n // buckets
+    assert blocks * splits >= 132 or splits == n // buckets
+
+
+@pytest.mark.parametrize("d", [128, 256, 384, 512, 640, 768])
+def test_f32_query_tile_is_the_largest_that_fits(d):
+    """Three bf16 query planes [TQ][D + 8] and the two-slab f32 ring fit
+    the 227 KB a block may take; twice the tile would not."""
+    tq, _ = scoring._tc_plan(64, 4096, d, 256, 132, f32=True)
+    smem = lambda t: 6 * t * (d + 8) + 2 * 64 * 136 * 4
+    assert smem(tq) <= 232_448
+    assert tq == 128 or smem(2 * tq) > 232_448
+    assert tq == {128: 128, 256: 64, 384: 64}.get(d, 32)

@@ -7,9 +7,11 @@ only torch and the port, so it also runs on a machine without JAX:
     python -m pytest tests/test_torch_cuda_kernels.py -q --noconftest
 
 Tolerance: the kernel and the twin take the same products in f32 in a
-different order (the bf16, int8 and int4 bodies on the tensor cores,
-whose f32 sums may truncate), so scores agree to |Δ| ≤ D·2⁻²³·Σ|q||c| of
-each winner (the a-priori bound of an f32 sum that truncates), and ids
+different order (on the tensor cores, whose f32 sums may truncate; f32
+rows as six exact bf16 term products, which drop at most
+1.006·2⁻²³·Σ|q||c|, `csrc/bucketed_scores.cu`), so scores agree to
+|Δ| ≤ D·2⁻²³·Σ|q||c| of each winner (the a-priori bound of an f32 sum
+that truncates), and ids
 are equal wherever the twin's bucket winner beats its runner-up by more
 than twice that. Every case launches twice and needs bit-identical
 results.
@@ -75,7 +77,9 @@ def _inputs_with_ties(fmt, q, n, buckets, d, device):
     (8, 1024, 1024, 300, 128),
     (1024, 65536, 2048, 65536, 128),  # the tensor-core bodies split the walk
     (130, 12800, 160, 12700, 128),    # ragged query and bucket tiles
+    (48, 4096, 256, 4000, 384),       # f32: 64-query tiles (D 256 .. 384)
     (70, 4096, 256, 4000, 640),       # D > 512: 64-query tiles, 5 stages a group
+    (40, 2048, 128, 2000, 768),       # the widest D (f32: 32-query tiles)
 ])
 def test_kernel_matches_twin(device, fmt, q, n, buckets, valid, d):
     queries, stored, scales, packed4, deq = _inputs(fmt, q, n, d, device)
@@ -138,6 +142,56 @@ def test_kernel_ties_go_to_the_lowest_row(device, fmt, q, n, buckets):
     assert ((vals - ref_v).abs() <= tol).all()
 
 
+def _adversarial_f32(kind, shape, g, device):
+    """f32 values whose split terms are all busy: `residues` (m and l as
+    large as rounding to nearest lets them be, one sign), `ones` (all 24
+    significant bits set) or `spread` (exponents from 2⁻³⁰ to 2³⁰)."""
+    exps = lambda lo, hi: torch.exp2(torch.randint(
+        lo, hi + 1, shape, device=device, generator=g).double())
+    sign = torch.randint(0, 2, shape, device=device, generator=g) * 2.0 - 1
+    if kind == "residues":
+        h = 1 + torch.randint(0, 32, shape, device=device,
+                              generator=g).double() * 2.0**-7
+        x = (h + (2.0**-8 - 2.0**-16) + (2.0**-17 - 2.0**-23)) * exps(-4, 4)
+    elif kind == "ones":
+        x = sign * (2 - 2.0**-23) * exps(-4, 4)
+    else:
+        x = sign * (1 + torch.rand(shape, device=device, generator=g,
+                                   dtype=torch.float64)) * exps(-30, 30)
+    return x.float()
+
+
+@pytest.mark.parametrize("kind", ["residues", "ones", "spread"])
+@pytest.mark.parametrize("q,n,buckets,d", [(64, 8192, 512, 128),
+                                           (40, 2048, 128, 768)])
+def test_f32_kernel_on_adversarial_values(device, kind, q, n, buckets, d):
+    """The split-precision f32 body on values that keep all three bf16
+    terms of every operand busy: within D·2⁻²³·Σ|q||c| of the twin and of
+    a float64 dot, rows equal wherever the winner is separated."""
+    g = torch.Generator(device=device).manual_seed(5)
+    queries = _adversarial_f32(kind, (q, d), g, device)
+    corpus = _adversarial_f32(kind, (n, d), g, device)
+    kw = dict(buckets=buckets, chunk=buckets, query_tile=q, valid_rows=n)
+    vals, rows = scoring.bucketed_scores(queries, corpus, None, **kw)
+    again = scoring.bucketed_scores(queries, corpus, None, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(vals, again[0]) and torch.equal(rows, again[1])
+    ref_v, ref_r = scoring.bucketed_scores_reference(
+        queries, corpus, None, buckets=buckets, valid_rows=n)
+    exact = queries.double() @ corpus.double().T
+    abs_dot = queries.double().abs() @ corpus.double().abs().T
+    tol = d * 2.0**-23 * abs_dot + 1e-30
+    win_tol = torch.gather(tol, 1, rows.long())
+    assert ((vals.double() - ref_v.double()).abs() <= win_tol).all()
+    assert ((vals.double() - torch.gather(exact, 1, rows.long())).abs()
+            <= win_tol).all()
+    top2 = exact.view(q, n // buckets, buckets).topk(2, dim=1).values
+    separated = (top2[:, 0] - top2[:, 1]) > 2 * torch.gather(
+        tol, 1, ref_r.long())
+    assert separated.double().mean() >= 0.9
+    assert torch.equal(rows[separated], ref_r[separated])
+
+
 def test_kernel_refuses_bad_inputs(device):
     queries, stored, _, _, _ = _inputs("f32", 8, 1024, 128, device)
     with pytest.raises(TypeError, match="share a dtype"):
@@ -159,7 +213,9 @@ def test_kernel_refuses_bad_inputs(device):
 K1_KINDS = ("sgd", "adagrad", "rowwise_adagrad", "adam", "ftrl")
 
 
-def _k1_case(kind, dtype, v, d, n, device):
+def _k1_case(kind, dtype, v, d, n, device, run=0):
+    """States, sorted ids (a third duplicated, 5 padding; with `run`, the
+    first `run` entries one id) and grads for one K1 case."""
     from recommenders_tpu_torch.embedding import config
     from recommenders_tpu_torch.embedding import sparse_optimizer
 
@@ -174,6 +230,7 @@ def _k1_case(kind, dtype, v, d, n, device):
     ids = torch.randint(0, v, (n,), device=device, generator=g)
     ids[: n // 3] = ids[torch.randint(0, n, (n // 3,), device=device,
                                       generator=g)]
+    ids[:run] = v // 2
     ids[-5:] = v + 3
     ids = torch.sort(ids, stable=True).values.to(torch.int32)
     grads = torch.randn(n, d, device=device, generator=g)
@@ -186,14 +243,18 @@ def _k1_case(kind, dtype, v, d, n, device):
 @pytest.mark.parametrize("dtype,seed", [(torch.float32, None),
                                         (torch.bfloat16, None),
                                         (torch.bfloat16, 2**31 + 77)])
-@pytest.mark.parametrize("v,d,n", [(4096, 64, 512), (1000, 8, 300),
-                                   (300, 200, 64)])
+@pytest.mark.parametrize("v,d,n,run", [
+    (4096, 64, 512, 0), (1000, 8, 300, 0), (300, 200, 64, 0),
+    (500, 33, 200, 0),       # odd D: one column a lane, not pairs
+    (4096, 64, 3500, 3000),  # one run of 3000 ids, past the window and tiles
+    (131072, 64, 4093, 0),   # the step's shape, n not a multiple of 8
+])
 def test_sparse_apply_kernel_matches_twin(device, kind, dtype, seed, v, d,
-                                          n):
+                                          n, run):
     from recommenders_tpu_torch.ops import sparse_apply
 
     states, ids, grads, rule, scalars = _k1_case(kind, dtype, v, d, n,
-                                                 device)
+                                                 device, run)
     got = [s.clone() for s in states]
     want = [s.clone() for s in states]
     before = sparse_apply.sorted_block_apply.launches
