@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Runs the PyTorch port's retrieval serving, ScaNN serving and training
-slices on one NVIDIA GPU and checks them.
+"""Runs the PyTorch port's retrieval serving, ScaNN serving, training and
+trainer slices on one NVIDIA GPU and checks them.
 
     python3 chip_smoke.py [--seed 0] [--requests 3]
 
@@ -88,7 +88,57 @@ fatal when it fails:
      each printed;
  12. time the four step forms (plain and pipelined, unfused and fused).
 
-The phases run in the order serving, ScaNN, training. It prints the card's
+The trainer slice: the stacked engine, `Trainer.fit` and corpus-level
+evaluation, at full width. Phases, each fatal when it fails:
+
+ 18. stacked engine: `benchmarks/multi_table.py`'s 26 tables
+     (`np.geomspace(2_000, 1_000_000, 26)` rows, 4,536,387 in all, × 32,
+     f32, adagrad at lr 0.05), stacked and unstacked from one `init`,
+     5 steps each of 4,096 uniform ids a table and that file's loss; K1's
+     count is zeroed before each and read after: one launch a step
+     stacked, one a table a step unstacked; the logical state must be
+     bit-equal; ms/step (steps 2-5) and peak memory printed; the stacked
+     steps again through K1's twin (a CPU engine from the same init fed
+     the same ids and the card's activation grads), bit-equal to the
+     card; K1 at the stacked shape (f32 adagrad, 4,538,240 × 32, 26 ×
+     4,096 ids) held bit for bit against its twin and timed: its own
+     report row, which carries the path's launches;
+ 19. 2 steps of the stacked engine with bf16 tables and slots written
+     with stochastic rounding, card against the CPU (K1's twin): within
+     `parity_holds`' limits;
+ 20. trainer: the quickstart's model (`examples/quickstart.py:18-25`, two
+     `EmbeddingTower`s of width 64, Adagrad 0.5) at `bench.py`'s vocab
+     (65,536 users, 131,072 items), `Trainer.fit` for one epoch of 30
+     host batches of 4,096 uniform ids (after a 2-batch warm-up epoch),
+     unfused and then `fused=True`
+     with bf16 scores (K2's count zeroed before, read after: 30 launches
+     of each kernel fused, none unfused), then `evaluate` on 8 batches;
+ 21. 3 train steps on the card and on the CPU from the same weights,
+     both forms: losses to rtol 1e-4, and the parameters' change on the
+     card within `TRAINER_GAP` of the CPU's (relative), a limit that a
+     learning rate 1 % high and a dc 1 % high, planted on the CPU side,
+     must exceed; the largest parameter |Δ| printed;
+ 22. 10 fused steps of `fit` under `utils.profiling.trace`: the device's
+     busy and idle shares of the traced window (the union of kernel
+     intervals over the span of all events) and the five longest
+     device ops;
+ 23. corpus eval: the serving model's query tower and 1M × 128 corpus,
+     8,192 queries in batches of 1,024 (`benchmarks/corpus_eval.py:177-
+     182`), true ids the BruteForce top-1 row of every other query and a
+     uniform row for the rest; `FactorizedTopK(ks=(1, 5, 10, 50, 100))`
+     through `make_corpus_eval_step` over BruteForce, `Streaming.index`
+     (chunks of 131,072 rows), `Streaming.index_from_dataset` (the same
+     corpus as 8 pinned host chunks) and Bucketed f32 (K3, B = 2048,
+     count zeroed before, one launch a batch): both Streaming indexes'
+     accuracies equal BruteForce's at every k, and their top-100 id sets
+     on the first 1,024 queries; Bucketed's top-100 accuracy within 0.03;
+     BruteForce's step states equal to the hits counted from the ids
+     BruteForce returns; queries/s and peak memory printed.
+
+The phases run in the order serving, ScaNN, training, trainer slice.
+Each kernel's row in the `{"kernels": [...]}` line carries
+`path_launches`, its launches on the trainer slice's paths (phases 18,
+20, 23). It prints the card's
 name and power limit, one `{"kernels": [...]}` line
 and, last, `{"ok": true, "device": {...}}`. Without CUDA, or run outside
 a checkout of the repository, it exits non-zero and prints no result.
@@ -100,6 +150,7 @@ import argparse
 import copy
 import dataclasses
 import json
+import shutil
 import subprocess
 import sys
 import time
@@ -110,6 +161,8 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 
+from recommenders_tpu_torch import metrics  # noqa: E402
+from recommenders_tpu_torch import models  # noqa: E402
 from recommenders_tpu_torch import tasks  # noqa: E402
 from recommenders_tpu_torch.embedding import config as emb_config  # noqa: E402
 from recommenders_tpu_torch.embedding import engine as emb_engine  # noqa: E402
@@ -124,6 +177,7 @@ from recommenders_tpu_torch.ops import quantization  # noqa: E402
 from recommenders_tpu_torch.ops import scoring  # noqa: E402
 from recommenders_tpu_torch.ops import sparse_apply  # noqa: E402
 from recommenders_tpu_torch.utils import convert  # noqa: E402
+from recommenders_tpu_torch.utils import profiling  # noqa: E402
 
 DIM = 128
 MLP_UNITS = (256, 128)
@@ -257,6 +311,19 @@ def flax_params(size: Size, seed: int) -> dict:
     }
 
 
+def serving_model(size: Size, seed: int, device: torch.device):
+    """(the serving slice's `TwoTowerRetrieval` with `flax_params`'
+    weights, frozen, on `device`; those weights)."""
+    params = flax_params(size, seed)
+    model = retrieval.TwoTowerRetrieval(
+        retrieval.EmbeddingTower(size.users, DIM, MLP_UNITS, device=device),
+        retrieval.EmbeddingTower(size.items, DIM, device=device),
+    )
+    convert.load_flax_params(model, params)
+    model.eval().requires_grad_(False)
+    return model, params
+
+
 def numpy_query_tower(params: dict, ids: np.ndarray) -> np.ndarray:
     """The query tower in float64 NumPy, from the flax weights."""
     x = params["_query"]["Embed_0"]["embedding"][np.maximum(ids, 0)]
@@ -356,14 +423,7 @@ def run(device: torch.device, size: Size, seed: int) -> list:
     with torch.no_grad():
         # 2. Towers.
         started = time.perf_counter()
-        params = flax_params(size, seed)
-        model = retrieval.TwoTowerRetrieval(
-            retrieval.EmbeddingTower(size.users, DIM, MLP_UNITS,
-                                     device=device),
-            retrieval.EmbeddingTower(size.items, DIM, device=device),
-        )
-        convert.load_flax_params(model, params)
-        model.eval().requires_grad_(False)
+        model, params = serving_model(size, seed, device)
         probe = np.array([0, 1, size.users - 1, -1, 12345 % size.users])
         got = model.query_embeddings(
             {"user_id": torch.from_numpy(probe).to(device)}
@@ -1319,14 +1379,8 @@ def clustered_data(size: ScannSize, seed: int):
 def query_tower(users: int, seed: int, device: torch.device):
     """The serving slice's query tower (random weights from `seed`, the
     same draws as `run`'s) as a ScaNN `query_fn`."""
-    params = flax_params(Size(users=users, items=1), seed)
-    model = retrieval.TwoTowerRetrieval(
-        retrieval.EmbeddingTower(users, DIM, MLP_UNITS, device=device),
-        retrieval.EmbeddingTower(1, DIM, device=device),
-    )
-    convert.load_flax_params(model, params)
-    model.eval().requires_grad_(False)
-    return model.query_embeddings
+    return serving_model(Size(users=users, items=1), seed,
+                         device)[0].query_embeddings
 
 
 def reset_leaf_counts() -> None:
@@ -1909,6 +1963,626 @@ def scann(device: torch.device, size: ScannSize, seed: int) -> list:
     return report
 
 
+# --- The trainer slice: stacked tables, Trainer.fit, corpus evaluation -----
+
+
+@dataclasses.dataclass(frozen=True)
+class StackSize:
+    tables: int = 26              # benchmarks/multi_table.py:38
+    min_rows: int = 2_000         # np.geomspace(2_000, 1_000_000, 26),
+    max_rows: int = 1_000_000     # benchmarks/multi_table.py:64-68
+    dim: int = 32                 # benchmarks/multi_table.py:39
+    batch: int = 4096             # benchmarks/multi_table.py:28
+    steps: int = 5
+    sr_steps: int = 2
+
+
+STACK_LR = 0.05                   # benchmarks/multi_table.py:80
+K1_STACKED_ROW = "sorted_block_apply[adagrad f32, stacked]"
+
+
+def stack_vocabs(size: StackSize) -> list:
+    return [int(v) for v in np.geomspace(size.min_rows, size.max_rows,
+                                         size.tables).round()]
+
+
+def stack_engine(size: StackSize, device, stacked: bool,
+                 dtype=torch.float32) -> emb_engine.EmbeddingEngine:
+    """`benchmarks/multi_table.py`'s engine: 26 tables of width 32,
+    adagrad at lr 0.05; f32 state, or bf16 tables and slots written with
+    stochastic rounding."""
+    fcs = tuple(
+        emb_config.FeatureConfig(
+            emb_config.TableConfig(v, size.dim, name=f"t{i:02d}"),
+            name=f"f{i:02d}")
+        for i, v in enumerate(stack_vocabs(size)))
+    return emb_engine.EmbeddingEngine(
+        fcs,
+        optimizer=emb_config.OptimizerSpec(kind="adagrad",
+                                           learning_rate=STACK_LR),
+        dtype=dtype, slot_dtype=None if dtype == torch.float32 else dtype,
+        stack_tables=stacked, device=device)
+
+
+def stack_batches(size: StackSize, seed: int, count: int, device) -> list:
+    """`count` steps of `batch` uniform ids a table, from NumPy."""
+    rng = np.random.RandomState(seed)
+    vocabs = stack_vocabs(size)
+    return [{f"f{i:02d}": torch.from_numpy(
+                 rng.randint(0, v, size.batch).astype(np.int32)).to(device)
+             for i, v in enumerate(vocabs)}
+            for _ in range(count)]
+
+
+def stack_loss(acts):
+    """`benchmarks/multi_table.py`'s `loss_of`: the features' first half
+    (by name) summed, scored against the second half's sum, in-batch
+    softmax. The sums are rounded to bf16 as there; the scores and the
+    softmax are taken in float64 (the JAX file takes them in bf16), so
+    the card and the CPU derive the same activation gradients up to
+    their rounding to the tables' dtype, and a card-vs-CPU comparison
+    reads the engine, not the order of a matmul's f32 sums."""
+    names = sorted(acts)
+    half = len(names) // 2
+    q = sum(acts[n] for n in names[:half]).to(torch.bfloat16).double()
+    c = sum(acts[n] for n in names[half:]).to(torch.bfloat16).double()
+    return -torch.log_softmax(q @ c.T, dim=-1).diagonal().sum().float()
+
+
+def tapped(loss_of, sink: list):
+    """`loss_of`, appending each step's activation grads (by feature) to
+    `sink`: the grads the engine's `update` then applies."""
+    def loss(acts):
+        grads = {}
+        sink.append(grads)
+        for name, act in acts.items():
+            act.register_hook(lambda g, n=name: grads.__setitem__(n, g))
+        return loss_of(acts)
+    return loss
+
+
+def stacked_k1_row(engine, state, batch, act_grads, launches: dict,
+                   device) -> dict:
+    """K1 at the stacked path's shape: the one update of the stacked
+    storage from a step's ids and activation grads, as `update` hands it
+    to the kernel (ids sorted stably, grads in their order). Kernel and
+    twin must agree bit for bit; the row carries the kernel's and twin's
+    times, the bound and the path's launches."""
+    ((name, (ids, grads)),) = engine._storage_grads(batch, act_grads).items()
+    spec = engine._spec(engine._tables[engine._storage_members[name][0]])
+    slot_names, scalars, rule, _ = sparse_optimizer._kernel_rule(
+        spec, state.step)
+    ids, order = torch.sort(ids, stable=True)
+    ids = ids.to(torch.int32)
+    grads = grads[order].to(torch.float32).contiguous()
+    states = [state.tables[name]] + [state.slots[name][s]
+                                     for s in slot_names]
+    got = [t.clone() for t in states]
+    want = [t.clone() for t in states]
+    on_device = scalars.to(device)
+    sparse_apply.sorted_block_apply(got, ids, grads, rule, scalars=on_device)
+    sparse_apply.sorted_block_apply_reference(want, ids, grads, rule,
+                                              scalars=scalars)
+    sync(device)
+    err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+    check(all(torch.equal(g, w) for g, w in zip(got, want)),
+          f"K1 at the stacked shape: max |err| {err} from its twin")
+
+    def kernel():
+        sparse_apply.sorted_block_apply(got, ids, grads, rule,
+                                        scalars=on_device)
+
+    def twin():
+        sparse_apply.sorted_block_apply_reference(want, ids, grads, rule,
+                                                  scalars=scalars)
+
+    v, d = states[0].shape
+    row = {
+        "name": K1_STACKED_ROW,
+        "route": "cuda",
+        "source": K1_SOURCE,
+        "replaces": K1_REPLACES,
+        "launches": launches["stacked"],
+        "max_abs_err": err,
+        "ms": graph_ms(kernel, device),
+        "call_ms": device_ms(kernel, device, iters=50),
+        "plain_ms": device_ms(twin, device, iters=5),
+        "bound_ms": k1_bound_ms(states, ids),
+        "bound_by": "bytes",
+        # No single PyTorch call computes this function.
+        "library_ms": None,
+        "shape": f"V={v} D={d} n={ids.shape[0]} f32 table + f32 slot, "
+                 f"{len(engine._storage_members[name])} tables stacked",
+        "path_launches": {"stacked engine, stacked": launches["stacked"],
+                          "stacked engine, unstacked":
+                              launches["unstacked"]},
+    }
+    print(f"  K1 stacked: bit-equal to its twin; kernel {row['ms']:.4f} ms "
+          f"(graph replay), {row['call_ms']:.4f} ms a wrapper call, twin "
+          f"{row['plain_ms']:.3f} ms, bound {row['bound_ms']:.4f} ms "
+          f"({row['shape']})", flush=True)
+    return row
+
+
+def device_peak_mb(device) -> float:
+    return (torch.cuda.max_memory_allocated(device) / 1e6
+            if device.type == "cuda" else float("nan"))
+
+
+def reset_peak(device) -> None:
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+
+
+def stacked_engine(device: torch.device, size: StackSize, seed: int) -> list:
+    """Drives the stacked and the unstacked engine from one `init`, and
+    the stacked steps again through K1's twin; returns the report row of
+    K1 at the stacked shape."""
+    # 18. Five steps each: K1 once a step stacked, once a table unstacked;
+    # the logical state bit-equal (f32), and equal to K1's twin's.
+    started = time.perf_counter()
+    engines = {form: stack_engine(size, device, form == "stacked")
+               for form in ("stacked", "unstacked")}
+    states = {form: engine.init(torch.Generator(device).manual_seed(seed))
+              for form, engine in engines.items()}
+    host_state = clone_state(states["stacked"], "cpu")
+    rows = sum(engines["stacked"]._storage_rows.values())
+    for name, table in engines["stacked"].logical_tables(
+            states["stacked"]).items():
+        check(torch.equal(table, engines["unstacked"].logical_tables(
+            states["unstacked"])[name]), f"init of {name} differs stacked")
+    batches = stack_batches(size, seed + 7, size.steps, device)
+    launches, ms, peak, losses = {}, {}, {}, {}
+    taps = {form: [] for form in engines}
+    for form, engine in engines.items():
+        state = states[form]
+        loss_of = tapped(stack_loss, taps[form])
+        sync(device)
+        reset_peak(device)
+        sparse_apply.sorted_block_apply.launches = 0
+        got = []
+        for i, batch in enumerate(batches):
+            if i == 1:
+                sync(device)
+                t = time.perf_counter()
+            state, loss, _ = engine.grad_and_update(state, batch, loss_of)
+            got.append(loss)
+        sync(device)
+        ms[form] = (time.perf_counter() - t) * 1e3 / (size.steps - 1)
+        launches[form] = sparse_apply.sorted_block_apply.launches
+        peak[form] = device_peak_mb(device)
+        losses[form] = torch.stack(got).cpu()
+        states[form] = state
+        check(bool(torch.isfinite(losses[form]).all()),
+              f"non-finite {form} losses")
+    check(torch.equal(losses["stacked"], losses["unstacked"]),
+          f"losses {losses}")
+    want = engines["unstacked"].logical_state(states["unstacked"])
+    got = engines["stacked"].logical_state(states["stacked"])
+    for name in want["tables"]:
+        check(torch.equal(got["tables"][name], want["tables"][name]),
+              f"table {name}: stacked != unstacked after {size.steps} steps")
+        for slot, plane in want["slots"][name].items():
+            check(torch.equal(got["slots"][name][slot], plane),
+                  f"slot {name}/{slot}: stacked != unstacked")
+    # The stacked steps through K1's twin: a CPU engine from the same
+    # init, fed the same ids and the card's activation grads.
+    host = stack_engine(size, "cpu", True)
+    for batch, grads in zip(batches, taps["stacked"]):
+        host_state = host.update(
+            host_state, {k: v.cpu() for k, v in batch.items()},
+            {k: g.cpu() for k, g in grads.items()})
+    twin = host.logical_state(host_state)
+    for name in twin["tables"]:
+        check(torch.equal(got["tables"][name].cpu(), twin["tables"][name]),
+              f"table {name}: stacked on {device} != K1's twin")
+        for slot, plane in twin["slots"][name].items():
+            check(torch.equal(got["slots"][name][slot].cpu(), plane),
+                  f"slot {name}/{slot}: stacked on {device} != K1's twin")
+    if device.type == "cuda":
+        check(launches["stacked"] == size.steps,
+              f"{launches['stacked']} K1 launches stacked, expected one a "
+              "step")
+        check(launches["unstacked"] == size.steps * size.tables,
+              f"{launches['unstacked']} K1 launches unstacked, expected "
+              "one a table a step")
+    phase("stacked engine", started,
+          f"{size.tables} tables, {rows} rows x {size.dim} f32, K1 "
+          f"launches stacked {launches['stacked']}, unstacked "
+          f"{launches['unstacked']}; logical state bit-equal, and to "
+          "K1's twin's stacked")
+    for form in engines:
+        print(f"  {form}: {ms[form]:.3f} ms/step over steps 2-{size.steps} "
+              f"({size.tables} x {size.batch} ids a step), peak device "
+              f"memory {peak[form]:.1f} MB, losses "
+              f"{[round(x, 4) for x in losses[form].tolist()]}", flush=True)
+    row = stacked_k1_row(engines["stacked"], states["stacked"], batches[-1],
+                         taps["stacked"][-1], launches, device)
+    del engines, states, want, got, host, host_state, twin, taps
+
+    # 19. bf16 tables and slots with stochastic rounding, stacked: the
+    # card against the CPU, where K1's twin runs.
+    started = time.perf_counter()
+    card = stack_engine(size, device, True, torch.bfloat16)
+    host = stack_engine(size, "cpu", True, torch.bfloat16)
+    state = card.init(torch.Generator(device).manual_seed(seed + 1))
+    start = clone_state(state)
+    host_state = clone_state(state, "cpu")
+    for batch in stack_batches(size, seed + 8, size.sr_steps, device):
+        state, card_loss, _ = card.grad_and_update(state, batch, stack_loss)
+        host_state, host_loss, _ = host.grad_and_update(
+            host_state, {k: v.cpu() for k, v in batch.items()}, stack_loss)
+        check(bool(torch.allclose(card_loss.cpu(), host_loss, rtol=1e-4,
+                                  atol=0)),
+              f"SR step loss {float(card_loss)} vs CPU {float(host_loss)}")
+    ulps, eq = state_parity(state, host_state, start)
+    check(parity_holds(False, ulps, eq),
+          f"stacked bf16 + SR, card vs CPU: {ulps} ulps, {eq} bit-equal")
+    phase("stacked sr parity", started,
+          f"{size.sr_steps} steps, card vs CPU: {ulps:.2f} bf16 ulps, "
+          f"bit-equal share {eq:.6f} over the changed rows")
+    del card, host, state, start, host_state
+    return [row]
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainerSize:
+    users: int = 65_536           # bench.py:67
+    items: int = 131_072          # bench.py:68
+    dim: int = 64                 # examples/quickstart.py:20-21
+    batch: int = 4096             # examples/quickstart.py:16
+    batches: int = 30             # one epoch
+    eval_batches: int = 8
+    parity_steps: int = 3
+    traced_steps: int = 10
+
+
+TRAINER_LR = 0.5                  # examples/quickstart.py:25
+# Trainer parity, card against CPU over 3 steps from the same weights:
+# losses to rtol 1e-4, and the parameters' gap (`param_gap`: the card's
+# change against the CPU's, relative to it) under a limit a form's
+# planted faults must exceed. Near random init the loss barely moves, so
+# the gap is what reads a wrong gradient or update. Fused, the kernel
+# rounds its backward's probability coefficients to bf16 and the twin
+# keeps them f32, so the gap is larger there. On the H100 at seed 0 the
+# card read 4.0e-7 (unfused) and 1.37e-3 (fused), the planted faults
+# below 5.4e-3 (dc) and 1.06e-2 (lr) in both forms; each limit sits near
+# the geometric mean of the card's reading and the nearer fault's
+# (PERF.md, section 6).
+TRAINER_GAP = {False: 5e-5, True: 2.7e-3}
+# Faults planted on the CPU side: (label, learning-rate scale, scale of
+# the candidate tower's output gradient, i.e. of dc).
+TRAINER_FAULTS = (("lr 1 % high", 1.01, 1.0), ("dc 1 % high", 1.0, 1.01))
+K2_ROWS = {name: f"fused_retrieval_{name}[bf16 scores]"
+           for name in ("fwd", "dq", "dc")}
+
+
+def trainer_model(size: TrainerSize, device, fused: bool, seed: int):
+    """The quickstart's model: two `EmbeddingTower`s of width 64, random
+    weights from `seed`; fused with bf16 scores, or unfused."""
+    gen = torch.Generator(device).manual_seed(seed)
+    return models.TwoTowerRetrieval(
+        models.EmbeddingTower(size.users, size.dim, device=device,
+                              generator=gen),
+        models.EmbeddingTower(size.items, size.dim, device=device,
+                              generator=gen),
+        query_key="user_id", candidate_key="movie_id", fused=fused,
+        score_dtype=torch.bfloat16 if fused else None)
+
+
+def quickstart_adagrad(params, lr: float = TRAINER_LR):
+    """`optax.adagrad(0.5)`'s counterpart: accumulators from 0.1 and no
+    epsilon (optax's 1e-7 under the root moves an update by ≤ 5e-7)."""
+    return torch.optim.Adagrad(params, lr=lr,
+                               initial_accumulator_value=0.1, eps=0.0)
+
+
+def scaled_grad(scale: float):
+    """A forward hook that scales the gradient of its module's output."""
+    def hook(module, args, out):
+        if out.requires_grad:
+            out.register_hook(lambda g: g * scale)
+    return hook
+
+
+def parity_run(size: TrainerSize, device, fused: bool, start: dict,
+               batches: list, lr_scale: float = 1.0,
+               dc_scale: float = 1.0):
+    """`len(batches)` `Trainer` steps from the weights `start`; returns
+    (final parameters on the CPU, losses)."""
+    model = trainer_model(size, device, fused, 0)
+    model.load_state_dict(start)
+    if dc_scale != 1.0:
+        model.candidate_tower.register_forward_hook(scaled_grad(dc_scale))
+    run = models.Trainer(
+        model, lambda params: quickstart_adagrad(params,
+                                                 TRAINER_LR * lr_scale))
+    state, losses = run.init(), []
+    for batch in batches:
+        state, loss = run.train_step(state, batch)
+        losses.append(float(loss))
+    return ({k: v.detach().cpu() for k, v in model.named_parameters()},
+            losses)
+
+
+def param_gap(got: dict, want: dict, start: dict) -> float:
+    """‖got − want‖ / ‖want − start‖ over every parameter, in float64:
+    how far one run's change departs from another's, relative to it."""
+    num = sum(float((got[k].double() - want[k].double()).square().sum())
+              for k in want)
+    den = sum(float((want[k].double() - start[k].double()).square().sum())
+              for k in want)
+    return (num / den) ** 0.5
+
+
+def trainer_batches(size: TrainerSize, seed: int, count: int) -> list:
+    """Host (NumPy) batches of uniform user and movie ids."""
+    rng = np.random.RandomState(seed)
+    return [{"user_id": rng.randint(0, size.users, size.batch).astype(
+                np.int32),
+             "movie_id": rng.randint(0, size.items, size.batch).astype(
+                 np.int32)}
+            for _ in range(count)]
+
+
+def device_share(trace_path: Path):
+    """(window ms, device busy ms, five longest device ops) of a Chrome
+    trace: the window spans every complete event, host and device; busy
+    is the union of the kernel intervals in it; ops are kernels summed by
+    name as (name, total ms, count)."""
+    events = [e for e in json.loads(trace_path.read_text())["traceEvents"]
+              if e.get("ph") == "X" and "dur" in e]
+    check(events, f"no events in {trace_path}")
+    begin = min(float(e["ts"]) for e in events)
+    end = max(float(e["ts"]) + float(e["dur"]) for e in events)
+    kernels = sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"]))
+                     for e in events if e.get("cat") == "kernel")
+    busy, covered = 0.0, begin
+    for lo, hi in kernels:
+        lo = max(lo, covered)
+        if hi > lo:
+            busy += hi - lo
+            covered = hi
+    totals = {}
+    for e in events:
+        if e.get("cat") == "kernel":
+            total, count = totals.get(e["name"], (0.0, 0))
+            totals[e["name"]] = (total + float(e["dur"]) / 1e3, count + 1)
+    top = sorted(totals.items(), key=lambda kv: -kv[1][0])[:5]
+    return (end - begin) / 1e3, busy / 1e3, len(kernels), top
+
+
+def trainer(device: torch.device, size: TrainerSize, seed: int) -> dict:
+    """Drives `Trainer.fit` / `evaluate` unfused and fused; returns K2's
+    launches on the fused fit."""
+    # 20. One epoch each form, then evaluate.
+    started = time.perf_counter()
+    train_set = trainer_batches(size, seed + 11, size.batches)
+    eval_set = trainer_batches(size, seed + 12, size.eval_batches)
+    k2 = {}
+    for fused in (False, True):
+        form = "fused" if fused else "unfused"
+        model = trainer_model(size, device, fused, seed)
+        fit_trainer = models.Trainer(model, quickstart_adagrad)
+        state = fit_trainer.init(torch.Generator(device).manual_seed(seed),
+                                 train_set[0])
+        # A warm-up pass over two batches: a kernel's first launch in the
+        # process loads its module, which the timed epoch must not pay.
+        state, _ = fit_trainer.fit(state, lambda: iter(train_set[:2]),
+                                   verbose=False)
+        sync(device)
+        reset_peak(device)
+        reset_train_counts()
+        state, history = fit_trainer.fit(state, lambda: iter(train_set),
+                                         verbose=False)
+        sync(device)
+        counts = dict(fused_retrieval.fused_retrieval_loss.launches_by_kernel)
+        fit_peak = device_peak_mb(device)
+        results = history["epochs"][0]
+        evaluated = fit_trainer.evaluate(state, lambda: iter(eval_set))
+        check(np.isfinite(results["loss"]) and np.isfinite(
+            evaluated["total_loss"]), f"{form}: non-finite losses")
+        print(f"  fit {form}: {size.batches} x {size.batch}, "
+              f"{results['examples_per_sec']:.0f} examples/s, loss "
+              f"{results['loss']:.4f}, total_loss {results['total_loss']:.4f}"
+              + "".join(f", {k} {results[k]:.4f}" for k in sorted(results)
+                        if k.startswith("batch_top"))
+              + f", peak device memory {fit_peak:.1f} MB; K2 launches "
+              f"{counts}", flush=True)
+        print(f"  evaluate {form}: " + ", ".join(
+            f"{k} {v:.4f}" for k, v in sorted(evaluated.items())))
+        if not fused:
+            for k in (1, 10):
+                check(f"batch_top_{k}_categorical_accuracy" in evaluated,
+                      f"evaluate lacks batch top-{k} accuracy")
+        if device.type == "cuda":
+            want = size.batches if fused else 0
+            check(all(n == want for n in counts.values()),
+                  f"{form} fit: K2 launches {counts}, expected {want} each")
+        if fused:
+            k2 = counts
+            fused_trainer, fused_state = fit_trainer, state
+    phase("trainer", started, f"fit {size.batches} batches unfused and "
+          f"fused, evaluate {size.eval_batches}")
+
+    # 21. The card against the CPU from the same weights; the same limits
+    # must reject faults planted on the CPU side.
+    started = time.perf_counter()
+    steps = trainer_batches(size, seed + 13, size.parity_steps)
+    for fused in (False, True):
+        form = "fused" if fused else "unfused"
+        start = {k: v.detach().cpu().clone() for k, v in trainer_model(
+            size, "cpu", fused, seed).state_dict().items()}
+        card, card_losses = parity_run(size, device, fused, start, steps)
+        host, host_losses = parity_run(size, "cpu", fused, start, steps)
+        gaps = {"card": param_gap(card, host, start)}
+        for label, lr_scale, dc_scale in TRAINER_FAULTS:
+            gaps[label] = param_gap(parity_run(
+                size, "cpu", fused, start, steps, lr_scale, dc_scale)[0],
+                host, start)
+        delta = max(float((card[k] - host[k]).abs().max()) for k in host)
+        print(f"  parity {form}: losses "
+              f"{[round(x, 5) for x in card_losses]} vs CPU "
+              f"{[round(x, 5) for x in host_losses]}, largest parameter "
+              f"|delta| {delta:.3g}; parameter gap (limit "
+              f"{TRAINER_GAP[fused]:.3g}) " + ", ".join(
+                  f"{k} {v:.4g}" for k, v in gaps.items()), flush=True)
+        check(np.allclose(card_losses, host_losses, rtol=1e-4, atol=0),
+              f"trainer losses {card_losses} vs CPU {host_losses}")
+        check(gaps.pop("card") <= TRAINER_GAP[fused],
+              f"{form} trainer parameters, card vs CPU: gap above "
+              f"{TRAINER_GAP[fused]}")
+        for label, gap in gaps.items():
+            check(gap > TRAINER_GAP[fused],
+                  f"the {form} trainer gap limit passes a planted fault "
+                  f"({label}: {gap})")
+    phase("trainer parity", started, f"{size.parity_steps} steps, card vs "
+          f"CPU, unfused and fused, {len(TRAINER_FAULTS)} planted faults "
+          "rejected")
+
+    # 22. A trace of fused steps: the device's busy and idle shares.
+    started = time.perf_counter()
+    trace_dir = Path(__file__).resolve().parent / "build" / "trainer_trace"
+    shutil.rmtree(trace_dir, ignore_errors=True)
+    traced = trainer_batches(size, seed + 14, size.traced_steps)
+    with profiling.trace(str(trace_dir)):
+        fused_state, history = fused_trainer.fit(
+            fused_state, lambda: iter(traced), verbose=False)
+    (trace_path,) = trace_dir.glob("trace_*.json")
+    window, busy, n, top = device_share(trace_path)
+    if device.type == "cuda":
+        check(n > 0, "the trace holds no kernel")
+    phase("trainer trace", started,
+          f"{size.traced_steps} fused steps, {trace_path.stat().st_size / 1e6:.1f} MB "
+          "trace")
+    print(f"  traced window {window:.3f} ms ({window / size.traced_steps:.3f} "
+          f"ms/step, {history['epochs'][0]['examples_per_sec']:.0f} "
+          f"examples/s under the profiler): {n} kernels, device busy "
+          f"{busy:.3f} ms = {busy / window:.4f}, idle {1 - busy / window:.4f}")
+    for name, (total, count) in top:
+        print(f"  device op {total:.3f} ms x{count}: {name[:100]}")
+    return {K2_ROWS[name]: {"trainer, fused fit": k2.get(name, 0)}
+            for name in K2_ROWS}
+
+
+@dataclasses.dataclass(frozen=True)
+class CorpusSize:
+    users: int = 65_536           # the serving slice's query tower
+    items: int = 1_000_000        # benchmarks/corpus_eval.py:177
+    queries: int = 8192           # benchmarks/corpus_eval.py:180
+    batch: int = 1024             # benchmarks/corpus_eval.py:181
+    chunk: int = 1 << 17          # benchmarks/corpus_eval.py:182
+    # The host-streamed corpus: corpus_eval.py's 10M host corpus cut to
+    # the 1M corpus, as 8 pinned chunks of 131,072 rows.
+
+
+CORPUS_KS = (1, 5, 10, 50, 100)
+# Bucketed (K3, f32, B = 2048) may lose a true id that collides in its
+# bucket with a higher one (recall ≈ 1 − (k−1)/2B ≈ 0.976 at k = 100).
+BUCKETED_ACCURACY_MARGIN = 0.03
+
+
+def corpus_eval(device: torch.device, size: CorpusSize, seed: int) -> dict:
+    """Drives `FactorizedTopK` over four indexes through
+    `make_corpus_eval_step`; returns K3's launches on the Bucketed eval."""
+    # 23. Corpus-level evaluation of the serving model.
+    started = time.perf_counter()
+    model, _ = serving_model(Size(users=size.users, items=size.items), seed,
+                             device)
+    rng = np.random.RandomState(seed + 21)
+    with torch.no_grad():
+        corpus = model.candidate_embeddings(
+            {"movie_id": torch.arange(size.items, device=device)})
+        users = torch.from_numpy(rng.randint(
+            0, size.users, size.queries).astype(np.int32)).to(device)
+        brute = factorized_top_k.BruteForce(k=max(CORPUS_KS),
+                                            device=device).index(corpus)
+        top1 = torch.cat([
+            brute(model.query_embeddings({"user_id": users[i:i + size.batch]}),
+                  k=1)[1][:, 0]
+            for i in range(0, size.queries, size.batch)])
+    # True ids: every other query's BruteForce top-1 row, else a uniform
+    # row, so the accuracies are neither all 0 nor all 1.
+    true = torch.from_numpy(rng.randint(0, size.items, size.queries).astype(
+        np.int32)).to(device)
+    true[::2] = top1[::2].to(true.dtype)
+    batches = [{"user_id": users[i:i + size.batch],
+                "movie_id": true[i:i + size.batch]}
+               for i in range(0, size.queries, size.batch)]
+    host_chunks = [corpus[i:i + size.chunk].cpu()
+                   for i in range(0, size.items, size.chunk)]
+    if device.type == "cuda":
+        host_chunks = [chunk.pin_memory() for chunk in host_chunks]
+    indexes = {
+        "BruteForce": brute,
+        "Streaming.index": factorized_top_k.Streaming(
+            k=max(CORPUS_KS), chunk_size=size.chunk,
+            device=device).index(corpus),
+        "Streaming.index_from_dataset": factorized_top_k.Streaming(
+            k=max(CORPUS_KS), device=device).index_from_dataset(
+                lambda: iter(host_chunks)),
+        "Bucketed f32": factorized_top_k.Bucketed(
+            k=max(CORPUS_KS), device=device, **BUCKETED["f32"]).index(corpus),
+    }
+    sync(device)
+    results, states, qps, peak = {}, {}, {}, {}
+    reset_counts()
+    for name, index in indexes.items():
+        metric = metrics.FactorizedTopK(index, ks=CORPUS_KS)
+        step = models.make_corpus_eval_step(model, metric)
+        mstate = metric.init()
+        reset_peak(device)
+        sync(device)
+        t = time.perf_counter()
+        for batch in batches:
+            mstate = step(mstate, batch, corpus)
+        sync(device)
+        qps[name] = size.queries / (time.perf_counter() - t)
+        peak[name] = device_peak_mb(device)
+        states[name] = mstate
+        results[name] = [float(v) for v in metric.result(mstate).values()]
+    k3 = scoring.bucketed_scores.launches_by_format["f32"]
+    if device.type == "cuda":
+        check(k3 == len(batches), f"{k3} K3 launches in the Bucketed eval, "
+              f"expected {len(batches)}")
+    for name in indexes:
+        print(f"  {name}: {qps[name]:.0f} queries/s, peak device memory "
+              f"{peak[name]:.1f} MB, top-{list(CORPUS_KS)} accuracy "
+              f"{[round(x, 5) for x in results[name]]}", flush=True)
+    want = results["BruteForce"]
+    check(0 < want[0] < 1, f"BruteForce accuracies {want}")
+    for name in ("Streaming.index", "Streaming.index_from_dataset"):
+        check(results[name] == want,
+              f"{name} accuracies {results[name]} != BruteForce {want}")
+    check(abs(results["Bucketed f32"][-1] - want[-1])
+          <= BUCKETED_ACCURACY_MARGIN,
+          f"Bucketed top-100 accuracy {results['Bucketed f32'][-1]} vs "
+          f"{want[-1]}")
+    with torch.no_grad():
+        # The step's states against hits counted from BruteForce's ids.
+        ids = torch.cat([brute(model.query_embeddings(batch))[1]
+                         for batch in batches])
+        hit = (ids == true[:, None].to(ids.dtype)).cumsum(dim=1) > 0
+        for k in CORPUS_KS:
+            hits = int(hit[:, k - 1].sum())
+            state = states["BruteForce"][k]
+            check(float(state["total"]) == hits
+                  and float(state["count"]) == size.queries,
+                  f"make_corpus_eval_step's top-{k} state {state} vs "
+                  f"{hits} hits in {size.queries} BruteForce results")
+        queries = model.query_embeddings(batches[0])
+        want_ids = brute(queries)[1].sort(dim=1).values
+        for name in ("Streaming.index", "Streaming.index_from_dataset"):
+            got_ids = indexes[name](queries)[1].sort(dim=1).values
+            check(torch.equal(got_ids.to(want_ids.dtype), want_ids),
+                  f"{name}: top-100 id sets differ from BruteForce's")
+    phase("corpus eval", started,
+          f"{size.queries} queries over {size.items} x {DIM}, four indexes, "
+          f"K3 launches {k3}")
+    del indexes, host_chunks, corpus
+    return {"bucketed_scores[f32]": {"corpus eval, Bucketed f32": k3}}
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -1929,6 +2603,15 @@ def main() -> int:
     report = run(device, Size(requests=args.requests), args.seed)
     report += scann(device, ScannSize(requests=args.requests), args.seed)
     report += train(device, TrainSize(), args.seed)
+    stacked = stacked_engine(device, StackSize(), args.seed)
+    paths = {}
+    for counts in (trainer(device, TrainerSize(), args.seed),
+                   corpus_eval(device, CorpusSize(), args.seed)):
+        for row, by_path in counts.items():
+            paths.setdefault(row, {}).update(by_path)
+    for row in report:
+        row["path_launches"] = paths.get(row["name"], {})
+    report += stacked
     print(f"total {time.perf_counter() - started:.1f} s")
     print(json.dumps({"kernels": report}))
     print(json.dumps({"ok": True, "device": {

@@ -21,16 +21,24 @@ Ported so far:
   - probed serving: `layers.ScaNN` (k-means partition, capacity packing,
     int8/int4/bf16 leaves) → probes → `ops.leaf_scoring` →
     `csrc/leaf_scoring.cu` (K4 leaf scores, or K5 bucketed argmax) →
-    optional exact reorder.
+    optional exact reorder;
+  - the trainer: `models.Trainer(model, optimizer).fit(...)` over a
+    `models.Model` (`TwoTowerRetrieval` with `EmbeddingTower` or
+    `SequenceTower`s), streaming `metrics`, and corpus-level
+    `metrics.FactorizedTopK` over `BruteForce`, `Streaming` or
+    `Bucketed`; `EmbeddingEngine(stack_tables=True)`; `utils.profiling`
+    on `torch.profiler`.
 """
 
 __version__ = "0.1.0"
 
 from recommenders_tpu_torch import embedding
 from recommenders_tpu_torch import layers
+from recommenders_tpu_torch import metrics
 from recommenders_tpu_torch import models
 from recommenders_tpu_torch import ops
 from recommenders_tpu_torch import tasks
 from recommenders_tpu_torch import utils
 
-__all__ = ["embedding", "layers", "models", "ops", "tasks", "utils"]
+__all__ = ["embedding", "layers", "metrics", "models", "ops", "tasks",
+           "utils"]

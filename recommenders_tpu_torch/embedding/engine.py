@@ -23,14 +23,19 @@ with the step advanced; do not reuse the state passed in. `lookup`
 returns gathered copies, so activations held across an update (the
 pipelined step) keep the values they were read with.
 
-Lane packing is a TPU layout; table stacking and the meshed engine come
-in a later slice. Asking for any of them raises `NotImplementedError`.
+With `stack_tables=True`, tables that share a width and an optimizer
+spec live as row ranges of one storage tensor, so `update` sorts their
+ids together and K1 launches once for the whole group
+(`recommenders_tpu/embedding/engine.py:236-301,847-919`).
+
+Lane packing is a TPU layout and the meshed engine comes in a later
+slice; asking for either raises `NotImplementedError`.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, Mapping, Optional, Tuple
+from typing import Callable, Dict, List, Mapping, Optional, Tuple
 
 import torch
 
@@ -79,8 +84,17 @@ class EmbeddingEngine:
         False takes the scatter path.
       slot_dtype: Optimizer-slot dtype; None means f32.
       stochastic_rounding: Round bf16 state writes stochastically on the
-        kernel path, seeded per (step, table).
-      stack_tables: Must be False (stacking comes in a later slice).
+        kernel path, seeded per (step, storage).
+      stack_tables: Store the tables that share (dim, optimizer spec) as
+        row ranges of one storage tensor named `"stacked:" +
+        "+".join(members)`, members in declaration order, each at the
+        sum of the padded rows before it. Tables with `max_unique_ids`
+        stay solo (the bound is per table). Needs `row_sharding="div"`.
+        Storage is not padded past its members: K1 walks the runs of the
+        sorted ids, not row blocks, so the row count sets no block size
+        (the JAX engine pads to a 2048-row multiple for its TPU block
+        picker). `logical_state` / `state_from_logical` move state
+        between the stacked and unstacked layouts, slots included.
       exact_grad_routing: Accepted; duplicate sums are always exact f32.
       lane_pack: Must be None or False (lane packing is a TPU layout).
       device: Where the state lives (default CUDA).
@@ -109,9 +123,10 @@ class EmbeddingEngine:
             raise NotImplementedError(
                 "The meshed engine is not ported yet (ROADMAP.md Queue A)."
             )
-        if stack_tables:
-            raise NotImplementedError(
-                "stack_tables is not ported yet (ROADMAP.md Queue A)."
+        if stack_tables and row_sharding == "mod":
+            raise ValueError(
+                "stack_tables requires row_sharding='div' (the mod "
+                "permutation is per-table)."
             )
         if lane_pack:
             raise NotImplementedError(
@@ -126,6 +141,7 @@ class EmbeddingEngine:
         self.slot_dtype = slot_dtype
         self.stochastic_rounding = stochastic_rounding
         self.exact_grad_routing = exact_grad_routing
+        self.stack_tables = stack_tables
         self.device = device_lib.resolve(device)
 
         self._tables: Dict[str, config_lib.TableConfig] = {}
@@ -138,6 +154,28 @@ class EmbeddingEngine:
                 )
             self._tables[fc.table.name] = fc.table
         self._configs = {fc.name: fc for fc in self.feature_configs}
+
+        # Storage map. _storage: table name -> (storage name, row offset);
+        # _storage_members: storage name -> member tables in offset order.
+        # Both follow declaration order, as `init` draws in it.
+        self._storage: Dict[str, Tuple[str, int]] = {}
+        self._storage_members: Dict[str, List[str]] = {}
+        self._storage_rows: Dict[str, int] = {}
+        groups: Dict = {}
+        for name, tc in self._tables.items():
+            solo = not stack_tables or tc.max_unique_ids is not None
+            key = ("solo", name) if solo else ("stack", tc.dim,
+                                                self._spec(tc))
+            groups.setdefault(key, []).append(name)
+        for members in groups.values():
+            sname = (members[0] if len(members) == 1
+                     else "stacked:" + "+".join(members))
+            offset = 0
+            for name in members:
+                self._storage[name] = (sname, offset)
+                offset += self._padded_rows(self._tables[name])
+            self._storage_members[sname] = members
+            self._storage_rows[sname] = offset
 
     def _spec(self, tc: config_lib.TableConfig) -> config_lib.OptimizerSpec:
         return tc.optimizer or self.default_optimizer
@@ -153,37 +191,59 @@ class EmbeddingEngine:
         The draws come from `generator`, which must live on the engine's
         device (or be None); they never equal the JAX engine's.
         """
-        tables, slots = {}, {}
+        drawn = {}
         for name, tc in self._tables.items():
             init = tc.initializer or config_lib.default_initializer(tc.dim)
-            table = init(generator, (self._padded_rows(tc), tc.dim),
-                         self.dtype, self.device)
-            tables[name] = table.to(self.dtype).contiguous()
-            slots[name] = sparse_optimizer.init_slots(
-                self._spec(tc), tables[name], self.slot_dtype
+            drawn[name] = init(generator, (self._padded_rows(tc), tc.dim),
+                               self.dtype, self.device).to(self.dtype)
+        tables, slots = {}, {}
+        for sname, members in self._storage_members.items():
+            tables[sname] = torch.cat(
+                [drawn.pop(m) for m in members]).contiguous()
+            slots[sname] = sparse_optimizer.init_slots(
+                self._spec(self._tables[members[0]]), tables[sname],
+                self.slot_dtype,
             )
         return EngineState(tables=tables, slots=slots, step=0)
 
+    def _member_rows(self, plane: Tensor, name: str) -> Tensor:
+        """Table `name`'s rows of a storage plane (a view)."""
+        sname, offset = self._storage[name]
+        if sname == name:
+            return plane
+        return plane[offset:offset + self._padded_rows(self._tables[name])]
+
     def logical_tables(self, state: EngineState) -> Dict[str, Tensor]:
-        """Tables with rows in logical id order (the stored layout)."""
-        return {name: state.tables[name] for name in self._tables}
+        """Tables with rows in logical id order: the storage itself for
+        a solo table, a view of its row range for a stacked one."""
+        return {name: self._member_rows(
+                    state.tables[self._storage[name][0]], name)
+                for name in self._tables}
 
     def logical_state(self, state: EngineState) -> Dict:
         """`{"tables": {name: [V, d]}, "slots": {name: {slot: plane}},
-        "step": step}`: the JAX engine's layout-free form."""
-        return {
-            "tables": self.logical_tables(state),
-            "slots": {name: dict(state.slots[name]) for name in self._tables},
-            "step": state.step,
-        }
+        "step": step}`: the JAX engine's layout-free form. Row planes of
+        a stacked storage come back as views of each member's rows; a
+        slot that is not a row plane (clippy's scalar clipping factor)
+        is shared by every member."""
+        slots: Dict[str, Dict[str, Tensor]] = {}
+        for sname, members in self._storage_members.items():
+            rows = state.tables[sname].shape[0]
+            for name in members:
+                slots[name] = {
+                    k: (self._member_rows(v, name)
+                        if v.dim() == 2 and v.shape[0] == rows else v)
+                    for k, v in state.slots[sname].items()
+                }
+        return {"tables": self.logical_tables(state), "slots": slots,
+                "step": state.step}
 
     def state_from_logical(self, logical: Mapping) -> EngineState:
-        """This engine's `EngineState` from `logical_state` output, moved
-        to the engine's device and cast to its table and slot dtypes
-        (a no-op for state it wrote itself). Table names and shapes must
-        match."""
+        """This engine's `EngineState` from `logical_state` output (of
+        this engine, or of one with another stacking layout), moved to
+        the engine's device and cast to its table and slot dtypes. Table
+        names and shapes must match."""
         slot_dtype = self.slot_dtype or torch.float32
-        tables, slots = {}, {}
         for name, tc in self._tables.items():
             table = logical["tables"][name]
             want = (self._padded_rows(tc), tc.dim)
@@ -192,13 +252,42 @@ class EmbeddingEngine:
                     f"table {name!r}: shape {tuple(table.shape)}, the "
                     f"engine stores {want}"
                 )
-            tables[name] = table.to(self.device, self.dtype).contiguous()
-            slots[name] = {
-                k: v.to(self.device, slot_dtype).contiguous()
-                for k, v in logical["slots"][name].items()
-            }
+        tables, slots = {}, {}
+        for sname, members in self._storage_members.items():
+            tables[sname] = torch.cat([
+                logical["tables"][m].to(self.device, self.dtype)
+                for m in members
+            ]).contiguous()
+            slots[sname] = {}
+            for k, v in logical["slots"][members[0]].items():
+                if v.dim() == 2 and v.shape[0] == self._padded_rows(
+                        self._tables[members[0]]):
+                    v = torch.cat([logical["slots"][m][k].to(self.device)
+                                   for m in members])
+                slots[sname][k] = v.to(self.device, slot_dtype).contiguous()
         return EngineState(tables=tables, slots=slots,
                            step=int(logical["step"]))
+
+    def _to_physical(self, ids: Tensor, tc: config_lib.TableConfig) -> Tensor:
+        """Logical ids → rows of the table's storage: the identity for a
+        solo table; a stacked member's ids move by its row offset.
+        Negative ids (`PAD_ID`) pass through. An id past the member's
+        rows maps to the storage's row count, outside every member, so
+        `update` drops it and `lookup` refuses it, as for a solo table
+        (the JAX engine would land it in the next member)."""
+        sname, offset = self._storage[tc.name]
+        if sname == tc.name:
+            return ids
+        beyond = torch.where(ids >= self._padded_rows(tc),
+                             self._storage_rows[sname], ids + offset)
+        return torch.where(ids < 0, ids, beyond)
+
+    def _physical_feature(
+        self, fc: config_lib.FeatureConfig, feature: FeatureInput
+    ) -> FeatureInput:
+        ids, weights = _split_feature(feature)
+        ids = self._to_physical(ids, fc.table)
+        return ids if weights is None else (ids, weights)
 
     # --- Forward ----------------------------------------------------------
 
@@ -220,8 +309,10 @@ class EmbeddingEngine:
         with torch.no_grad():
             for fname, feature in features.items():
                 fc = self._configs[fname]
+                sname, _ = self._storage[fc.table.name]
                 out[fname] = embedding_lib.lookup_feature(
-                    state.tables[fc.table.name], fc, feature
+                    state.tables[sname], fc,
+                    self._physical_feature(fc, feature),
                 )
         return out
 
@@ -260,6 +351,25 @@ class EmbeddingEngine:
         grads = scale[..., None] * act_grad[:, None, :]
         return ids.reshape(-1), grads.reshape(-1, act_grad.shape[-1])
 
+    def _storage_grads(
+        self,
+        features: Mapping[str, FeatureInput],
+        activation_grads: Mapping[str, Tensor],
+    ) -> Dict[str, Tuple[Tensor, Tensor]]:
+        """Storage name → the (ids, row grads) of every feature it holds,
+        concatenated in feature order, in the storage's rows."""
+        ids_of: Dict[str, list] = {}
+        grads_of: Dict[str, list] = {}
+        for fname, grad in activation_grads.items():
+            fc = self._configs[fname]
+            ids, grads = self._row_grads(
+                fc, self._physical_feature(fc, features[fname]), grad)
+            sname, _ = self._storage[fc.table.name]
+            ids_of.setdefault(sname, []).append(ids)
+            grads_of.setdefault(sname, []).append(grads)
+        return {name: (torch.cat(ids_of[name]), torch.cat(grads_of[name]))
+                for name in ids_of}
+
     def update(
         self,
         state: EngineState,
@@ -268,37 +378,35 @@ class EmbeddingEngine:
     ) -> EngineState:
         """Applies one sparse-optimizer step from activation gradients.
 
-        Gradients of features sharing a table are concatenated, so each
-        table sees one update a step. The stochastic-rounding seed of a
-        table is `step · 1000003 + t_idx` in int32 arithmetic, `t_idx`
-        its index among the updated table names in sorted order. The
+        Gradients of features sharing a storage (a table, or a stacked
+        group of tables) are concatenated in their storage's rows, so
+        each storage sees one update a step: one K1 launch for a whole
+        stacked group. The stochastic-rounding seed of a storage is
+        `step · 1000003 + t_idx` in int32 arithmetic, `t_idx` its index
+        among the updated storage names in sorted order; so bf16 state
+        with stochastic rounding differs between the stacked and the
+        unstacked layouts, and f32 state (or rounding off) does not. The
         tensors of `state` are updated in place; use the returned state.
         """
-        per_table_ids: Dict[str, list] = {}
-        per_table_grads: Dict[str, list] = {}
-        for fname, grad in activation_grads.items():
-            fc = self._configs[fname]
-            ids, grads = self._row_grads(fc, features[fname], grad)
-            per_table_ids.setdefault(fc.table.name, []).append(ids)
-            per_table_grads.setdefault(fc.table.name, []).append(grads)
-
         use_kernel = self.sparse_update_kernel
         if use_kernel is None:
             use_kernel = True
         tables = dict(state.tables)
         slots = dict(state.slots)
-        for t_idx, (name, ids_list) in enumerate(
-            sorted(per_table_ids.items())
+        for t_idx, (name, (ids, grads)) in enumerate(
+            sorted(self._storage_grads(features, activation_grads).items())
         ):
-            tc = self._tables[name]
-            ids = torch.cat(ids_list).to(tables[name].device)
-            grads = torch.cat(per_table_grads[name]).to(tables[name].device)
+            members = self._storage_members[name]
+            tc = self._tables[members[0]]
+            ids = ids.to(tables[name].device)
+            grads = grads.to(tables[name].device)
             sr_seed = None
             if self.stochastic_rounding:
                 sr_seed = _wrap_int32(state.step * 1000003 + t_idx)
             tables[name], slots[name] = sparse_optimizer.apply_sparse(
                 self._spec(tc), tables[name], slots[name], ids, grads,
                 state.step,
+                # A stacked group never holds a max_unique_ids table.
                 max_unique=tc.max_unique_ids,
                 use_kernel=use_kernel,
                 sr_seed=sr_seed,

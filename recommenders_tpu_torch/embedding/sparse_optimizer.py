@@ -119,10 +119,34 @@ def _lr_tensor(spec: config_lib.OptimizerSpec, step: int) -> Tensor:
     return torch.as_tensor(lr, dtype=torch.float32).reshape(())
 
 
+def _sqrt(x: Tensor) -> Tensor:
+    """sqrt(x) rounded once, as the kernel's `__fsqrt_rn`, on any device.
+
+    PyTorch's CPU sqrt is not correctly rounded (on AVX-512 hosts f32
+    results are an ulp off for ~0.6 % of inputs, and its float64 sqrt
+    varies from call to call). So an f32 root is moved to whichever
+    neighbour the exact root is nearest: the midpoints between
+    neighbours have 25 significant bits, so their squares and the
+    comparisons are exact in float64. A bf16 root from the f32 one is
+    already correct (its midpoints lie far from any root of a bf16)."""
+    s = torch.sqrt(x)
+    if s.dtype != torch.float32:
+        return s
+    xd = x.double()
+    for _ in range(2):   # each pass moves an estimate one ulp
+        up = torch.nextafter(s, torch.full_like(s, float("inf")))
+        down = torch.nextafter(s, torch.zeros_like(s))
+        hi = (s.double() + up.double()) * 0.5
+        lo = (s.double() + down.double()) * 0.5
+        s = torch.where(xd > hi * hi, up,
+                        torch.where(xd < lo * lo, down, s))
+    return s
+
+
 def _rsqrt(x: Tensor) -> Tensor:
     # 1/sqrt(x): two IEEE roundings, the same on the CPU and on the card
     # (torch.rsqrt is an approximation on both).
-    return 1.0 / torch.sqrt(x)
+    return 1.0 / _sqrt(x)
 
 
 def _kernel_rule(spec: config_lib.OptimizerSpec, step: int):
@@ -180,7 +204,7 @@ def _kernel_rule(spec: config_lib.OptimizerSpec, step: int):
             m_rows = spec.beta1 * m + (1 - spec.beta1) * g
             v_rows = spec.beta2 * v + (1 - spec.beta2) * torch.square(g)
             delta = -lr_t * (m_rows / bc1) / (
-                torch.sqrt(v_rows / bc2) + spec.epsilon
+                _sqrt(v_rows / bc2) + spec.epsilon
             )
             return [
                 table + torch.where(touched, delta, 0.0),
@@ -352,7 +376,7 @@ def apply_sparse(
         t = torch.tensor(step, dtype=torch.float32) + 1.0
         m_hat = m_rows / (1 - spec.beta1 ** t).to(m_rows.device)
         v_hat = v_rows / (1 - spec.beta2 ** t).to(v_rows.device)
-        delta = _scaled(-lr, m_hat) / (torch.sqrt(v_hat) + spec.epsilon)
+        delta = _scaled(-lr, m_hat) / (_sqrt(v_hat) + spec.epsilon)
         return add(table, delta), {"m": put(m, m_rows),
                                    "v": put(v_slot, v_rows)}
 
@@ -364,7 +388,7 @@ def apply_sparse(
             accum = add(accum, torch.square(grads))
         w = read(table)
         a = read(accum, fill=1.0)
-        precondition = 1.0 / torch.sqrt(a + spec.epsilon)
+        precondition = 1.0 / _sqrt(a + spec.epsilon)
         delta = _scaled(lr, grads) * precondition
         max_delta = (
             spec.absolute_threshold

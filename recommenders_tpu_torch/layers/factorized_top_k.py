@@ -1,11 +1,11 @@
 """Retrieval index layers: exact brute force and the bucketed serving index.
 
-Port of `recommenders_tpu/layers/factorized_top_k.py:53-305,512-802`
-(the `TopK` base, `BruteForce` and `Bucketed`), itself the rebuild of the
+Port of `recommenders_tpu/layers/factorized_top_k.py:53-814` (the `TopK`
+base, `BruteForce`, `Streaming` and `Bucketed`), itself the rebuild of the
 reference's factorized top-K layers
-(`tensorflow_recommenders/layers/factorized_top_k.py:140,515`).
+(`tensorflow_recommenders/layers/factorized_top_k.py:140,336,515`).
 `ScaNN` lives in `layers/approximate.py` and is re-exported here, as in the
-JAX package; `Streaming` is not ported yet.
+JAX package.
 
 Identifiers may be integer tensors (kept on the index's device) or host
 string arrays: string-identified indexes run on row positions on the
@@ -19,6 +19,7 @@ there, and queries must live there too.
 from __future__ import annotations
 
 import abc
+import collections
 from typing import Callable, Iterable, Optional, Tuple, Union
 
 import numpy as np
@@ -295,6 +296,186 @@ class BruteForce(TopK):
 
     def is_exact(self) -> bool:
         return True
+
+
+class Streaming(TopK):
+    """Exact top-K over a corpus scored chunk by chunk.
+
+    Two modes, both with the running-merge semantics of the reference's
+    `Streaming` (layers/factorized_top_k.py:336-512):
+
+      - `index(...)` with a corpus on the device: a query runs
+        `ops.topk.streaming_top_k` over chunks of the padded corpus.
+      - `index_from_dataset(factory)` with a zero-arg callable returning
+        an iterator of host batches (or a list of batches): every query
+        streams the batches to the device, each scored and merged while
+        the next ones are copied, for corpora larger than device memory.
+        Batches without identifiers are enumerated with a running
+        counter (the reference's `enumerate_rows`). String identifiers
+        stay on the host and decode after the stream; a stream that
+        mixes string and other identifiers raises.
+
+    Attributes:
+      query_fn: Optional callable mapping raw query features to embeddings.
+      chunk_size: Candidate rows scored a chunk in on-device mode.
+    """
+
+    def __init__(
+        self,
+        query_fn: Optional[Callable] = None,
+        k: int = 10,
+        chunk_size: int = 4096,
+        device: Union[str, torch.device] = "cuda",
+    ) -> None:
+        super().__init__(k=k, device=device)
+        self.query_fn = query_fn
+        self._chunk_size = chunk_size
+        self._chunk = chunk_size
+        self._candidates: Optional[Tensor] = None
+        self._identifiers: Optional[Tensor] = None
+        self._valid: Optional[Tensor] = None
+        self._num_candidates = 0
+        self._dataset_factory = None
+
+    def index(
+        self,
+        candidates: Tensor,
+        identifiers: Optional[Tensor] = None,
+    ) -> "Streaming":
+        candidates = _check_candidates(candidates, self.device)
+        self._num_candidates = candidates.shape[0]
+        identifiers = self._intern_identifiers(
+            identifiers, self._num_candidates
+        )
+        self._chunk = min(self._chunk_size,
+                          scoring._round_up(self._num_candidates, 128))
+        self._candidates, self._identifiers, self._valid = (
+            topk_ops.pad_corpus(candidates, identifiers, self._chunk)
+        )
+        self._dataset_factory = None
+        return self
+
+    def index_from_dataset(self, candidates) -> "Streaming":
+        """Keeps a batch-iterator factory (or a list of batches) that
+        every query streams anew."""
+        if callable(candidates):
+            self._dataset_factory = candidates
+        else:
+            batches = list(candidates)
+            self._dataset_factory = lambda: iter(batches)
+        self._candidates = None
+        # String identifiers are found batch by batch during a streamed
+        # query; each stream starts with a clean slate.
+        self._id_strings = None
+        self._id_lookup = None
+        return self
+
+    def __call__(
+        self, queries, k: Optional[int] = None
+    ) -> Tuple[Tensor, Tensor]:
+        k = k if k is not None else self._k
+        if self.query_fn is not None:
+            queries = self.query_fn(queries)
+        queries = torch.as_tensor(queries, device=self.device)
+        if self._candidates is not None:
+            k = min(k, self._num_candidates)
+            return self._decode(*topk_ops.streaming_top_k(
+                queries, self._candidates, self._identifiers, self._valid,
+                k=k, chunk_size=self._chunk,
+            ))
+        if self._dataset_factory is None:
+            raise ValueError(
+                "The `index` method must be called first to "
+                "create the retrieval index."
+            )
+        return self._host_streamed_query(queries, k)
+
+    def _to_device(self, batch, counter: int, string_parts: list,
+                   stream):
+        """`({"ids", "emb"} on the device, ready event)` of one host
+        batch, copied by `utils.device.to_device` (pinned, non-blocking,
+        on the side `stream` when the index lives on CUDA)."""
+        if isinstance(batch, tuple):
+            ids, emb = batch
+            if _is_string_array(ids):
+                # String ids stay on the host: the device merges row
+                # positions, decoded after the stream.
+                string_parts.append(np.asarray(ids))
+                ids = None
+        else:
+            ids, emb = None, batch
+        emb = torch.as_tensor(emb)
+        if ids is None:
+            ids = torch.arange(counter, counter + emb.shape[0],
+                               dtype=torch.int32)
+        return device_lib.to_device({"ids": torch.as_tensor(ids),
+                                     "emb": emb}, self.device, stream)
+
+    def _host_streamed_query(
+        self, queries: Tensor, k: int, prefetch: int = 2
+    ) -> Tuple[Tensor, Tensor]:
+        """Streams the host batches with up to `prefetch` copies in
+        flight while the current batch's score + merge runs
+        (`recommenders_tpu/layers/factorized_top_k.py:404-483`)."""
+        q = queries.shape[0]
+        stream = (torch.cuda.Stream(self.device)
+                  if self.device.type == "cuda" else None)
+        string_parts: list = []
+        counter = 0
+        it = iter(self._dataset_factory())
+        staged = collections.deque()
+
+        def refill():
+            nonlocal counter
+            while len(staged) < max(1, prefetch):
+                try:
+                    batch = next(it)
+                except StopIteration:
+                    return
+                staged.append(self._to_device(batch, counter, string_parts,
+                                              stream))
+                counter += staged[-1][0]["emb"].shape[0]
+
+        refill()
+        if not staged:
+            raise ValueError("The candidates dataset must not be empty.")
+        state = None
+        while staged:
+            pair = device_lib.wait_batch(*staged.popleft())
+            ids, emb = pair["ids"], pair["emb"]
+            refill()
+            if state is None:
+                state = (
+                    torch.full((q, k), MIN_FLOAT, dtype=torch.float32,
+                               device=self.device),
+                    torch.zeros((q, k), dtype=ids.dtype,
+                                device=self.device),
+                )
+            state = _streaming_merge_step(queries, emb, ids, state, k)
+        if string_parts:
+            strings = np.concatenate(string_parts, axis=0)
+            if strings.shape[0] != counter:
+                raise ValueError(
+                    "The dataset mixed string and non-string identifier "
+                    f"batches ({strings.shape[0]} string-identified rows "
+                    f"of {counter})."
+                )
+            self._id_strings = strings
+            self._id_lookup = None
+            return self._decode(*state)
+        return state
+
+    def is_exact(self) -> bool:
+        return True
+
+
+def _streaming_merge_step(queries, emb, ids, state, k):
+    """Scores one batch and merges its top-k into the running state
+    (`recommenders_tpu/layers/factorized_top_k.py:806-811`)."""
+    dtype = torch.promote_types(queries.dtype, emb.dtype)
+    scores = (queries.to(dtype) @ emb.to(dtype).T).to(torch.float32)
+    chunk_scores, idx = topk_ops.top_k(scores, min(k, scores.shape[1]))
+    return topk_ops.topk_merge(state, (chunk_scores, ids[idx]), k)
 
 
 class Bucketed(TopK):

@@ -1,11 +1,15 @@
-"""Two-tower retrieval model.
+"""Prebuilt two-tower retrieval models (sequential towers included).
 
-Port of `recommenders_tpu/models/retrieval.py`: `EmbeddingTower`
-(`:41-69`) and `TwoTowerRetrieval`'s `query_embeddings`,
-`candidate_embeddings`, `_tower_input` (`:180-192`) and `compute_loss`
-(`:194-243`) with the retrieval task. The batch metrics, `SequenceTower`
-and `make_corpus_eval_step` come with the slice that ports `metrics/`
-and `models/base.py`.
+Port of `recommenders_tpu/models/retrieval.py`:
+
+  - `EmbeddingTower`: id → embedding → optional MLP.
+  - `SequenceTower`: `[B, L]` padded id history → embeddings → GRU or
+    self-attention encoder → optional MLP.
+  - `TwoTowerRetrieval`: two towers feeding the retrieval task, with
+    in-batch top-k accuracy metrics, trained by `models.Trainer`.
+  - `make_corpus_eval_step` and `evaluate_with_corpus_metrics`:
+    corpus-level `FactorizedTopK` evaluation against an index built from
+    `candidate_embeddings()`.
 
 Flax modules take factories and build their towers in `setup`; here the
 towers are `nn.Module`s handed to the model. Weights of a flax model
@@ -14,17 +18,25 @@ carry across with `utils.convert`.
 
 from __future__ import annotations
 
-from typing import Mapping, Optional, Sequence, Tuple, Union
+from typing import Dict, Mapping, Optional, Sequence, Tuple, Union
 
 import torch
 from torch import nn
 
+from recommenders_tpu_torch.embedding import config as config_lib
 from recommenders_tpu_torch.layers import blocks
+from recommenders_tpu_torch.layers import factorized_top_k as ftk
+from recommenders_tpu_torch.layers import sequential as sequential_lib
+from recommenders_tpu_torch.metrics import base as metrics_base
+from recommenders_tpu_torch.metrics import factorized_top_k as ftk_metric
+from recommenders_tpu_torch.models import base as models_base
 from recommenders_tpu_torch.tasks import retrieval as retrieval_task
 from recommenders_tpu_torch.utils import device as device_lib
 
 Tensor = torch.Tensor
 Key = Union[str, Tuple[str, ...]]
+
+PAD_ID = config_lib.PAD_ID
 
 
 class EmbeddingTower(nn.Module):
@@ -76,7 +88,65 @@ class EmbeddingTower(nn.Module):
         return x
 
 
-class TwoTowerRetrieval(nn.Module):
+class SequenceTower(nn.Module):
+    """History tower: padded `[B, L]` ids → encoder → embedding.
+
+    Positions holding `PAD_ID` are masked: their embeddings are zeroed
+    and the encoder skips them.
+
+    Args:
+      vocab_size: Id vocabulary.
+      embedding_dim: Item-embedding width (also the output width unless
+        an MLP head is configured).
+      encoder: `"gru"` or `"attention"`.
+      encoder_units: Encoder output width (defaults to `embedding_dim`).
+      mlp_units: Optional dense stack on top.
+      device: Where the weights live (default CUDA).
+      generator: Optional `torch.Generator` for the initial weights.
+    """
+
+    def __init__(
+        self,
+        vocab_size: int,
+        embedding_dim: int,
+        encoder: str = "gru",
+        encoder_units: Optional[int] = None,
+        mlp_units: Sequence[int] = (),
+        device: Union[str, torch.device] = "cuda",
+        generator: Optional[torch.Generator] = None,
+    ) -> None:
+        super().__init__()
+        device = device_lib.resolve(device)
+        units = encoder_units or embedding_dim
+        self.embedding = nn.Embedding(vocab_size, embedding_dim, device=device)
+        blocks.truncated_normal_(self.embedding.weight,
+                                 embedding_dim ** -0.5, generator)
+        if encoder == "gru":
+            self.encoder = sequential_lib.GRUEncoder(
+                embedding_dim, units, device=device, generator=generator)
+        elif encoder == "attention":
+            self.encoder = sequential_lib.SelfAttentionEncoder(
+                embedding_dim, out_dim=units, device=device,
+                generator=generator)
+        else:
+            raise ValueError(
+                f"encoder must be 'gru' or 'attention', got {encoder!r}")
+        self.mlp = None
+        if mlp_units:
+            self.mlp = blocks.MLP(units, tuple(mlp_units), device=device)
+            self.mlp.reset_parameters(generator)
+
+    def forward(self, ids: Tensor) -> Tensor:
+        mask = ids != PAD_ID
+        x = self.embedding(torch.clamp(ids, min=0))
+        x = x * mask[..., None].to(x.dtype)
+        x = self.encoder(x, mask)
+        if self.mlp is not None:
+            x = self.mlp(x)
+        return x
+
+
+class TwoTowerRetrieval(models_base.Model):
     """Two-tower retrieval model with in-batch sampled softmax.
 
     Batches carry `query_key` and `candidate_key` entries, and optionally
@@ -98,7 +168,10 @@ class TwoTowerRetrieval(nn.Module):
       candidate_vocab_size: Id range for those draws.
       score_dtype: Optional dtype (`torch.bfloat16`) of the scoring
         inputs; scores stay f32.
-      fused: Compute the loss with the flash-CE kernel K2.
+      fused: Compute the loss with the flash-CE kernel K2. The `[B, C]`
+        logits then never exist, and the batch metrics keep their
+        initial states.
+      batch_metric_ks: Cutoffs of the in-batch top-k accuracy metrics.
     """
 
     def __init__(
@@ -114,8 +187,10 @@ class TwoTowerRetrieval(nn.Module):
         candidate_vocab_size: Optional[int] = None,
         score_dtype: Optional[torch.dtype] = None,
         fused: bool = False,
+        batch_metric_ks: Tuple[int, ...] = (1, 10),
     ) -> None:
         super().__init__()
+        self.batch_metric_ks = tuple(batch_metric_ks)
         self.query_tower = query_tower
         self.candidate_tower = candidate_tower
         self.query_key = query_key
@@ -203,3 +278,125 @@ class TwoTowerRetrieval(nn.Module):
             candidate_ids=candidate_ids,
         )
         return out.loss, {"retrieval": out}
+
+    def metrics(self) -> Dict[str, metrics_base.Metric]:
+        return {
+            f"batch_top_{k}_categorical_accuracy":
+                metrics_base.TopKCategoricalAccuracy(k=k)
+            for k in self.batch_metric_ks
+        }
+
+    def update_metrics(self, states, batch, aux):
+        """The batch metrics read the FINAL logits and labels fed to the
+        loss (after log-q correction, accidental-hit removal and
+        hard-negative mining), as the reference's `update_state` does.
+        Under `fused=True` there are no logits; the states stay as they
+        were."""
+        out: retrieval_task.RetrievalOutput = aux["retrieval"]
+        if out.logits is None:
+            return dict(states)
+        weight = batch.get("sample_weight")
+        return {
+            name: metric.update(states[name], out.labels, out.logits, weight)
+            for name, metric in self.metrics().items()
+        }
+
+
+def _true_id_key(model) -> str:
+    key = model.candidate_key
+    return key if isinstance(key, str) else key[0]
+
+
+def make_corpus_eval_step(model, metric, candidate_key=None):
+    """One corpus-eval step: embed → index → metric update.
+
+    The JAX package jits the whole step into one dispatch
+    (`recommenders_tpu/models/retrieval.py:274-318`); the port has no
+    jit, so the step runs eagerly, without gradients, on the device of
+    the index.
+
+    Args:
+      model: A `TwoTowerRetrieval`-contract model (`query_embeddings`
+        and a scalar-id `candidate_key`).
+      metric: A `FactorizedTopK` whose index is on the device.
+      candidate_key: Batch key of the true candidate id; defaults to
+        `model.candidate_key`.
+
+    Returns:
+      `step(metric_state, batch, corpus_embeddings) -> metric_state`.
+      `corpus_embeddings` is the `[num_candidates, dim]` tensor the true
+      candidates' embeddings are read from (the one the index was built
+      from). The model's weights are its own, so the JAX step's `params`
+      argument has no counterpart.
+    """
+    key = candidate_key or _true_id_key(model)
+
+    @torch.no_grad()
+    def step(mstate, batch, corpus_embeddings):
+        batch = device_lib.to_device(batch, corpus_embeddings.device)[0]
+        queries = model.query_embeddings(batch)
+        true_ids = batch[key]
+        true_embs = corpus_embeddings[true_ids.long()]
+        return metric.update(mstate, queries, true_embs,
+                             true_candidate_ids=true_ids)
+
+    return step
+
+
+@torch.no_grad()
+def evaluate_with_corpus_metrics(
+    trainer,
+    state,
+    eval_batches,
+    candidate_batch,
+    ks: Tuple[int, ...] = (1, 5, 10, 50, 100),
+    index_factory=None,
+    exclusions_key: Optional[str] = None,
+):
+    """Corpus-level `FactorizedTopK` evaluation of a trained two-tower
+    model: embed the whole candidate corpus once, index it, then stream
+    the evaluation batches through the index.
+
+    Args:
+      trainer: The `Trainer` holding the model.
+      state: Its `TrainState` (the weights are the model's own).
+      eval_batches: Zero-arg factory (or iterable) of evaluation batches.
+      candidate_batch: Batch covering the FULL candidate corpus in corpus
+        order (row i ↔ candidate id i), fed to the candidate tower.
+      ks: Accuracy cutoffs.
+      index_factory: `() -> TopK`; defaults to `BruteForce` on the
+        model's device.
+      exclusions_key: Optional batch key with `[B, E]` candidate ids to
+        exclude per query (e.g. train-set watches).
+
+    Returns:
+      Dict of `factorized_top_k/top_K_categorical_accuracy` floats.
+    """
+    model = trainer.model
+    device = trainer.device
+    model.eval()
+    candidates = model.candidate_embeddings(
+        device_lib.to_device(candidate_batch, device)[0])
+    index = (index_factory or (lambda: ftk.BruteForce(device=device)))()
+    index.index(candidates)
+    metric = ftk_metric.FactorizedTopK(candidates=index, ks=ks)
+    mstate = metric.init()
+    step = make_corpus_eval_step(model, metric)
+    key = _true_id_key(model)
+    batches = eval_batches() if callable(eval_batches) else eval_batches
+    for batch in batches:
+        if exclusions_key is None:
+            mstate = step(mstate, batch, candidates)
+            continue
+        batch = device_lib.to_device(batch, device)[0]
+        true_ids = batch[key]
+        scores, ids = index.query_with_exclusions(
+            model.query_embeddings(batch), batch[exclusions_key], k=max(ks))
+        # Id-based accounting of the pre-queried results; MIN_FLOAT marks
+        # padded or excluded slots.
+        pad = scores <= ftk.MIN_FLOAT / 2
+        match = ((true_ids[:, None] == ids) & ~pad).to(torch.float32)
+        for k in ks:
+            found = torch.clamp(match[:, :k].sum(1), 0.0, 1.0)
+            mstate[k] = metric._mean.update(mstate[k], found)
+    return {name: float(v) for name, v in metric.result(mstate).items()}

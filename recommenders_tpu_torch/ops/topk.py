@@ -1,7 +1,7 @@
-"""Top-K primitives: merge, corpus padding, exclusion.
+"""Top-K primitives: merge, corpus padding, streaming scan, exclusion.
 
-Port of `recommenders_tpu/ops/topk.py:30-85,153-180` onto torch tensors.
-`streaming_top_k` and `distributed_top_k` are not ported yet.
+Port of `recommenders_tpu/ops/topk.py:30-180` onto torch tensors.
+`distributed_top_k` comes with the distribution slice.
 
 Corpora are padded to a row multiple and padding rows are masked to
 `MIN_FLOAT` (not `-inf`) so they can never enter a top-k set.
@@ -74,6 +74,56 @@ def pad_corpus(
         candidates = F.pad(candidates, (0, 0, 0, padded_n - n))
         identifiers = F.pad(identifiers, (0, padded_n - n))
     return candidates, identifiers, valid
+
+
+def streaming_top_k(
+    queries: Tensor,
+    candidates: Tensor,
+    identifiers: Tensor,
+    valid: Tensor,
+    k: int,
+    chunk_size: int = 4096,
+) -> Tuple[Tensor, Tensor]:
+    """Exact top-k over a chunked corpus, one chunk at a time.
+
+    The JAX package runs this as one `lax.scan` whose carry is the
+    running `[q, k]` state (`recommenders_tpu/ops/topk.py:89-150`); here
+    it is a loop over chunks, each a matmul, a mask of the padding rows,
+    `torch.topk` and `topk_merge`, so the `[q, n]` score matrix never
+    exists at once.
+
+    Args:
+      queries: `[q, d]` query embeddings.
+      candidates: `[n, d]` corpus, `n` a multiple of `chunk_size` (use
+        `pad_corpus`).
+      identifiers: `[n]` candidate ids.
+      valid: `[n]` bool mask; False rows are padding.
+      k: Number of results.
+      chunk_size: Candidate rows scored a chunk.
+
+    Returns:
+      `([q, k] scores, [q, k] ids)`, sorted descending by score.
+    """
+    n = candidates.shape[0]
+    if n % chunk_size != 0:
+        raise ValueError(
+            f"corpus rows ({n}) must be a multiple of chunk_size "
+            f"({chunk_size}); use pad_corpus first."
+        )
+    q = queries.shape[0]
+    k = min(k, n)
+    state = (
+        torch.full((q, k), MIN_FLOAT, dtype=torch.float32,
+                   device=queries.device),
+        torch.zeros((q, k), dtype=identifiers.dtype, device=queries.device),
+    )
+    for start in range(0, n, chunk_size):
+        rows = slice(start, start + chunk_size)
+        scores = (queries @ candidates[rows].T).to(torch.float32)
+        scores = torch.where(valid[rows][None, :], scores, MIN_FLOAT)
+        chunk_scores, idx = top_k(scores, min(k, chunk_size))
+        state = topk_merge(state, (chunk_scores, identifiers[rows][idx]), k)
+    return state
 
 
 def exclude(

@@ -1,24 +1,42 @@
 """Weights and state carried between the JAX package and the port.
 
-`load_flax_params` takes the flax `params` of a `TwoTowerRetrieval` as a
-nested dict of NumPy arrays (e.g. `jax.tree.map(np.asarray, params)`) and
-copies them into the port's module; `to_flax_params` is the inverse. The
-names map as:
+`load_flax_params` takes the flax `params` of a `TwoTowerRetrieval`, or
+of one tower (`EmbeddingTower`, `SequenceTower`), as a nested dict of
+NumPy arrays (e.g. `jax.tree.map(np.asarray, params)`) and copies them
+into the port's module; `to_flax_params` is the inverse. The names map
+as (kernels `[in, out]` transposed to `nn.Linear`'s `[out, in]`):
 
-    _query / _candidate           ↔ query_tower / candidate_tower
-    Embed_0/embedding             ↔ embedding.weight
-    MLP_0/Dense_i/kernel [in,out] ↔ mlp.layers.i.weight [out,in] (transposed)
-    MLP_0/Dense_i/bias            ↔ mlp.layers.i.bias
+    _query / _candidate            ↔ query_tower / candidate_tower
+    Embed_0/embedding              ↔ embedding.weight
+    MLP_0/Dense_i/{kernel,bias}    ↔ mlp.layers.i.{weight,bias}
+    GRUEncoder_0/Scan_Step_0/GRUCell_0/
+      i{r,z,n}/{kernel,bias}       ↔ encoder.cell.{weight,bias}_ih rows
+                                     of gate r, z, n (torch's order)
+      h{r,z,n}/kernel, hn/bias     ↔ encoder.cell.weight_hh rows, and
+                                     bias_hh's n rows (its r, z rows,
+                                     which flax lacks, are zero)
+    SelfAttentionEncoder_0/
+      LayerNorm_i/{scale,bias}     ↔ encoder.layer_norm_i.{weight,bias}
+      MultiHeadDotProductAttention_0/
+        {query,key,value}/kernel [d, heads, head_dim]
+                                   ↔ encoder.attention.{...}.weight
+                                     [heads·head_dim, d]
+        {query,key,value}/bias [heads, head_dim] ↔ ....bias
+        out/kernel [heads, head_dim, d] ↔ encoder.attention.out.weight
+      Dense_i                      ↔ encoder.dense_i
 
 Any missing or extra key raises, as does a shape that does not match.
 
-`engine_state_from_logical` takes the JAX engine's `logical_state(...)`
-as nested NumPy dicts (e.g. `jax.tree.map(np.asarray, logical)`) and
-builds the port engine's `EngineState`; `engine_state_to_logical` is the
-inverse. bf16 arrays cross as bits: a NumPy array whose dtype is named
-"bfloat16" (ml_dtypes' type, which `torch.from_numpy` refuses) is viewed
-as uint16 and reinterpreted as `torch.bfloat16`; the way back gives the
-uint16 bits (view them as a NumPy bf16 dtype to hand them to JAX).
+`engine_state_from_logical` takes an engine's `logical_state(...)` as
+nested NumPy dicts (the JAX engine's through `jax.tree.map(np.asarray,
+logical)`, or `engine_state_to_logical` output) and builds the port
+engine's `EngineState` in its layout, stacked or not;
+`engine_state_to_logical` is the inverse. bf16 arrays cross as bits: a
+NumPy array whose dtype is named "bfloat16" (ml_dtypes' type, which
+`torch.from_numpy` refuses) is viewed as uint16 and reinterpreted as
+`torch.bfloat16`; the way back gives the uint16 bits (view them as a
+NumPy bf16 dtype to hand them to JAX), which the way in also takes for a
+bf16 engine.
 
 `scann_state_from_numpy` loads a built JAX `ScaNN` index's arrays (e.g.
 `{name: np.asarray(getattr(index, name)) for name in SCANN_ARRAYS}`)
@@ -28,15 +46,12 @@ same leaves; `scann_state_to_numpy` is the inverse.
 
 from __future__ import annotations
 
-import re
-from typing import Dict, Mapping, Tuple
+import dataclasses
+from typing import Callable, Dict, Iterator, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
 from torch import nn
-
-_TOWERS = {"_query": "query_tower", "_candidate": "candidate_tower"}
-_TOWERS_INV = {v: k for k, v in _TOWERS.items()}
 
 Path = Tuple[str, ...]
 
@@ -58,37 +73,100 @@ def tensor_to_numpy(tensor: torch.Tensor) -> np.ndarray:
     return tensor.numpy().copy()
 
 
-def _flax_to_torch(path: Path) -> Tuple[str, bool]:
-    """Flax param path → (torch state-dict name, transpose?)."""
-    if len(path) >= 2 and path[0] in _TOWERS:
-        tower, rest = _TOWERS[path[0]], path[1:]
-        if rest == ("Embed_0", "embedding"):
-            return f"{tower}.embedding.weight", False
-        if len(rest) == 3 and rest[0] == "MLP_0":
-            m = re.fullmatch(r"Dense_(\d+)", rest[1])
-            if m and rest[2] in ("kernel", "bias"):
-                leaf = "weight" if rest[2] == "kernel" else "bias"
-                return (
-                    f"{tower}.mlp.layers.{m.group(1)}.{leaf}",
-                    rest[2] == "kernel",
-                )
-    raise KeyError("/".join(path))
+def _same(a: np.ndarray) -> np.ndarray:
+    return a
 
 
-def _torch_to_flax(name: str) -> Tuple[Path, bool]:
-    """Torch state-dict name → (flax param path, transpose?)."""
-    tower, _, rest = name.partition(".")
-    if tower in _TOWERS_INV:
-        tower = _TOWERS_INV[tower]
-        if rest == "embedding.weight":
-            return (tower, "Embed_0", "embedding"), False
-        m = re.fullmatch(r"mlp\.layers\.(\d+)\.(weight|bias)", rest)
-        if m:
-            leaf = "kernel" if m.group(2) == "weight" else "bias"
-            return (tower, "MLP_0", f"Dense_{m.group(1)}", leaf), (
-                leaf == "kernel"
-            )
-    raise KeyError(name)
+def _transpose(a: np.ndarray) -> np.ndarray:
+    return a.T
+
+
+@dataclasses.dataclass(frozen=True)
+class _Leaf:
+    """One flax leaf ↔ rows of one torch parameter.
+
+    `path` None marks rows flax does not have (held at zero)."""
+
+    path: Optional[Path]
+    name: str
+    rows: Optional[slice] = None
+    to_torch: Callable[[np.ndarray], np.ndarray] = _same
+    to_flax: Callable[[np.ndarray], np.ndarray] = _same
+
+
+def _linear(path: Path, name: str) -> Iterator[_Leaf]:
+    """A flax `Dense` ↔ an `nn.Linear`."""
+    yield _Leaf(path + ("kernel",), f"{name}.weight", None, _transpose,
+                _transpose)
+    yield _Leaf(path + ("bias",), f"{name}.bias")
+
+
+def _gru(path: Path, name: str, units: int) -> Iterator[_Leaf]:
+    """Flax `GRUCell` ↔ `nn.GRUCell` (gates r, z, n in torch's rows)."""
+    for g, gate in enumerate("rzn"):
+        rows = slice(g * units, (g + 1) * units)
+        yield _Leaf(path + (f"i{gate}", "kernel"), f"{name}.weight_ih",
+                    rows, _transpose, _transpose)
+        yield _Leaf(path + (f"i{gate}", "bias"), f"{name}.bias_ih", rows)
+        yield _Leaf(path + (f"h{gate}", "kernel"), f"{name}.weight_hh",
+                    rows, _transpose, _transpose)
+        yield _Leaf(path + ("hn", "bias") if gate == "n" else None,
+                    f"{name}.bias_hh", rows)
+
+
+def _attention(path: Path, name: str, heads: int,
+               dim: int) -> Iterator[_Leaf]:
+    """Flax `MultiHeadDotProductAttention` ↔ four `nn.Linear`s."""
+    head_dim = dim // heads
+    for proj in ("query", "key", "value"):
+        yield _Leaf(path + (proj, "kernel"), f"{name}.{proj}.weight", None,
+                    lambda a: a.reshape(a.shape[0], -1).T,
+                    lambda w: w.T.reshape(dim, heads, head_dim))
+        yield _Leaf(path + (proj, "bias"), f"{name}.{proj}.bias", None,
+                    lambda a: a.reshape(-1),
+                    lambda b: b.reshape(heads, head_dim))
+    yield _Leaf(path + ("out", "kernel"), f"{name}.out.weight", None,
+                lambda a: a.reshape(-1, a.shape[-1]).T,
+                lambda w: w.T.reshape(heads, head_dim, dim))
+    yield _Leaf(path + ("out", "bias"), f"{name}.out.bias")
+
+
+def _leaves(model: nn.Module, path: Path = (),
+            name: str = "") -> Iterator[_Leaf]:
+    """Every parameter of `model` as flax leaves, for the port's
+    retrieval models and towers."""
+    from recommenders_tpu_torch.layers import sequential
+    from recommenders_tpu_torch.models import retrieval
+
+    if isinstance(model, retrieval.TwoTowerRetrieval):
+        yield from _leaves(model.query_tower, ("_query",), "query_tower.")
+        yield from _leaves(model.candidate_tower, ("_candidate",),
+                           "candidate_tower.")
+        return
+    if not isinstance(model, (retrieval.EmbeddingTower,
+                              retrieval.SequenceTower)):
+        raise TypeError(f"no flax layout for {type(model).__name__}")
+    yield _Leaf(path + ("Embed_0", "embedding"), f"{name}embedding.weight")
+    encoder = getattr(model, "encoder", None)
+    if isinstance(encoder, sequential.GRUEncoder):
+        yield from _gru(path + ("GRUEncoder_0", "Scan_Step_0", "GRUCell_0"),
+                        f"{name}encoder.cell", encoder.units)
+    elif isinstance(encoder, sequential.SelfAttentionEncoder):
+        enc, ename = path + ("SelfAttentionEncoder_0",), f"{name}encoder"
+        for i in (0, 1):
+            yield _Leaf(enc + (f"LayerNorm_{i}", "scale"),
+                        f"{ename}.layer_norm_{i}.weight")
+            yield _Leaf(enc + (f"LayerNorm_{i}", "bias"),
+                        f"{ename}.layer_norm_{i}.bias")
+        yield from _attention(enc + ("MultiHeadDotProductAttention_0",),
+                              f"{ename}.attention", encoder.num_heads,
+                              encoder.dim)
+        for i in range(3 if encoder.dense_2 is not None else 2):
+            yield from _linear(enc + (f"Dense_{i}",), f"{ename}.dense_{i}")
+    if model.mlp is not None:
+        for i in range(len(model.mlp.layers)):
+            yield from _linear(path + ("MLP_0", f"Dense_{i}"),
+                               f"{name}mlp.layers.{i}")
 
 
 def _flatten(tree: Mapping, prefix: Path = ()) -> Dict[Path, np.ndarray]:
@@ -104,58 +182,76 @@ def _flatten(tree: Mapping, prefix: Path = ()) -> Dict[Path, np.ndarray]:
 
 @torch.no_grad()
 def load_flax_params(model: nn.Module, params: Mapping) -> nn.Module:
-    """Copies flax `TwoTowerRetrieval` params into the port's model."""
+    """Copies flax params of a `TwoTowerRetrieval` (or of one tower)
+    into the port's module."""
     state = dict(model.named_parameters())
-    mapped, extra = {}, []
-    for path, array in _flatten(params).items():
-        try:
-            name, transpose = _flax_to_torch(path)
-        except KeyError:
-            extra.append("/".join(path))
-            continue
-        if name not in state:
-            extra.append("/".join(path))
-            continue
-        mapped[name] = array.T if transpose else array
-    missing = sorted(set(state) - set(mapped))
+    leaves = list(_leaves(model))
+    flat = _flatten(params)
+    known = {leaf.path for leaf in leaves if leaf.path is not None}
+    extra = sorted("/".join(p) for p in flat if p not in known)
+    missing = {leaf.name for leaf in leaves
+               if leaf.path is not None and leaf.path not in flat}
+    missing |= set(state) - {leaf.name for leaf in leaves}
     if missing or extra:
         raise ValueError(
-            f"flax params do not match the model: missing {missing}, "
-            f"extra {sorted(extra)}"
+            f"flax params do not match the model: missing {sorted(missing)}, "
+            f"extra {extra}"
         )
-    for name, array in mapped.items():
-        param = state[name]
-        if tuple(array.shape) != tuple(param.shape):
+    for leaf in leaves:
+        target = state[leaf.name]
+        if leaf.rows is not None:
+            target = target[leaf.rows]
+        if leaf.path is None:
+            target.zero_()
+            continue
+        array = leaf.to_torch(flat[leaf.path])
+        if tuple(array.shape) != tuple(target.shape):
             raise ValueError(
-                f"{name}: flax shape {array.shape} (as torch) != "
-                f"{tuple(param.shape)}"
+                f"{leaf.name}: flax shape {flat[leaf.path].shape} (as torch "
+                f"{array.shape}) != {tuple(target.shape)}"
             )
-        param.copy_(torch.from_numpy(np.array(array)))
+        target.copy_(torch.from_numpy(np.array(array)))
     return model
 
 
 def to_flax_params(model: nn.Module) -> Dict:
     """The model's weights as a nested flax `params` dict of NumPy arrays."""
+    state = dict(model.named_parameters())
     tree: Dict = {}
-    for name, param in model.named_parameters():
-        path, transpose = _torch_to_flax(name)
-        array = param.detach().cpu().numpy()
+    for leaf in _leaves(model):
+        if leaf.path is None:
+            continue
+        value = state[leaf.name].detach().cpu()
+        if leaf.rows is not None:
+            value = value[leaf.rows]
         node = tree
-        for key in path[:-1]:
+        for key in leaf.path[:-1]:
             node = node.setdefault(key, {})
-        node[path[-1]] = array.T.copy() if transpose else array.copy()
+        node[leaf.path[-1]] = np.array(leaf.to_flax(value.numpy()))
     return tree
 
 
+def _engine_plane(array, dtype: torch.dtype) -> torch.Tensor:
+    """A state plane for an engine storing `dtype`: uint16 arrays are
+    bf16 bits (what `engine_state_to_logical` writes) when it is bf16."""
+    tensor = tensor_from_numpy(array)
+    if tensor.dtype == torch.uint16 and dtype == torch.bfloat16:
+        tensor = tensor.view(torch.bfloat16)
+    return tensor
+
+
 def engine_state_from_logical(engine, logical: Mapping):
-    """The port engine's `EngineState` from the JAX engine's
-    `logical_state` (nested dicts of NumPy arrays): tables, slots and the
-    step, on the engine's device."""
+    """The port engine's `EngineState` from a `logical_state` as nested
+    dicts of NumPy arrays (the JAX engine's, or `engine_state_to_logical`
+    output): tables, slots and the step, on the engine's device, in its
+    layout (stacked or not). bf16 planes may come as uint16 bits."""
+    slot_dtype = engine.slot_dtype or torch.float32
     return engine.state_from_logical({
-        "tables": {k: tensor_from_numpy(v)
+        "tables": {k: _engine_plane(v, engine.dtype)
                    for k, v in logical["tables"].items()},
         "slots": {
-            name: {k: tensor_from_numpy(v) for k, v in planes.items()}
+            name: {k: _engine_plane(v, slot_dtype)
+                   for k, v in planes.items()}
             for name, planes in logical["slots"].items()
         },
         "step": int(np.asarray(logical["step"])),

@@ -281,3 +281,76 @@ def test_kernel_ab_times_the_root_package_with_this_checkouts_script(
     assert Path(smoke) == ROOT / "chip_smoke.py"
     assert Path(leaf).is_relative_to(other)
     assert Path(approx).is_relative_to(other)
+
+
+def test_trainer_slice_phases_pass_on_cpu_at_a_tiny_size(capsys):
+    """Phases 18-23 at a tiny size: the stacked engine (bit-equal to the
+    unstacked one, the bf16 + SR parity), `Trainer.fit` / `evaluate` /
+    card-vs-CPU parity / the trace, and the corpus evaluation over the
+    four indexes. Off the card no kernel launches, so every path's
+    count is 0."""
+    cpu = torch.device("cpu")
+    stacked = chip_smoke.stacked_engine(
+        cpu, chip_smoke.StackSize(tables=5, min_rows=200, max_rows=3000,
+                                  dim=8, batch=64, steps=3, sr_steps=2), 0)
+    trained = chip_smoke.trainer(
+        cpu, chip_smoke.TrainerSize(users=256, items=512, dim=16, batch=64,
+                                    batches=4, eval_batches=2,
+                                    parity_steps=2, traced_steps=2), 0)
+    evaluated = chip_smoke.corpus_eval(
+        cpu, chip_smoke.CorpusSize(users=256, items=20_000, queries=256,
+                                   batch=64, chunk=4096), 0)
+    (row,) = stacked
+    assert REPORT_KEYS <= set(row)
+    assert row["name"] == chip_smoke.K1_STACKED_ROW
+    assert row["max_abs_err"] == 0
+    assert row["bound_by"] == "bytes" and row["bound_ms"] > 0
+    assert "n=320 " in row["shape"] and "5 tables stacked" in row["shape"]
+    path, line = row["replaces"].split(":")
+    assert (ROOT / path).read_text().splitlines()[
+        int(line) - 1].startswith("def _kernel")
+    assert set(trained) == set(chip_smoke.K2_ROWS.values())
+    assert set(evaluated) == {"bucketed_scores[f32]"}
+    for counts in (trained, evaluated, {row["name"]: row["path_launches"]}):
+        assert all(n == 0 for by_path in counts.values()
+                   for n in by_path.values())
+    out = capsys.readouterr().out
+    for name in ("stacked engine", "stacked sr parity", "trainer",
+                 "trainer parity", "trainer trace", "corpus eval"):
+        assert f"phase {name}: ok" in out
+    assert re.search(r"stacked: \S+ ms/step over steps 2-3", out)
+    assert re.search(r"unstacked: \S+ ms/step over steps 2-3", out)
+    assert "K1 stacked: bit-equal to its twin" in out
+    assert "2 planted faults rejected" in out
+    assert re.search(r"parity fused: .* parameter gap \(limit \S+\) card "
+                     r"0, lr 1 % high \S+, dc 1 % high \S+", out)
+    assert re.search(r"fit unfused: .* examples/s, .* "
+                     r"batch_top_1_categorical_accuracy", out)
+    assert re.search(r"evaluate unfused: batch_top_10_categorical_accuracy",
+                     out)
+    assert re.search(r"device busy \S+ ms = \S+, idle \S+", out)
+    for name in ("BruteForce", "Streaming.index",
+                 "Streaming.index_from_dataset", "Bucketed f32"):
+        assert re.search(rf"  {re.escape(name)}: \S+ queries/s", out)
+
+
+def test_device_share_takes_the_union_of_kernel_intervals(tmp_path):
+    """Busy time is the union of kernel intervals (overlaps counted
+    once) over the span of every complete event; ops sum by name."""
+    import json
+
+    events = [
+        {"ph": "X", "cat": "cpu_op", "name": "step", "ts": 0, "dur": 100},
+        {"ph": "X", "cat": "kernel", "name": "a", "ts": 10, "dur": 20},
+        {"ph": "X", "cat": "kernel", "name": "b", "ts": 20, "dur": 20},
+        {"ph": "X", "cat": "kernel", "name": "a", "ts": 60, "dur": 10},
+        {"ph": "X", "cat": "gpu_memcpy", "name": "copy", "ts": 80, "dur": 30},
+        {"ph": "i", "cat": "kernel", "name": "marker", "ts": 5},
+    ]
+    path = tmp_path / "trace_1.json"
+    path.write_text(json.dumps({"traceEvents": events}))
+    window, busy, n, top = chip_smoke.device_share(path)
+    assert window == pytest.approx(0.110)        # 0 .. 110 us
+    assert busy == pytest.approx(0.040)          # 10-40 and 60-70 us
+    assert n == 3
+    assert top[0] == ("a", (pytest.approx(0.030), 2))

@@ -43,7 +43,9 @@ def test_every_package_file_is_checked():
         "embedding/engine.py", "embedding/sparse_optimizer.py",
         "ops/sparse_apply.py", "ops/fused_retrieval.py", "layers/loss.py",
         "tasks/base.py", "tasks/retrieval.py", "ops/leaf_scoring.py",
-        "layers/approximate.py",
+        "layers/approximate.py", "layers/sequential.py", "metrics/base.py",
+        "metrics/factorized_top_k.py", "models/base.py", "types.py",
+        "utils/profiling.py",
     ):
         assert f"recommenders_tpu_torch/{module}" in names
     assert "chip_smoke.py" in names

@@ -220,16 +220,15 @@ def test_compute_loss_on_slice_one_towers_matches_jax(fused):
     np.testing.assert_allclose(float(tl.detach()), float(jl), rtol=1e-5)
     assert (aux["retrieval"].logits is None) == fused
     grads = {name: p.grad for name, p in model.named_parameters()}
-    want = convert.to_flax_params(model)   # the layout, for the names
     flat = dict(jax.tree_util.tree_leaves_with_path(jgrads))
-    for path, _ in jax.tree_util.tree_leaves_with_path(want):
-        name, transpose = convert._flax_to_torch(
-            tuple(k.key for k in path))
-        g = grads[name].numpy()
-        w = np.asarray(flat[path])
-        np.testing.assert_allclose(g.T if transpose else g, w, rtol=1e-4,
+    leaves = {leaf.path: leaf for leaf in convert._leaves(model)}
+    for path, w in flat.items():
+        leaf = leaves[tuple(k.key for k in path)]
+        g = leaf.to_flax(grads[leaf.name].numpy())
+        w = np.asarray(w)
+        np.testing.assert_allclose(g, w, rtol=1e-4,
                                    atol=1e-5 * np.abs(w).max(),
-                                   err_msg=name)
+                                   err_msg=leaf.name)
 
 
 def test_compute_loss_extra_negatives_draw_from_the_generator():

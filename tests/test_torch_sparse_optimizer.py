@@ -176,3 +176,22 @@ def test_unknown_kind_raises():
         opt.init_slots(config.OptimizerSpec(kind="nope"), torch.zeros(2, 2))
     with pytest.raises(ValueError, match="No kernel rule"):
         opt._kernel_rule(config.OptimizerSpec(kind="clippy"), 0)
+
+
+@pytest.mark.parametrize("spread", ["unit", "wide"])
+def test_sqrt_is_correctly_rounded(spread):
+    """The rules' root equals IEEE f32 sqrt (NumPy's, as the kernel's
+    `__fsqrt_rn`) bit for bit, on every call: PyTorch's own CPU sqrt is
+    an ulp off for some inputs, so the CPU twin and the card would part."""
+    rng = np.random.RandomState(3)
+    if spread == "unit":
+        x = rng.uniform(0.05, 2.05, 1 << 20).astype(np.float32)
+    else:
+        with np.errstate(over="ignore"):
+            x = np.exp(rng.normal(0, 20, 1 << 20)).astype(np.float32)
+        x[:9] = [0.0, 1e-45, 1e-40, 2.0 ** -126, 0.25, 1.0, 4.0, 3.4e38,
+                 np.inf]
+    for _ in range(3):
+        got = opt._sqrt(torch.from_numpy(x)).numpy()
+        np.testing.assert_array_equal(got, np.sqrt(x))
+    assert torch.isnan(opt._sqrt(torch.tensor([-1.0, float("nan")]))).all()
