@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Runs the PyTorch port's retrieval serving, ScaNN serving, training and
-trainer slices on one NVIDIA GPU and checks them.
+"""Runs the PyTorch port's retrieval serving, ScaNN serving, training,
+trainer and ranking slices on one NVIDIA GPU and checks them.
 
     python3 chip_smoke.py [--seed 0] [--requests 3]
 
@@ -82,10 +82,11 @@ fatal when it fails:
  11. hold K1 (all five rules, f32 states and bf16 states with stochastic
      rounding) and K2 (forward, dq, dc; f32 and bf16 scores) against
      their plain twins at the step's shapes, K2's two launches bit for
-     bit, and time them (K1 also on one run of 32 ids, its launch floor);
-     K2's bound is the largest of its products at the bf16 peak, its exps
-     at the SFU's rate (the SM clock from `nvidia-smi`) and its bytes,
-     each printed;
+     bit, and time them (K1 also on one run of 32 ids, its launch floor;
+     K2 at both score types, a report row each); K2's bound is the
+     largest of its products at its operands' peak (bf16 tensor cores or
+     f32 CUDA cores), its exps at the SFU's rate (the SM clock from
+     `nvidia-smi`) and its bytes, each printed;
  12. time the four step forms (plain and pipelined, unfused and fused).
 
 The trainer slice: the stacked engine, `Trainer.fit` and corpus-level
@@ -135,10 +136,56 @@ evaluation, at full width. Phases, each fatal when it fails:
      BruteForce's step states equal to the hits counted from the ids
      BruteForce returns; queries/s and peak memory printed.
 
-The phases run in the order serving, ScaNN, training, trainer slice.
-Each kernel's row in the `{"kernels": [...]}` line carries
-`path_launches`, its launches on the trainer slice's paths (phases 18,
-20, 23). It prints the card's
+The ranking slice, at full width with data and weights drawn with NumPy
+(or a generator) from `--seed`: the Criteo layout of 26 sparse features
+over `benchmarks/multi_table.py`'s vocabs (4,536,387 rows × 16, f32), 13
+dense features and clicks from a planted logit as
+`examples/prebuilt_dlrm.py:20-33` draws them, batches of 4,096. Phases,
+each fatal when it fails:
+
+ 24. prebuilt DLRM: `models.Ranking` at the reference's defaults
+     (bottom (256, 64, 16) relu, `DotInteraction(skip_gather=True)`,
+     `concat_dense`, top (512, 256, 1) sigmoid) under Adagrad 0.05, then
+     with `multi_layer_dcn_interaction()` under ClippyAdagrad 0.05 on the
+     tables + Adam 1e-3 on the rest (`examples/prebuilt_dlrm.py:42-49`):
+     `Trainer.fit` for 3 epochs of 30 batches after a 2-batch warm-up,
+     `evaluate` on 8 held-out batches after each epoch, the last AUC
+     above 0.6 (at the full size); examples/s and peak memory printed;
+ 25. ranking parity: 3 steps of each form on the card and on the CPU from
+     one weight set (carried through `utils.convert`): losses to rtol
+     1e-4, each parameter group's change (tables, bottom, interaction,
+     top) within its limit in `RANKING_GAP` of the CPU's, limits that
+     faults planted on the CPU side must exceed: a learning rate 1 %
+     high in every group, and an update 1 % too large confined to one
+     dense group in that group; the relu inputs whose sign card and CPU
+     disagree on are counted;
+ 26. hybrid DLRM: `HybridTrainer` over `EmbeddingEngine(stack_tables=
+     True)` of the same 26 tables (f32 adagrad, lr 0.1;
+     `examples/hybrid_dlrm.py:57-82`) under the phase-24 DLRM stack with
+     the BCE task and Adam 1e-2: 30 steps plain, then 30 pipelined and
+     `finalize`, K1's count zeroed before each and read after (one launch
+     a step); ms/step and peak memory printed; then 3 steps card against
+     CPU, plain and pipelined: losses to rtol 1e-4, the engine's logical
+     state bit-equal to K1's twin (a CPU engine fed the card's ids and
+     activation grads), each head group's change within `HYBRID_GAP`,
+     planted faults rejected as in phase 25; K1 at the hybrid shape (f32
+     adagrad, the 4,538,240 × 16 stacked storage, 26 × 4,096 ids) held
+     bit for bit against its twin and timed: the K1 DLRM report row;
+ 27. multitask: `models.Multitask` at `bench.py`'s vocab (towers of width
+     64, the rating head (256, 128, 1), Adagrad 0.2 as
+     `examples/multitask.py:27`), `fit` for 30 batches unfused and then
+     `fused=True` (K2 with f32 scores: 30 launches of each kernel fused,
+     none unfused, none with bf16 scores, as the wrapper counts them by
+     kernel and score dtype), then 3 steps card against CPU as in phase
+     25, with the learning-rate fault;
+ 28. listwise: the seven functions of `tasks/listwise.py` on 4,096 lists
+     of 8 (`examples/listwise_ranking.py:59`), half of them ragged by
+     `mask`: values and score grads, card against CPU.
+
+The phases run in the order serving, ScaNN, training, trainer slice,
+ranking slice. Each kernel's row in the `{"kernels": [...]}` line
+carries `path_launches`, its launches on the later slices' paths
+(phases 18, 20, 23, 26, 27). It prints the card's
 name and power limit, one `{"kernels": [...]}` line
 and, last, `{"ok": true, "device": {...}}`. Without CUDA, or run outside
 a checkout of the repository, it exits non-zero and prints no result.
@@ -147,6 +194,7 @@ a checkout of the repository, it exits non-zero and prints no result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import copy
 import dataclasses
 import json
@@ -158,17 +206,25 @@ from pathlib import Path
 
 import numpy as np
 import torch
+from torch import nn
+from torch.nn import functional as F
 
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 
 from recommenders_tpu_torch import metrics  # noqa: E402
 from recommenders_tpu_torch import models  # noqa: E402
+from recommenders_tpu_torch import optimizers  # noqa: E402
 from recommenders_tpu_torch import tasks  # noqa: E402
 from recommenders_tpu_torch.embedding import config as emb_config  # noqa: E402
 from recommenders_tpu_torch.embedding import engine as emb_engine  # noqa: E402
 from recommenders_tpu_torch.embedding import sparse_optimizer  # noqa: E402
 from recommenders_tpu_torch.layers import approximate  # noqa: E402
+from recommenders_tpu_torch.layers import blocks  # noqa: E402
 from recommenders_tpu_torch.layers import factorized_top_k  # noqa: E402
+from recommenders_tpu_torch.layers.feature_interaction import (  # noqa: E402
+    dot_interaction,
+)
+from recommenders_tpu_torch.models import ranking  # noqa: E402
 from recommenders_tpu_torch.models import retrieval  # noqa: E402
 from recommenders_tpu_torch.ops import cuda_build  # noqa: E402
 from recommenders_tpu_torch.ops import fused_retrieval  # noqa: E402
@@ -176,6 +232,7 @@ from recommenders_tpu_torch.ops import leaf_scoring  # noqa: E402
 from recommenders_tpu_torch.ops import quantization  # noqa: E402
 from recommenders_tpu_torch.ops import scoring  # noqa: E402
 from recommenders_tpu_torch.ops import sparse_apply  # noqa: E402
+from recommenders_tpu_torch.tasks import listwise  # noqa: E402
 from recommenders_tpu_torch.utils import convert  # noqa: E402
 from recommenders_tpu_torch.utils import profiling  # noqa: E402
 
@@ -749,6 +806,25 @@ K2_TEMPERATURE = 0.2
 K2_ID_RANGE = 1024
 
 
+def check_k2_counts(label: str, counts: dict, want: int,
+                    scores: str) -> None:
+    """Each K2 kernel launched `want` times with `scores` scores (the
+    wrapper's count by kernel and score dtype) and never with the
+    other."""
+    for (name, kind), count in counts.items():
+        expected = want if kind == scores else 0
+        check(count == expected, f"{label}: {count} K2 {name} launches with "
+              f"{kind} scores, expected {expected}")
+
+
+def k2_text(counts: dict) -> str:
+    """K2's launch counts as `fwd/dq/dc bf16 a/b/c, f32 d/e/f`."""
+    return "fwd/dq/dc " + ", ".join(
+        f"{scores} " + "/".join(str(counts[name, scores])
+                               for name in ("fwd", "dq", "dc"))
+        for scores in ("bf16", "f32"))
+
+
 def reset_train_counts() -> None:
     sparse_apply.sorted_block_apply.launches = 0
     fused_retrieval.fused_retrieval_loss.launches = 0
@@ -1021,12 +1097,12 @@ def value_and_grads(fn, q, cand, kwargs):
 
 
 def k2_bound_terms(name: str, q, c, sms: int, clock_hz: float) -> dict:
-    """The three least times (ms) of one K2 kernel at bf16 scores: its
-    products at the bf16 tensor-core peak (fwd one [B, C, D] product; dq
-    and dc two, the recomputed scores and the coefficient product), its
-    B·C exps at the SFU's rate, and its bytes at the HBM rate (the bf16
-    operands, the [C] log-q and ids, the [B] lse and weights it reads, and
-    its f32 outputs, each once)."""
+    """The three least times (ms) of one K2 kernel: its products at the
+    peak of its operands' type (bf16 scores: the tensor cores; f32: the
+    CUDA cores; fwd one [B, C, D] product, dq and dc two, the recomputed
+    scores and the coefficient product), its B·C exps at the SFU's rate,
+    and its bytes at the HBM rate (the operands, the [C] log-q and ids,
+    the [B] lse and weights it reads, and its f32 outputs, each once)."""
     b, d = q.shape
     cn = c.shape[0]
     products = (1 if name == "fwd" else 2) * 2.0 * b * cn * d
@@ -1034,7 +1110,8 @@ def k2_bound_terms(name: str, q, c, sms: int, clock_hz: float) -> dict:
                                             "dc": b * 8}[name]
     writes = {"fwd": b * 8, "dq": b * d * 4, "dc": cn * d * 4}[name]
     return {
-        "products": products / PEAK_OPS_PER_S["bf16"] * 1e3,
+        "products": products / PEAK_OPS_PER_S[
+            "f32" if q.dtype == torch.float32 else "bf16"] * 1e3,
         "exp": b * cn / (SFU_EXP_PER_CLOCK * sms * clock_hz) * 1e3,
         "bytes": (reads + writes) / HBM_BYTES_PER_S * 1e3,
     }
@@ -1043,7 +1120,8 @@ def k2_bound_terms(name: str, q, c, sms: int, clock_hz: float) -> dict:
 def check_k2(size: TrainSize, device, launches: dict, seed: int) -> list:
     """K2 (forward, dq, dc) against its twin with temperature, log-q,
     accidental hits and weights, f32 and bf16 scores, at B = C = batch;
-    the report rows are for bf16 scores, the main path's."""
+    a report row each: bf16 scores are the main path's, f32 scores
+    (the CUDA-core kernels) the multitask path's."""
     q, cand, kw = k2_inputs(size, device, seed)
     b, d = q.shape
     rows = []
@@ -1074,23 +1152,22 @@ def check_k2(size: TrainSize, device, launches: dict, seed: int) -> list:
             check(bool((err <= tol).all()),
                   f"K2 {score_dtype} {name}: max |err| {float(err.max())}")
             errs[name] = float(err.max())
-        print(f"  K2 {'bf16' if bf16 else 'f32'} scores: loss "
+        label = "bf16" if bf16 else "f32"
+        print(f"  K2 {label} scores: loss "
               f"{float(loss):.6f} vs twin {float(tloss):.6f}, max |err| "
               f"dq {errs['dq']:.3g}, dc {errs['dc']:.3g}")
-        if not bf16:
-            continue
-        # Times, at the main path's bf16 scores, on the operands the
-        # kernels take (rounded to bf16 once, as the wrapper does).
-        config = (1.0 / K2_TEMPERATURE, True)
-        qb = q.to(torch.bfloat16).contiguous()
-        cb = cand.to(torch.bfloat16).contiguous()
+        # Times, on the operands the kernels take (with bf16 scores,
+        # rounded to bf16 once, as the wrapper does).
+        config = (1.0 / K2_TEMPERATURE, bf16)
+        qb = q.to(score_dtype).contiguous()
+        cb = cand.to(score_dtype).contiguous()
         logq = torch.log(torch.clamp(kw["candidate_sampling_probability"],
                                      1e-6, 1.0)).float().contiguous()
         ids32 = kw["candidate_ids"].to(torch.int32).contiguous()
         w = kw["sample_weight"].float().contiguous()
         task = tasks.Retrieval(temperature=K2_TEMPERATURE,
                                remove_accidental_hits=True,
-                               score_dtype=torch.bfloat16)
+                               score_dtype=torch.bfloat16 if bf16 else None)
         no_grad_twin = lambda: fused_retrieval.fused_retrieval_loss_reference(
             q, cand, **fkw)
         grad_twin = lambda: value_and_grads(
@@ -1131,11 +1208,13 @@ def check_k2(size: TrainSize, device, launches: dict, seed: int) -> list:
             bound_term = max(terms, key=terms.get)
             ms = graph_ms(kernels[name], device)
             rows.append({
-                "name": f"fused_retrieval_{name}[bf16 scores]",
+                "name": f"fused_retrieval_{name}[{label} scores]",
                 "route": "cuda",
                 "source": K2_SOURCE,
                 "replaces": K2_REPLACES[name],
-                "launches": launches[name],
+                # Phase 9's count: it runs bf16 scores; f32 scores run
+                # on the multitask path (phase 27, its `path_launches`).
+                "launches": launches[name, label],
                 "max_abs_err": loss_err if name == "fwd" else errs[name],
                 "ms": ms,
                 "plain_ms": plain_fwd if name == "fwd" else plain_grad,
@@ -1145,7 +1224,7 @@ def check_k2(size: TrainSize, device, launches: dict, seed: int) -> list:
                 "call_ms": device_ms(kernels[name], device, iters=20),
                 "shape": f"B=C={b} D={d}",
             })
-            print(f"  K2 {name}: kernel {ms:.4f} ms (graph replay), "
+            print(f"  K2 {label} {name}: kernel {ms:.4f} ms (graph replay), "
                   f"{rows[-1]['call_ms']:.4f} ms a call, twin "
                   f"{rows[-1]['plain_ms']:.3f} ms, library "
                   f"{rows[-1]['library_ms']:.3f} ms; bound "
@@ -1176,7 +1255,7 @@ def train(device: torch.device, size: TrainSize, seed: int) -> list:
     k1_launches = sparse_apply.sorted_block_apply.launches
     k2_launches = dict(fused_retrieval.fused_retrieval_loss.launches_by_kernel)
     phase("train", started,
-          f"K1 launches {k1_launches}, K2 launches {k2_launches}")
+          f"K1 launches {k1_launches}, K2 launches {k2_text(k2_launches)}")
     for fused, vals in losses.items():
         check(bool(torch.isfinite(vals).all()),
               f"non-finite training loss (fused={fused})")
@@ -1186,9 +1265,7 @@ def train(device: torch.device, size: TrainSize, seed: int) -> list:
     if device.type == "cuda":
         check(k1_launches == 2 * 2 * size.steps,
               f"{k1_launches} K1 launches, expected one a table an update")
-        for name, count in k2_launches.items():
-            check(count == size.steps,
-                  f"{count} K2 {name} launches, expected one a fused step")
+        check_k2_counts("train", k2_launches, size.steps, "bf16")
 
     # 10. Step parity: the card against the CPU's twins, and the same
     # check against planted faults on the CPU side, which it must reject.
@@ -2041,13 +2118,16 @@ def tapped(loss_of, sink: list):
     return loss
 
 
-def stacked_k1_row(engine, state, batch, act_grads, launches: dict,
-                   device) -> dict:
-    """K1 at the stacked path's shape: the one update of the stacked
+def stacked_k1_row(engine, state, batch, act_grads, device, name: str,
+                   label: str, path_launches: dict) -> dict:
+    """K1 at a stacked path's shape: the one update of the stacked
     storage from a step's ids and activation grads, as `update` hands it
     to the kernel (ids sorted stably, grads in their order). Kernel and
-    twin must agree bit for bit; the row carries the kernel's and twin's
-    times, the bound and the path's launches."""
+    twin must agree bit for bit; the row `name` carries the kernel's and
+    twin's times, the bound and the path's launches (`path_launches`,
+    the first entry's also as `launches`); its line starts with
+    `label`."""
+    row_name = name
     ((name, (ids, grads)),) = engine._storage_grads(batch, act_grads).items()
     spec = engine._spec(engine._tables[engine._storage_members[name][0]])
     slot_names, scalars, rule, _ = sparse_optimizer._kernel_rule(
@@ -2078,11 +2158,11 @@ def stacked_k1_row(engine, state, batch, act_grads, launches: dict,
 
     v, d = states[0].shape
     row = {
-        "name": K1_STACKED_ROW,
+        "name": row_name,
         "route": "cuda",
         "source": K1_SOURCE,
         "replaces": K1_REPLACES,
-        "launches": launches["stacked"],
+        "launches": next(iter(path_launches.values())),
         "max_abs_err": err,
         "ms": graph_ms(kernel, device),
         "call_ms": device_ms(kernel, device, iters=50),
@@ -2093,11 +2173,9 @@ def stacked_k1_row(engine, state, batch, act_grads, launches: dict,
         "library_ms": None,
         "shape": f"V={v} D={d} n={ids.shape[0]} f32 table + f32 slot, "
                  f"{len(engine._storage_members[name])} tables stacked",
-        "path_launches": {"stacked engine, stacked": launches["stacked"],
-                          "stacked engine, unstacked":
-                              launches["unstacked"]},
+        "path_launches": dict(path_launches),
     }
-    print(f"  K1 stacked: bit-equal to its twin; kernel {row['ms']:.4f} ms "
+    print(f"  {label}: bit-equal to its twin; kernel {row['ms']:.4f} ms "
           f"(graph replay), {row['call_ms']:.4f} ms a wrapper call, twin "
           f"{row['plain_ms']:.3f} ms, bound {row['bound_ms']:.4f} ms "
           f"({row['shape']})", flush=True)
@@ -2196,8 +2274,11 @@ def stacked_engine(device: torch.device, size: StackSize, seed: int) -> list:
               f"({size.tables} x {size.batch} ids a step), peak device "
               f"memory {peak[form]:.1f} MB, losses "
               f"{[round(x, 4) for x in losses[form].tolist()]}", flush=True)
-    row = stacked_k1_row(engines["stacked"], states["stacked"], batches[-1],
-                         taps["stacked"][-1], launches, device)
+    row = stacked_k1_row(
+        engines["stacked"], states["stacked"], batches[-1],
+        taps["stacked"][-1], device, K1_STACKED_ROW, "K1 stacked",
+        {"stacked engine, stacked": launches["stacked"],
+         "stacked engine, unstacked": launches["unstacked"]})
     del engines, states, want, got, host, host_state, twin, taps
 
     # 19. bf16 tables and slots with stochastic rounding, stacked: the
@@ -2271,8 +2352,9 @@ def trainer_model(size: TrainerSize, device, fused: bool, seed: int):
 
 
 def quickstart_adagrad(params, lr: float = TRAINER_LR):
-    """`optax.adagrad(0.5)`'s counterpart: accumulators from 0.1 and no
-    epsilon (optax's 1e-7 under the root moves an update by ≤ 5e-7)."""
+    """`optax.adagrad(lr)`'s counterpart (0.5 in the quickstart):
+    accumulators from 0.1 and no epsilon (optax's 1e-7 under the root
+    moves an update by ≤ 5e-7)."""
     return torch.optim.Adagrad(params, lr=lr,
                                initial_accumulator_value=0.1, eps=0.0)
 
@@ -2285,6 +2367,40 @@ def scaled_grad(scale: float):
     return hook
 
 
+def cpu_params(model: nn.Module) -> dict:
+    return {k: v.detach().cpu().clone() for k, v in model.named_parameters()}
+
+
+def faulty_step(step, model: nn.Module, overstep=None):
+    """Runs `step()` and returns what it returns. With `overstep` =
+    (name prefix, scale), the parameters under the prefix then move
+    `scale` times as far as the step moved them: a fault planted in one
+    group, whatever optimizer rules it."""
+    if overstep is None:
+        return step()
+    prefix, scale = overstep
+    params = [p for n, p in model.named_parameters() if n.startswith(prefix)]
+    before = [p.detach().clone() for p in params]
+    out = step()
+    with torch.no_grad():
+        for p, b in zip(params, before):
+            p.add_(p - b, alpha=scale - 1.0)
+    return out
+
+
+def trainer_steps(model, optimizer, batches: list, overstep=None):
+    """`Trainer` steps from the model's weights, with a planted fault
+    when `overstep` is given (`faulty_step`); returns (final weights on
+    the CPU, losses)."""
+    run = models.Trainer(model, optimizer)
+    state, losses = run.init(), []
+    for batch in batches:
+        state, loss = faulty_step(lambda: run.train_step(state, batch),
+                                  model, overstep)
+        losses.append(float(loss))
+    return cpu_params(model), losses
+
+
 def parity_run(size: TrainerSize, device, fused: bool, start: dict,
                batches: list, lr_scale: float = 1.0,
                dc_scale: float = 1.0):
@@ -2294,15 +2410,8 @@ def parity_run(size: TrainerSize, device, fused: bool, start: dict,
     model.load_state_dict(start)
     if dc_scale != 1.0:
         model.candidate_tower.register_forward_hook(scaled_grad(dc_scale))
-    run = models.Trainer(
-        model, lambda params: quickstart_adagrad(params,
-                                                 TRAINER_LR * lr_scale))
-    state, losses = run.init(), []
-    for batch in batches:
-        state, loss = run.train_step(state, batch)
-        losses.append(float(loss))
-    return ({k: v.detach().cpu() for k, v in model.named_parameters()},
-            losses)
+    return trainer_steps(model, lambda params: quickstart_adagrad(
+        params, TRAINER_LR * lr_scale), batches)
 
 
 def param_gap(got: dict, want: dict, start: dict) -> float:
@@ -2313,6 +2422,58 @@ def param_gap(got: dict, want: dict, start: dict) -> float:
     den = sum(float((want[k].double() - start[k].double()).square().sum())
               for k in want)
     return (num / den) ** 0.5
+
+
+def squared_gaps(a: dict, b: dict) -> dict:
+    """‖a[k] − b[k]‖² for each parameter k of `b`: the difference in
+    f32 (exact where the two lie within a factor 2 of each other), its
+    squares summed in float64."""
+    return {k: float(torch.sum(torch.square(a[k] - b[k]),
+                               dtype=torch.float64)) for k in b}
+
+
+def group_gaps(got: dict, want: dict, change: dict, groups: dict) -> dict:
+    """`param_gap` over each group of `groups` (label → parameter name
+    prefix) that holds parameters, and over every parameter (`"all"`);
+    `change` is `squared_gaps(want, start)`."""
+    diff = squared_gaps(got, want)
+    out = {}
+    for label, prefix in {**groups, "all": ""}.items():
+        keys = [k for k in change if k.startswith(prefix)]
+        if keys:
+            out[label] = (sum(diff[k] for k in keys)
+                          / sum(change[k] for k in keys)) ** 0.5
+    return out
+
+
+@contextlib.contextmanager
+def relu_signs(model: nn.Module):
+    """Yields a list to which each training forward of `model` appends,
+    for each layer of its MLPs that a relu follows, the signs of the
+    layer's outputs (on the CPU)."""
+    sink, handles = [], []
+
+    def hook(module, args, out):
+        if torch.is_grad_enabled():
+            sink.append((out > 0).cpu())
+
+    for mlp in model.modules():
+        if isinstance(mlp, blocks.MLP):
+            last = len(mlp.layers) - 1
+            for i, layer in enumerate(mlp.layers):
+                act = mlp.final_activation if i == last else mlp.activation
+                if act is F.relu:
+                    handles.append(layer.register_forward_hook(hook))
+    try:
+        yield sink
+    finally:
+        for handle in handles:
+            handle.remove()
+
+
+def relu_flips(card: list, host: list) -> int:
+    """Relu inputs whose sign the card and the CPU disagree on."""
+    return sum(int((a != b).sum()) for a, b in zip(card, host))
 
 
 def trainer_batches(size: TrainerSize, seed: int, count: int) -> list:
@@ -2352,6 +2513,27 @@ def device_share(trace_path: Path):
     return (end - begin) / 1e3, busy / 1e3, len(kernels), top
 
 
+def traced_window(name: str, run, steps: int, device) -> None:
+    """Runs `run()` (`steps` steps) under `utils.profiling.trace` into
+    `build/<name>_trace/`, and prints the device's busy and idle shares
+    of the window and the five longest device ops."""
+    trace_dir = (Path(__file__).resolve().parent / "build"
+                 / f"{name}_trace")
+    shutil.rmtree(trace_dir, ignore_errors=True)
+    with profiling.trace(str(trace_dir)):
+        run()
+    (trace_path,) = trace_dir.glob("trace_*.json")
+    window, busy, n, top = device_share(trace_path)
+    if device.type == "cuda":
+        check(n > 0, f"the {name} trace holds no kernel")
+    print(f"  {name} traced window {window:.3f} ms ({window / steps:.3f} "
+          f"ms/step under the profiler): {n} kernels, device busy "
+          f"{busy:.3f} ms = {busy / window:.4f}, idle "
+          f"{1 - busy / window:.4f}", flush=True)
+    for op, (total, count) in top:
+        print(f"  {name} device op {total:.3f} ms x{count}: {op[:100]}")
+
+
 def trainer(device: torch.device, size: TrainerSize, seed: int) -> dict:
     """Drives `Trainer.fit` / `evaluate` unfused and fused; returns K2's
     launches on the fused fit."""
@@ -2388,7 +2570,7 @@ def trainer(device: torch.device, size: TrainerSize, seed: int) -> dict:
               + "".join(f", {k} {results[k]:.4f}" for k in sorted(results)
                         if k.startswith("batch_top"))
               + f", peak device memory {fit_peak:.1f} MB; K2 launches "
-              f"{counts}", flush=True)
+              f"{k2_text(counts)}", flush=True)
         print(f"  evaluate {form}: " + ", ".join(
             f"{k} {v:.4f}" for k, v in sorted(evaluated.items())))
         if not fused:
@@ -2396,9 +2578,8 @@ def trainer(device: torch.device, size: TrainerSize, seed: int) -> dict:
                 check(f"batch_top_{k}_categorical_accuracy" in evaluated,
                       f"evaluate lacks batch top-{k} accuracy")
         if device.type == "cuda":
-            want = size.batches if fused else 0
-            check(all(n == want for n in counts.values()),
-                  f"{form} fit: K2 launches {counts}, expected {want} each")
+            check_k2_counts(f"{form} fit", counts,
+                            size.batches if fused else 0, "bf16")
         if fused:
             k2 = counts
             fused_trainer, fused_state = fit_trainer, state
@@ -2442,26 +2623,12 @@ def trainer(device: torch.device, size: TrainerSize, seed: int) -> dict:
 
     # 22. A trace of fused steps: the device's busy and idle shares.
     started = time.perf_counter()
-    trace_dir = Path(__file__).resolve().parent / "build" / "trainer_trace"
-    shutil.rmtree(trace_dir, ignore_errors=True)
     traced = trainer_batches(size, seed + 14, size.traced_steps)
-    with profiling.trace(str(trace_dir)):
-        fused_state, history = fused_trainer.fit(
-            fused_state, lambda: iter(traced), verbose=False)
-    (trace_path,) = trace_dir.glob("trace_*.json")
-    window, busy, n, top = device_share(trace_path)
-    if device.type == "cuda":
-        check(n > 0, "the trace holds no kernel")
-    phase("trainer trace", started,
-          f"{size.traced_steps} fused steps, {trace_path.stat().st_size / 1e6:.1f} MB "
-          "trace")
-    print(f"  traced window {window:.3f} ms ({window / size.traced_steps:.3f} "
-          f"ms/step, {history['epochs'][0]['examples_per_sec']:.0f} "
-          f"examples/s under the profiler): {n} kernels, device busy "
-          f"{busy:.3f} ms = {busy / window:.4f}, idle {1 - busy / window:.4f}")
-    for name, (total, count) in top:
-        print(f"  device op {total:.3f} ms x{count}: {name[:100]}")
-    return {K2_ROWS[name]: {"trainer, fused fit": k2.get(name, 0)}
+    traced_window("trainer", lambda: fused_trainer.fit(
+        fused_state, lambda: iter(traced), verbose=False), size.traced_steps,
+        device)
+    phase("trainer trace", started, f"{size.traced_steps} fused steps")
+    return {K2_ROWS[name]: {"trainer, fused fit": k2.get((name, "bf16"), 0)}
             for name in K2_ROWS}
 
 
@@ -2583,6 +2750,656 @@ def corpus_eval(device: torch.device, size: CorpusSize, seed: int) -> dict:
     return {"bucketed_scores[f32]": {"corpus eval, Bucketed f32": k3}}
 
 
+# --- The ranking slice: DLRM / DCN, HybridTrainer, Multitask, listwise ---
+
+
+@dataclasses.dataclass(frozen=True)
+class RankingSize:
+    tables: int = 26              # benchmarks/multi_table.py:38, with its
+    min_rows: int = 2_000         # np.geomspace(2_000, 1_000_000, 26)
+    max_rows: int = 1_000_000     # vocabs (multi_table.py:64-68)
+    dim: int = 16                 # the default bottom stack's last width
+    dense: int = 13               # Criteo's dense features
+    batch: int = 4096
+    batches: int = 30             # an epoch of fit; hybrid steps a form
+    # Epochs of the prebuilt Ranking fit: under Adagrad 0.05 one epoch of
+    # 30 batches leaves the dot model's held-out AUC below the floor
+    # (tried on the CPU at this batch with smaller tables); three clear
+    # it on the card (PERF.md, section 6).
+    epochs: int = 3
+    warmup: int = 2
+    eval_batches: int = 8
+    parity_steps: int = 3
+    users: int = 65_536           # bench.py:67 (the multitask model)
+    items: int = 131_072          # bench.py:68
+    tower_dim: int = 64           # phase 20's towers
+    lists: int = 4096             # lists of 8 examples,
+    list_size: int = 8            # examples/listwise_ranking.py:59
+
+
+RANKING_FORMS = ("dot", "dcn")
+RANKING_LR = 0.05                 # examples/prebuilt_dlrm.py:42-45
+DENSE_LR = 1e-3                   # examples/prebuilt_dlrm.py:47
+HYBRID_TABLE_LR = 0.1             # examples/hybrid_dlrm.py:64-80
+HYBRID_HEAD_LR = 1e-2             # examples/hybrid_dlrm.py:82
+MULTITASK_LR = 0.2                # examples/multitask.py:27
+AUC_FLOOR = 0.6
+# Card against CPU over 3 steps from one weight set: each parameter
+# group's change on the card within its own gap (`group_gaps`) of the
+# CPU's, a limit that a learning rate 1 % high, planted on the CPU side,
+# must exceed in every group, as must an update 1 % too large confined
+# to one dense group (`CONFINED_FAULT`) in that group. The gap comes
+# from discrete events, not from smooth rounding: a relu input within
+# rounding of 0 that takes the other branch on the card (`relu_flips`),
+# and under Adam (DCN) a weight moved by ±lr where rounding sets its
+# gradient's sign; so it moves with the draw. Each limit is the
+# geometric mean of the largest card reading at seeds 0-2 and the
+# smallest reading of a fault the group must catch, on the H100 (PERF.md,
+# section 6): dot tables 6.95e-4 / 1.75e-2, bottom 1.16e-4 / 1.00e-2,
+# top 4.18e-4 / 1.02e-2; DCN (26-28 flips at seeds 1-2) tables 3.89e-3 /
+# 4.71e-2, bottom 1.28e-3 / 2.24e-2, interaction 2.10e-3 / 1.14e-2, top
+# 1.63e-3 / 3.10e-2; hybrid head (from its trained state) bottom 1.28e-4
+# / 1.00e-2, top 6.01e-4 / 1.19e-2; multitask (no flips) unfused query
+# 4.12e-7 / 1.01e-2, candidate 3.93e-7 / 1.02e-2, rating 2.55e-7 /
+# 6.38e-2, fused query 8.75e-7, candidate 8.80e-7, rating 2.54e-7.
+RANKING_GROUPS = {"tables": "embedding.", "bottom": "bottom.",
+                  "interaction": "interaction.", "top": "top."}
+HYBRID_GROUPS = {"bottom": "bottom.", "top": "top."}
+MULTITASK_GROUPS = {"query": "query_tower.", "candidate": "candidate_tower.",
+                    "rating": "rating_head."}
+CONFINED_FAULT = {"dot": "bottom", "dcn": "interaction", "hybrid": "bottom"}
+RANKING_GAP = {
+    "dot": {"tables": 3.5e-3, "bottom": 1.1e-3, "top": 2.1e-3},
+    "dcn": {"tables": 1.4e-2, "bottom": 5.4e-3, "interaction": 4.9e-3,
+            "top": 7.1e-3},
+}
+HYBRID_GAP = {"bottom": 1.1e-3, "top": 2.7e-3}
+MULTITASK_GAP = {
+    False: {"query": 6.4e-5, "candidate": 6.3e-5, "rating": 1.3e-4},
+    True: {"query": 9.4e-5, "candidate": 9.5e-5, "rating": 1.3e-4},
+}
+FAULT_LR = 1.01
+RANKING_TRACED_STEPS = 5
+K1_DLRM_ROW = "sorted_block_apply[adagrad f32, DLRM]"
+K2_F32_ROWS = {name: f"fused_retrieval_{name}[f32 scores]"
+               for name in ("fwd", "dq", "dc")}
+LISTWISE_LOSSES = ("softmax_listwise", "pairwise_logistic", "lambdarank",
+                   "list_mle", "approx_ndcg")
+LISTWISE_WEIGHTS = ("ndcg_lambda_weights", "dcg_lambda_weights")
+
+
+def full_ranking(size: RankingSize) -> bool:
+    """Whether the run trains as long as the full size: the AUC floor
+    holds only there."""
+    full = RankingSize()
+    return (size.batch >= full.batch and size.batches >= full.batches
+            and size.epochs >= full.epochs)
+
+
+def unset_rows(generator, shape, dtype=torch.float32, device="cpu"):
+    """A table initializer that draws nothing, for a model whose weights
+    are loaded next."""
+    return torch.empty(shape, dtype=dtype, device=device)
+
+
+def criteo_configs(size: RankingSize, optimizer=None,
+                   initializer=None) -> tuple:
+    """26 sparse features `f00`..`f25` over tables `t00`..`t25` of
+    `multi_table.py`'s vocabs, width 16."""
+    return tuple(
+        emb_config.FeatureConfig(
+            emb_config.TableConfig(v, size.dim, name=f"t{i:02d}",
+                                   optimizer=optimizer,
+                                   initializer=initializer),
+            name=f"f{i:02d}")
+        for i, v in enumerate(stack_vocabs(size)))
+
+
+def ctr_batches(size: RankingSize, seed: int, count: int) -> list:
+    """Host (NumPy) click batches: 13 normal dense features, 26 uniform
+    sparse ids, clicks drawn from a planted logit as
+    `examples/prebuilt_dlrm.py:20-33` draws them (1.5 · dense 0, ± 0.5
+    by the parity of the smallest table's id)."""
+    rng = np.random.RandomState(seed)
+    vocabs = stack_vocabs(size)
+    out = []
+    for _ in range(count):
+        dense = rng.normal(size=(size.batch, size.dense)).astype(np.float32)
+        batch = {f"f{i:02d}": rng.randint(0, v, size.batch).astype(np.int32)
+                 for i, v in enumerate(vocabs)}
+        logit = 1.5 * dense[:, 0] + ((batch["f00"] % 2) - 0.5)
+        batch["dense_features"] = dense
+        batch["clicked"] = (rng.uniform(size=size.batch)
+                            < 1.0 / (1.0 + np.exp(-logit))).astype(
+                                np.float32)
+        out.append(batch)
+    return out
+
+
+def ranking_model(size: RankingSize, device, form: str, seed: int,
+                  initializer=None):
+    """`models.Ranking` at the reference's defaults (bottom (256, 64, 16)
+    relu, top (512, 256, 1) sigmoid, `concat_dense`): the DLRM dot
+    interaction (`skip_gather`), or `multi_layer_dcn_interaction()` over
+    the concatenated features; tables drawn by `initializer` (the
+    default's truncated normal when None)."""
+    dot = form == "dot"
+    return models.Ranking(
+        criteo_configs(size, initializer=initializer), size.dense,
+        feature_interaction=(ranking.default_interaction if dot
+                             else ranking.multi_layer_dcn_interaction()),
+        interaction_takes_list=dot, device=device,
+        generator=torch.Generator(device).manual_seed(seed))
+
+
+def ranking_optimizer(form: str, model, lr_scale: float = 1.0):
+    """`optax.adagrad(0.05)`'s counterpart for the dot model; for DCN the
+    production split (`examples/prebuilt_dlrm.py:43-49`): ClippyAdagrad
+    0.05 on the embedding tables, Adam 1e-3 on the rest, routed by
+    `embedding_param_labels`."""
+    if form == "dot":
+        return lambda params: quickstart_adagrad(params,
+                                                 RANKING_LR * lr_scale)
+    labels = ranking.embedding_param_labels(model)
+    return optimizers.composite_optimizer(
+        [(lambda p: optimizers.ClippyAdagrad(p, lr=RANKING_LR * lr_scale),
+          lambda path: labels[".".join(path)] == "embedding"),
+         (lambda p: torch.optim.Adam(p, lr=DENSE_LR * lr_scale),
+          lambda path: True)],
+        model.named_parameters())
+
+
+def check_parity(label: str, card: tuple, host: tuple, faults: dict,
+                 start: dict, groups: dict, limits: dict,
+                 flips: int) -> None:
+    """Card against CPU: losses to rtol 1e-4, and the change of each
+    parameter group within its own limit (`group_gaps`, `limits` by
+    group). `faults` maps each fault planted in a CPU run to (its final
+    parameters, the groups it must be caught in): its gap must exceed
+    the limit of each. Prints every gap by group, "all" beside them,
+    and `flips` (`relu_flips` over the steps)."""
+    (card_params, card_losses), (host_params, host_losses) = card, host
+    change = squared_gaps(host_params, start)
+    gaps = {"card": group_gaps(card_params, host_params, change, groups)}
+    for name, (params, _) in faults.items():
+        gaps[name] = group_gaps(params, host_params, change, groups)
+    delta = max(float((card_params[k] - host_params[k]).abs().max())
+                for k in host_params)
+    print(f"  parity {label}: losses {[round(x, 5) for x in card_losses]} "
+          f"vs CPU {[round(x, 5) for x in host_losses]}, largest parameter "
+          f"|delta| {delta:.3g}, relu flips {flips}; parameter gap by group "
+          "(limit): " + ", ".join(
+              f"{g} {v:.4g}" + (f" ({limits[g]:.3g})" if g in limits else "")
+              for g, v in gaps["card"].items()) + "; " + "; ".join(
+              f"{name}: " + ", ".join(f"{g} {v:.4g}" for g, v in by.items())
+              for name, by in gaps.items() if name != "card"), flush=True)
+    check(np.allclose(card_losses, host_losses, rtol=1e-4, atol=0),
+          f"{label}: losses {card_losses} vs CPU {host_losses}")
+    for group, limit in limits.items():
+        check(gaps["card"][group] <= limit,
+              f"{label} {group} parameters, card vs CPU: gap "
+              f"{gaps['card'][group]} above {limit}")
+    for name, (_, caught) in faults.items():
+        for group in caught:
+            check(gaps[name][group] > limits[group],
+                  f"the {label} {group} gap limit {limits[group]} passes a "
+                  f"planted fault ({name}: {gaps[name][group]})")
+
+
+def prebuilt_dlrm(device: torch.device, size: RankingSize, seed: int):
+    """Phase 24: `Trainer.fit` / `evaluate` of the prebuilt Ranking
+    model, dot and DCN."""
+    # 24. Each form's epochs after a warm-up, then evaluate.
+    started = time.perf_counter()
+    warm = ctr_batches(size, seed + 31, size.warmup)
+    train_set = ctr_batches(size, seed + 32, size.batches)
+    eval_set = ctr_batches(size, seed + 33, size.eval_batches)
+    for form in RANKING_FORMS:
+        model = ranking_model(size, device, form, seed)
+        fit_trainer = models.Trainer(model, ranking_optimizer(form, model))
+        state = fit_trainer.init(torch.Generator(device).manual_seed(seed),
+                                 warm[0])
+        state, _ = fit_trainer.fit(state, lambda: iter(warm), verbose=False)
+        sync(device)
+        reset_peak(device)
+        rates, aucs = [], []
+        for _ in range(size.epochs):   # held-out AUC after each epoch
+            state, history = fit_trainer.fit(
+                state, lambda: iter(train_set), verbose=False)
+            sync(device)
+            rates.append(round(history["epochs"][0]["examples_per_sec"]))
+            evaluated = fit_trainer.evaluate(state, lambda: iter(eval_set))
+            aucs.append(round(evaluated["auc"], 4))
+        peak = device_peak_mb(device)
+        fit = history["epochs"][0]
+        rows = sum(p.shape[0] for n, p in model.named_parameters()
+                   if n.startswith("embedding."))
+        print(f"  fit {form}: {size.epochs} x {size.batches} x "
+              f"{size.batch}, examples/s by epoch {rates}, held-out auc by "
+              f"epoch {aucs}, last epoch's loss {fit['loss']:.4f}, auc "
+              f"{fit['auc']:.4f}; peak device memory {peak:.1f} MB ({rows} "
+              f"table rows x {size.dim}); evaluate "
+              + ", ".join(f"{k} {v:.4f}" for k, v in sorted(
+                  evaluated.items())), flush=True)
+        check(np.isfinite(fit["loss"]) and np.isfinite(
+            evaluated["total_loss"]), f"{form}: non-finite losses")
+        traced = train_set[:RANKING_TRACED_STEPS]
+        traced_window(f"ranking_{form}", lambda: fit_trainer.fit(
+            state, lambda: iter(traced), verbose=False), len(traced), device)
+        if full_ranking(size):
+            check(evaluated["auc"] > AUC_FLOOR,
+                  f"{form}: evaluated AUC {evaluated['auc']} <= {AUC_FLOOR}")
+        del model, fit_trainer, state
+    phase("prebuilt dlrm", started,
+          f"fit {size.epochs} epochs of {size.batches} batches dot and DCN, "
+          f"evaluate {size.eval_batches}")
+
+
+def ranking_parity(device: torch.device, size: RankingSize, seed: int):
+    """Phase 25: the prebuilt Ranking model, dot and DCN, 3 steps on
+    the card against the CPU."""
+    # 25. Card against CPU from one weight set, drawn on the card and
+    # carried to the CPU model through `convert` (its own tables are
+    # never drawn: 72.6M truncated normals take seconds on the host).
+    started = time.perf_counter()
+    host_s = 0.0
+    steps = ctr_batches(size, seed + 34, size.parity_steps)
+    for form in RANKING_FORMS:
+        card = ranking_model(size, device, form, seed)
+        host = ranking_model(size, "cpu", form, seed + 1, unset_rows)
+        convert.load_flax_params(host, convert.to_flax_params(card))
+        start = cpu_params(host)
+        with relu_signs(card) as card_signs:
+            card_run = trainer_steps(card, ranking_optimizer(form, card),
+                                     steps)
+        t = time.perf_counter()
+        with relu_signs(host) as host_signs:
+            host_run = trainer_steps(host, ranking_optimizer(form, host),
+                                     steps)
+        confined = CONFINED_FAULT[form]
+        faults = {}
+        for name, lr_scale, overstep, caught in (
+                ("lr 1 % high", FAULT_LR, None, tuple(RANKING_GAP[form])),
+                (f"{confined} 1 % overstep", 1.0,
+                 (RANKING_GROUPS[confined], FAULT_LR), (confined,))):
+            with torch.no_grad():
+                for k, param in host.named_parameters():
+                    param.copy_(start[k])
+            faults[name] = (trainer_steps(
+                host, ranking_optimizer(form, host, lr_scale), steps,
+                overstep)[0], caught)
+        host_s += time.perf_counter() - t
+        check_parity(f"ranking {form}", card_run, host_run, faults, start,
+                     RANKING_GROUPS, RANKING_GAP[form],
+                     relu_flips(card_signs, host_signs))
+        del host, card, card_run, host_run, faults, start
+    phase("ranking parity", started,
+          f"{size.parity_steps} steps, card vs CPU, dot and DCN, planted "
+          f"faults rejected; the CPU's steps {host_s:.1f} s")
+
+
+class DLRMHead(nn.Module):
+    """The phase-24 DLRM stack over an engine's activations: bottom MLP
+    over the dense features, dot interaction (`skip_gather`) over the 26
+    activations and the dense embedding, `[dense, interaction]`, top MLP,
+    BCE. Returns `(loss, predictions)`."""
+
+    def __init__(self, size: RankingSize, device, seed: int):
+        super().__init__()
+        generator = torch.Generator(device).manual_seed(seed)
+        self.names = [fc.name for fc in criteo_configs(size)]
+        self.bottom = ranking.default_bottom_stack(size.dense, device,
+                                                   generator)
+        self.interaction = dot_interaction.DotInteraction(skip_gather=True)
+        features = len(self.names) + 1
+        self.top = ranking.default_top_stack(size.dim + features ** 2,
+                                             device, generator)
+        self.task = tasks.Ranking()
+
+    def forward(self, batch, acts):
+        dense = self.bottom(batch["dense_features"])
+        x = self.interaction([acts[n] for n in self.names] + [dense])
+        pred = torch.reshape(self.top(torch.cat([dense, x], dim=-1)), (-1,))
+        out = self.task(batch["clicked"], pred)
+        return out.loss, out.predictions
+
+
+def hybrid_engine(size: RankingSize, device) -> emb_engine.EmbeddingEngine:
+    """`examples/hybrid_dlrm.py:57-82`'s engine at the Criteo layout: the
+    26 tables stacked, f32, adagrad at lr 0.1."""
+    spec = emb_config.OptimizerSpec(kind="adagrad",
+                                    learning_rate=HYBRID_TABLE_LR)
+    return emb_engine.EmbeddingEngine(criteo_configs(size, spec),
+                                      stack_tables=True, device=device)
+
+
+def tap_activation_grads(sink: list):
+    """A forward pre-hook for a hybrid head: appends each training
+    step's activation grads (by feature) to `sink`, the grads the
+    trainer hands the engine."""
+    def hook(module, args):
+        grads = {}
+        acts = args[1]
+        if any(a.requires_grad for a in acts.values()):
+            sink.append(grads)
+        for name, act in acts.items():
+            if act.requires_grad:
+                act.register_hook(lambda g, n=name: grads.__setitem__(n, g))
+    return hook
+
+
+def hybrid_adam(params):
+    """`optax.adam(1e-2)` (`examples/hybrid_dlrm.py:82`)'s counterpart."""
+    return torch.optim.Adam(params, lr=HYBRID_HEAD_LR)
+
+
+def hybrid_steps(head, engine, engine_state, batches, pipelined: bool,
+                 opt_state: dict, lr_scale: float = 1.0, overstep=None):
+    """`HybridTrainer` steps (and `finalize`) from the head's weights,
+    `engine_state` and Adam's `opt_state` (a `state_dict`), with Adam's
+    lr scaled by `lr_scale` and a fault planted when `overstep` is given
+    (`faulty_step`); returns (head weights on the CPU, engine state,
+    losses)."""
+    trainer = models.HybridTrainer(head, engine, hybrid_adam,
+                                   pipelined=pipelined)
+    state = trainer.init(engine_state=engine_state, optimizer_state=opt_state)
+    for group in state.opt_state.param_groups:
+        group["lr"] = HYBRID_HEAD_LR * lr_scale
+    losses = []
+    for batch in batches:
+        state, loss, _ = faulty_step(
+            lambda: trainer.train_step(state, batch), head, overstep)
+        losses.append(float(loss))
+    state = trainer.finalize(state)
+    return cpu_params(head), state.engine_state, losses
+
+
+def hybrid(device: torch.device, size: RankingSize, seed: int) -> dict:
+    """Phase 26: `HybridTrainer` over the stacked engine, plain then
+    pipelined; card against CPU; returns the K1 DLRM report row."""
+    # 26. 30 steps plain, 30 pipelined + finalize: K1 once a step.
+    started = time.perf_counter()
+    engine = hybrid_engine(size, device)
+    head = DLRMHead(size, device, seed)
+    batches = ctr_batches(size, seed + 41, size.warmup + 2 * size.batches)
+    warm = batches[:size.warmup]
+    forms = {"plain": batches[size.warmup:size.warmup + size.batches],
+             "pipelined": batches[size.warmup + size.batches:]}
+    plain = models.HybridTrainer(head, engine, hybrid_adam)
+    state = plain.init(torch.Generator(device).manual_seed(seed), warm[0])
+    for batch in warm:
+        state, _, _ = plain.train_step(state, batch)
+    sync(device)
+    reset_peak(device)
+    launches, ms, losses = {}, {}, {}
+    for form, form_batches in forms.items():
+        # The state carries the optimizer on: `init` is not called again.
+        trainer = models.HybridTrainer(head, engine, hybrid_adam,
+                                       pipelined=form == "pipelined")
+        sync(device)
+        sparse_apply.sorted_block_apply.launches = 0
+        t = time.perf_counter()
+        got = []
+        for batch in form_batches:
+            state, loss, _ = trainer.train_step(state, batch)
+            got.append(loss)
+        state = trainer.finalize(state)
+        sync(device)
+        ms[form] = (time.perf_counter() - t) * 1e3 / len(form_batches)
+        launches[form] = sparse_apply.sorted_block_apply.launches
+        losses[form] = torch.stack(got).cpu()
+        check(bool(torch.isfinite(losses[form]).all()),
+              f"hybrid {form}: non-finite losses")
+        if device.type == "cuda":
+            check(launches[form] == len(form_batches),
+                  f"hybrid {form}: {launches[form]} K1 launches in "
+                  f"{len(form_batches)} steps, expected one a step")
+    peak = device_peak_mb(device)
+    storage = next(iter(engine._storage_rows.items()))
+    phase("hybrid dlrm", started,
+          f"{size.batches} steps plain and pipelined over {storage[1]} "
+          f"stacked rows x {size.dim} f32, K1 launches {launches}")
+    for form in forms:
+        print(f"  hybrid {form}: {ms[form]:.3f} ms/step over "
+              f"{size.batches} steps (finalize included), losses "
+              f"{losses[form][0]:.4f} -> {losses[form][-1]:.4f}", flush=True)
+    print(f"  hybrid peak device memory {peak:.1f} MB", flush=True)
+    traced = batches[size.warmup:size.warmup + RANKING_TRACED_STEPS]
+
+    def traced_steps():
+        nonlocal state
+        for batch in traced:
+            state, _, _ = plain.train_step(state, batch)
+        sync(device)
+
+    traced_window("hybrid", traced_steps, len(traced), device)
+
+    # Card against CPU from the trained state (head, Adam's moments,
+    # engine): losses, the engine through K1's twin (a CPU engine fed the
+    # card's ids and activation grads, bit for bit), each head group's
+    # change within HYBRID_GAP, planted faults beyond it. From the
+    # initial state Adam's first steps move every weight by ±lr, wherever
+    # a gradient's sign is set by rounding too, and the runs part.
+    started = time.perf_counter()
+    steps = ctr_batches(size, seed + 42, size.parity_steps)
+    host_engine = hybrid_engine(size, "cpu")
+    engine_start = clone_state(state.engine_state)
+    opt_start = copy.deepcopy(state.opt_state.state_dict())
+    start = cpu_params(head)
+    host_head = DLRMHead(size, "cpu", seed + 2)
+    confined = CONFINED_FAULT["hybrid"]
+    del plain, state
+    for pipelined in (False, True):
+        form = "pipelined" if pipelined else "plain"
+        head.load_state_dict(start)
+        taps = []
+        hook = head.register_forward_pre_hook(tap_activation_grads(taps))
+        with relu_signs(head) as card_signs:
+            card_params, card_engine, card_losses = hybrid_steps(
+                head, engine, clone_state(engine_start), steps, pipelined,
+                opt_start)
+        hook.remove()
+        host_head.load_state_dict(start)
+        with relu_signs(host_head) as host_signs:
+            host_params, _, host_losses = hybrid_steps(
+                host_head, host_engine, clone_state(engine_start, "cpu"),
+                steps, pipelined, opt_start)
+        faults = {}
+        for name, lr_scale, overstep, caught in (
+                ("lr 1 % high", FAULT_LR, None, tuple(HYBRID_GAP)),
+                (f"{confined} 1 % overstep", 1.0,
+                 (HYBRID_GROUPS[confined], FAULT_LR), (confined,))):
+            host_head.load_state_dict(start)
+            faults[name] = (hybrid_steps(
+                host_head, host_engine, clone_state(engine_start, "cpu"),
+                steps, pipelined, opt_start, lr_scale, overstep)[0], caught)
+        check_parity(f"hybrid {form}", (card_params, card_losses),
+                     (host_params, host_losses), faults, start,
+                     HYBRID_GROUPS, HYBRID_GAP,
+                     relu_flips(card_signs, host_signs))
+        twin_state = clone_state(engine_start, "cpu")
+        for batch, grads in zip(steps, taps):
+            twin_state = host_engine.update(
+                twin_state, {n: torch.from_numpy(batch[n])
+                             for n in head.names},
+                {k: g.cpu() for k, g in grads.items()})
+        got = engine.logical_state(card_engine)
+        want = host_engine.logical_state(twin_state)
+        for name in want["tables"]:
+            check(torch.equal(got["tables"][name].cpu(),
+                              want["tables"][name]),
+                  f"hybrid {form}: table {name} on {device} != K1's twin")
+            for slot, plane in want["slots"][name].items():
+                check(torch.equal(got["slots"][name][slot].cpu(), plane),
+                      f"hybrid {form}: slot {name}/{slot} != K1's twin")
+    phase("hybrid parity", started,
+          f"{size.parity_steps} steps, card vs CPU, plain and pipelined; "
+          "the engine bit-equal to K1's twin, planted faults rejected")
+    row = stacked_k1_row(
+        engine, card_engine,
+        {n: torch.from_numpy(steps[-1][n]).to(device) for n in head.names},
+        {k: g.to(device) for k, g in taps[-1].items()}, device,
+        K1_DLRM_ROW, "K1 DLRM",
+        {"hybrid DLRM, plain": launches["plain"],
+         "hybrid DLRM, pipelined": launches["pipelined"]})
+    del engine, host_engine, engine_start, card_engine, twin_state, opt_start
+    return row
+
+
+def multitask_model(size: RankingSize, device, fused: bool, seed: int):
+    """`Multitask` at bench.py's vocab: two `EmbeddingTower`s of width 64
+    and the tutorial's rating head (256, 128, 1)."""
+    gen = torch.Generator(device).manual_seed(seed)
+    return models.Multitask(
+        models.EmbeddingTower(size.users, size.tower_dim, device=device,
+                              generator=gen),
+        models.EmbeddingTower(size.items, size.tower_dim, device=device,
+                              generator=gen),
+        fused=fused, generator=gen)
+
+
+def multitask_adagrad(lr_scale: float = 1.0):
+    """`optax.adagrad(0.2)` (`examples/multitask.py:27`)'s counterpart."""
+    return lambda params: quickstart_adagrad(params,
+                                             MULTITASK_LR * lr_scale)
+
+
+def rating_batches(size: RankingSize, seed: int, count: int) -> list:
+    """`trainer_batches` (uniform user and movie ids) with ratings 1-5."""
+    rng = np.random.RandomState(seed + 1)
+    return [dict(batch, user_rating=rng.randint(1, 6, size.batch).astype(
+                np.float32))
+            for batch in trainer_batches(size, seed, count)]
+
+
+def multitask(device: torch.device, size: RankingSize, seed: int) -> dict:
+    """Phase 27: `Multitask` fit unfused and fused (K2, f32 scores), then
+    card against CPU; returns K2's launches on the fused fit."""
+    # 27. One epoch each form after a warm-up.
+    started = time.perf_counter()
+    warm = rating_batches(size, seed + 61, size.warmup)
+    train_set = rating_batches(size, seed + 62, size.batches)
+    k2 = {}
+    for fused in (False, True):
+        form = "fused" if fused else "unfused"
+        model = multitask_model(size, device, fused, seed)
+        fit_trainer = models.Trainer(model, multitask_adagrad())
+        state = fit_trainer.init(torch.Generator(device).manual_seed(seed),
+                                 warm[0])
+        state, _ = fit_trainer.fit(state, lambda: iter(warm), verbose=False)
+        sync(device)
+        reset_peak(device)
+        reset_train_counts()
+        state, history = fit_trainer.fit(state, lambda: iter(train_set),
+                                         verbose=False)
+        sync(device)
+        counts = dict(fused_retrieval.fused_retrieval_loss.launches_by_kernel)
+        fit = history["epochs"][0]
+        print(f"  multitask {form}: {size.batches} x {size.batch}, "
+              f"{fit['examples_per_sec']:.0f} examples/s, loss "
+              f"{fit['loss']:.4f}, rating_rmse {fit['rating_rmse']:.4f}, "
+              f"batch top-10 {fit['batch_top_10_categorical_accuracy']:.4f};"
+              f" peak device memory {device_peak_mb(device):.1f} MB; K2 "
+              f"launches {k2_text(counts)}", flush=True)
+        check(np.isfinite(fit["loss"]), f"multitask {form}: non-finite loss")
+        if device.type == "cuda":
+            check_k2_counts(f"multitask {form} fit", counts,
+                            size.batches if fused else 0, "f32")
+        if fused:
+            k2 = counts
+        del model, fit_trainer, state
+    phase("multitask", started, f"fit {size.batches} batches unfused and "
+          "fused")
+
+    # Card against CPU from one weight set (through `convert`).
+    started = time.perf_counter()
+    steps = rating_batches(size, seed + 63, size.parity_steps)
+    for fused in (False, True):
+        form = "fused" if fused else "unfused"
+        host = multitask_model(size, "cpu", fused, seed)
+        start = cpu_params(host)
+        card = multitask_model(size, device, fused, seed + 1)
+        convert.load_flax_params(card, convert.to_flax_params(host))
+        with relu_signs(card) as card_signs:
+            card_run = trainer_steps(card, multitask_adagrad(), steps)
+        with relu_signs(host) as host_signs:
+            host_run = trainer_steps(host, multitask_adagrad(), steps)
+        with torch.no_grad():
+            for name, param in host.named_parameters():
+                param.copy_(start[name])
+        fault, _ = trainer_steps(host, multitask_adagrad(FAULT_LR), steps)
+        check_parity(f"multitask {form}", card_run, host_run,
+                     {"lr 1 % high": (fault, tuple(MULTITASK_GAP[fused]))},
+                     start, MULTITASK_GROUPS, MULTITASK_GAP[fused],
+                     relu_flips(card_signs, host_signs))
+    phase("multitask parity", started,
+          f"{size.parity_steps} steps, card vs CPU, unfused and fused, a "
+          "planted fault rejected")
+    return {K2_F32_ROWS[name]: {"multitask, fused fit": k2.get((name, "f32"),
+                                                               0)}
+            for name in K2_F32_ROWS}
+
+
+def listwise_values(name: str, labels, scores, mask, weight):
+    """(value, score grads or None) of one listwise function."""
+    fn = getattr(listwise, name)
+    if name in LISTWISE_WEIGHTS:
+        return fn(labels, scores, mask=mask), None
+    scores = scores.detach().clone().requires_grad_(True)
+    value = fn(labels, scores, sample_weight=weight, mask=mask)
+    value.backward()
+    return value.detach(), scores.grad
+
+
+def listwise_losses(device: torch.device, size: RankingSize, seed: int):
+    """Phase 28: every listwise function on `[lists, 8]` lists, half of
+    them ragged by `mask`, card against CPU."""
+    # 28. Values and score grads to |d| <= 1e-5 |want| + 1e-6 max|want|
+    # (values) and 1e-4 |want| + 1e-5 max|want| (grads): the same f32
+    # operations, reductions and exp / log in other orders and ulps.
+    started = time.perf_counter()
+    rng = np.random.RandomState(seed + 71)
+    shape = (size.lists, size.list_size)
+    labels = rng.randint(0, 5, shape).astype(np.float32)
+    scores = rng.randn(*shape).astype(np.float32)
+    lengths = rng.randint(2, size.list_size + 1, size.lists)
+    lengths[::2] = size.list_size
+    mask = np.arange(size.list_size)[None, :] < lengths[:, None]
+    weight = (rng.rand(size.lists) + 0.5).astype(np.float32)
+    inputs = [torch.from_numpy(x) for x in (labels, scores, mask, weight)]
+    errs = {}
+    for name in LISTWISE_LOSSES + LISTWISE_WEIGHTS:
+        got = listwise_values(name, *(x.to(device) for x in inputs))
+        want = listwise_values(name, *inputs)
+        errs[name] = []
+        for g, w, rtol, scale in zip(got, want, (1e-5, 1e-4), (1e-6, 1e-5)):
+            if w is None:
+                continue
+            g = g.cpu()
+            check(bool(torch.isfinite(g).all()), f"{name}: not finite")
+            err = (g - w).abs()
+            tol = rtol * w.abs() + scale * float(w.abs().max())
+            check(bool((err <= tol).all()),
+                  f"{name}: max |err| {float(err.max())} card vs CPU")
+            errs[name].append(float(err.max()))
+    phase("listwise", started, f"{len(errs)} functions on "
+          f"{size.lists} x {size.list_size} lists, card vs CPU")
+    print("  listwise max |err| (value, grads): " + ", ".join(
+        f"{k} {'/'.join(f'{e:.3g}' for e in v)}" for k, v in errs.items()))
+
+
+def ranking_slice(device: torch.device, size: RankingSize,
+                  seed: int) -> tuple:
+    """Phases 24-28; returns (the K1 DLRM report row, launches by path
+    of the K2 f32 rows)."""
+    prebuilt_dlrm(device, size, seed)
+    ranking_parity(device, size, seed)
+    row = hybrid(device, size, seed)
+    k2 = multitask(device, size, seed)
+    listwise_losses(device, size, seed)
+    return row, k2
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -2605,13 +3422,15 @@ def main() -> int:
     report += train(device, TrainSize(), args.seed)
     stacked = stacked_engine(device, StackSize(), args.seed)
     paths = {}
-    for counts in (trainer(device, TrainerSize(), args.seed),
-                   corpus_eval(device, CorpusSize(), args.seed)):
+    counts_by_phase = [trainer(device, TrainerSize(), args.seed),
+                       corpus_eval(device, CorpusSize(), args.seed)]
+    k1_dlrm, k2_f32 = ranking_slice(device, RankingSize(), args.seed)
+    for counts in counts_by_phase + [k2_f32]:
         for row, by_path in counts.items():
             paths.setdefault(row, {}).update(by_path)
     for row in report:
         row["path_launches"] = paths.get(row["name"], {})
-    report += stacked
+    report += stacked + [k1_dlrm]
     print(f"total {time.perf_counter() - started:.1f} s")
     print(json.dumps({"kernels": report}))
     print(json.dumps({"ok": True, "device": {

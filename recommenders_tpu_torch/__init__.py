@@ -27,7 +27,12 @@ Ported so far:
     `SequenceTower`s), streaming `metrics`, and corpus-level
     `metrics.FactorizedTopK` over `BruteForce`, `Streaming` or
     `Bucketed`; `EmbeddingEngine(stack_tables=True)`; `utils.profiling`
-    on `torch.profiler`.
+    on `torch.profiler`;
+  - ranking: `models.Ranking` (DLRM / DCN-v2 over `PartialEmbedding`
+    tables), `tasks.Ranking` and `tasks.listwise`, `models.Multitask`
+    (retrieval + rating, `fused=True` through K2), `models.HybridTrainer`
+    (a dense head under a torch optimizer over an `EmbeddingEngine`'s
+    tables, K1), and `optimizers` (Clippy Adagrad, composite).
 """
 
 __version__ = "0.1.0"
@@ -37,8 +42,9 @@ from recommenders_tpu_torch import layers
 from recommenders_tpu_torch import metrics
 from recommenders_tpu_torch import models
 from recommenders_tpu_torch import ops
+from recommenders_tpu_torch import optimizers
 from recommenders_tpu_torch import tasks
 from recommenders_tpu_torch import utils
 
-__all__ = ["embedding", "layers", "metrics", "models", "ops", "tasks",
-           "utils"]
+__all__ = ["embedding", "layers", "metrics", "models", "ops", "optimizers",
+           "tasks", "utils"]

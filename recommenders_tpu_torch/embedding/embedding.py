@@ -10,16 +10,24 @@ Port of `recommenders_tpu/embedding/embedding.py:44-118`: `_pad_vocab`,
     padding positions zeroed.
 
 Negative ids gather row 0; only `PAD_ID` positions are zeroed, as in the
-JAX package. The autodiff `TpuEmbedding` module is not ported yet.
+JAX package.
+
+`TpuEmbedding` (`recommenders_tpu/embedding/embedding.py:121-203`) holds
+its tables as `nn.Parameter`s, one per `TableConfig.name`, rows padded
+to a multiple of 128, and looks features up through `lookup_feature`.
+Its gradients are dense (the autograd of the gather), as under optax;
+the sparse path is `engine.EmbeddingEngine`.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple, Union
+from typing import Dict, Mapping, Optional, Sequence, Tuple, Union
 
 import torch
+from torch import nn
 
 from recommenders_tpu_torch.embedding import config as config_lib
+from recommenders_tpu_torch.utils import device as device_lib
 
 Tensor = torch.Tensor
 FeatureInput = Union[Tensor, Tuple[Tensor, Tensor]]  # ids or (ids, weights)
@@ -98,3 +106,90 @@ def lookup_feature(
     if feature_config.max_sequence_length > 0:
         return gathered
     return combine(gathered, ids, feature_config.table.combiner, weights)
+
+
+class TpuEmbedding(nn.Module):
+    """An embedding collection as an `nn.Module`.
+
+    Tables are parameters named after their `TableConfig.name` (so a
+    table `user` is the parameter `user`), `[_pad_vocab(vocab), dim]`.
+    Several features may share one table; two different configs under
+    one name raise.
+
+    ```python
+    user_table = TableConfig(10_000, 64, name="user")
+    movie_table = TableConfig(50_000, 64, name="movie")
+    emb = TpuEmbedding((
+        FeatureConfig(user_table, name="user_id"),
+        FeatureConfig(movie_table, name="movie_id"),
+        FeatureConfig(movie_table, name="watch_history",
+                      max_sequence_length=10),
+    ))
+    activations = emb({"user_id": ids_b, "movie_id": ids_b,
+                       "watch_history": ids_bl})
+    ```
+
+    Args:
+      feature_configs: The feature declarations.
+      shard_tables: Whether the tables are meant to be row-sharded (the
+        meshed layout comes with the distribution slice). On one device
+        every table is whole either way.
+      dtype: Table dtype.
+      device: Where the tables live (default CUDA).
+      generator: Optional `torch.Generator` for the initial tables, drawn
+        in table order by each table's initializer.
+    """
+
+    def __init__(
+        self,
+        feature_configs: Sequence[config_lib.FeatureConfig],
+        shard_tables: bool = True,
+        dtype: torch.dtype = torch.float32,
+        device: device_lib.DeviceLike = "cuda",
+        generator: Optional[torch.Generator] = None,
+    ) -> None:
+        super().__init__()
+        device = device_lib.resolve(device)
+        self.feature_configs = tuple(feature_configs)
+        self.shard_tables = shard_tables
+        self._configs = {fc.name: fc for fc in self.feature_configs}
+        for name, tc in self._tables().items():
+            if not name.isidentifier():
+                raise ValueError(
+                    f"Table name {name!r} is not a valid parameter name.")
+            init = tc.initializer or config_lib.default_initializer(tc.dim)
+            table = init(generator, (_pad_vocab(tc.vocabulary_size), tc.dim),
+                         dtype, device)
+            self.register_parameter(name, nn.Parameter(table))
+
+    def _tables(self) -> Dict[str, config_lib.TableConfig]:
+        tables: Dict[str, config_lib.TableConfig] = {}
+        for fc in self.feature_configs:
+            existing = tables.get(fc.table.name)
+            if existing is not None and existing != fc.table:
+                raise ValueError(
+                    f"Two different TableConfigs share the name "
+                    f"{fc.table.name!r}."
+                )
+            tables[fc.table.name] = fc.table
+        return tables
+
+    def forward(
+        self, features: Mapping[str, FeatureInput]
+    ) -> Dict[str, Tensor]:
+        unknown = set(features) - set(self._configs)
+        if unknown:
+            raise ValueError(
+                f"Features {sorted(unknown)} have no FeatureConfig. "
+                f"Known: {sorted(self._configs)}."
+            )
+        return {
+            fname: lookup_feature(
+                getattr(self, self._configs[fname].table.name),
+                self._configs[fname], feature)
+            for fname, feature in features.items()
+        }
+
+    def table_dict(self) -> Dict[str, Tensor]:
+        """The table parameters by table name."""
+        return {name: getattr(self, name) for name in self._tables()}

@@ -49,7 +49,8 @@ class EmbeddingTower(nn.Module):
     Args:
       vocab_size: Id vocabulary.
       embedding_dim: Embedding width.
-      mlp_units: Optional dense stack on top (output width = last entry).
+      mlp_units: Optional dense stack on top (output width = last entry,
+        `out_features`).
       device: Where the weights live (default CUDA).
       generator: Optional `torch.Generator` for the initial weights.
     """
@@ -69,6 +70,7 @@ class EmbeddingTower(nn.Module):
             blocks.MLP(embedding_dim, tuple(mlp_units), device=device)
             if mlp_units else None
         )
+        self.out_features = mlp_units[-1] if mlp_units else embedding_dim
         self.reset_parameters(generator)
 
     def reset_parameters(
@@ -100,7 +102,8 @@ class SequenceTower(nn.Module):
         an MLP head is configured).
       encoder: `"gru"` or `"attention"`.
       encoder_units: Encoder output width (defaults to `embedding_dim`).
-      mlp_units: Optional dense stack on top.
+      mlp_units: Optional dense stack on top (its last entry, else
+        `encoder_units`, is `out_features`).
       device: Where the weights live (default CUDA).
       generator: Optional `torch.Generator` for the initial weights.
     """
@@ -135,6 +138,7 @@ class SequenceTower(nn.Module):
         if mlp_units:
             self.mlp = blocks.MLP(units, tuple(mlp_units), device=device)
             self.mlp.reset_parameters(generator)
+        self.out_features = mlp_units[-1] if mlp_units else units
 
     def forward(self, ids: Tensor) -> Tensor:
         mask = ids != PAD_ID

@@ -18,8 +18,9 @@ tiles do not divide). With bf16 scores the operands are rounded to bf16
 once, in the forward, and the kernels take their products on the tensor
 cores, each split over `_parts` pieces of its loop dimension whose
 partial results a second small kernel folds in a fixed order. `launches`
-counts wrapper launches of a kernel (and `launches_by_kernel` splits
-them into fwd, dq and dc).
+counts wrapper launches of a kernel, and `launches_by_kernel` splits
+them by kernel and score dtype: keys `("fwd" | "dq" | "dc", "bf16" |
+"f32")`.
 """
 
 from __future__ import annotations
@@ -131,7 +132,15 @@ def fused_retrieval_loss(
 
 
 fused_retrieval_loss.launches = 0
-fused_retrieval_loss.launches_by_kernel = {"fwd": 0, "dq": 0, "dc": 0}
+fused_retrieval_loss.launches_by_kernel = {
+    (name, scores): 0 for name in ("fwd", "dq", "dc")
+    for scores in ("bf16", "f32")}
+
+
+def _count(name: str, bf16: bool) -> None:
+    fused_retrieval_loss.launches += 1
+    fused_retrieval_loss.launches_by_kernel[
+        name, "bf16" if bf16 else "f32"] += 1
 
 
 @functools.lru_cache(maxsize=None)
@@ -208,8 +217,7 @@ def forward_kernel(q, c, logq, ids, config):
                   divisor, bf, parts, cuda_build.ptr(scratch),
                   lse.data_ptr(), pos.data_ptr(), stream)
     cuda_build.raise_on(err, "fused_retrieval fwd", error_string)
-    fused_retrieval_loss.launches += 1
-    fused_retrieval_loss.launches_by_kernel["fwd"] += 1
+    _count("fwd", bf16)
     return lse, pos
 
 
@@ -236,8 +244,7 @@ def backward_kernel(name, q, c, logq, ids, w, lse, config):
                   divisor, bf, lse.data_ptr(), cuda_build.ptr(w), inv_temp,
                   parts, cuda_build.ptr(scratch), out.data_ptr(), stream)
     cuda_build.raise_on(err, f"fused_retrieval {name}", error_string)
-    fused_retrieval_loss.launches += 1
-    fused_retrieval_loss.launches_by_kernel[name] += 1
+    _count(name, bf16)
     return out
 
 

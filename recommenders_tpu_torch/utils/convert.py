@@ -1,14 +1,26 @@
 """Weights and state carried between the JAX package and the port.
 
-`load_flax_params` takes the flax `params` of a `TwoTowerRetrieval`, or
-of one tower (`EmbeddingTower`, `SequenceTower`), as a nested dict of
-NumPy arrays (e.g. `jax.tree.map(np.asarray, params)`) and copies them
-into the port's module; `to_flax_params` is the inverse. The names map
-as (kernels `[in, out]` transposed to `nn.Linear`'s `[out, in]`):
+`load_flax_params` takes the flax `params` of a `TwoTowerRetrieval`, a
+`Ranking` or a `Multitask` (or of one of their parts: a tower, an `MLP`,
+an interaction, a `TpuEmbedding` / `PartialEmbedding`) as a nested dict
+of NumPy arrays (e.g. `jax.tree.map(np.asarray, params)`, with
+`nn.meta.unbox` applied to a sharded embedding's `Partitioned` boxes)
+and copies them into the port's module; `to_flax_params` is the
+inverse. The names map as (kernels `[in, out]` transposed to
+`nn.Linear`'s `[out, in]`):
 
     _query / _candidate            ↔ query_tower / candidate_tower
+    _rating (Multitask)            ↔ rating_head
+    embedding/{sharded_embedding,dense_embedding}/<table> (Ranking)
+                                   ↔ embedding.<partition>.<table>
+                                     (padded rows)
+    _bottom / _top (Ranking)       ↔ bottom / top
+    _interaction/{dense | dense_u, dense_v}      (Cross)
+                / {dense_u_i, dense_v_i}         (MultiLayerDCN)
+                                   ↔ interaction.{dense | dense_u,
+                                     dense_v | dense_u.i, dense_v.i}
+    (MLP_0/)Dense_i/{kernel,bias}  ↔ (mlp.)layers.i.{weight,bias}
     Embed_0/embedding              ↔ embedding.weight
-    MLP_0/Dense_i/{kernel,bias}    ↔ mlp.layers.i.{weight,bias}
     GRUEncoder_0/Scan_Step_0/GRUCell_0/
       i{r,z,n}/{kernel,bias}       ↔ encoder.cell.{weight,bias}_ih rows
                                      of gate r, z, n (torch's order)
@@ -94,11 +106,51 @@ class _Leaf:
     to_flax: Callable[[np.ndarray], np.ndarray] = _same
 
 
-def _linear(path: Path, name: str) -> Iterator[_Leaf]:
+def _linear(path: Path, name: str, bias: bool = True) -> Iterator[_Leaf]:
     """A flax `Dense` ↔ an `nn.Linear`."""
     yield _Leaf(path + ("kernel",), f"{name}.weight", None, _transpose,
                 _transpose)
-    yield _Leaf(path + ("bias",), f"{name}.bias")
+    if bias:
+        yield _Leaf(path + ("bias",), f"{name}.bias")
+
+
+def _prefix(name: str) -> str:
+    return f"{name}." if name else ""
+
+
+def _mlp(mlp, path: Path, name: str) -> Iterator[_Leaf]:
+    """`blocks.MLP` ↔ flax `MLP` (`Dense_i` under `path`)."""
+    for i, layer in enumerate(mlp.layers):
+        yield from _linear(path + (f"Dense_{i}",), f"{_prefix(name)}layers.{i}",
+                           layer.bias is not None)
+
+
+def _interaction(module, path: Path, name: str) -> Iterator[_Leaf]:
+    """`Cross` (`dense`, or `dense_u` / `dense_v`), `MultiLayerDCN`
+    (`dense_u_i` / `dense_v_i` ↔ `dense_u.i` / `dense_v.i`) or
+    `DotInteraction` (no leaves)."""
+    from recommenders_tpu_torch.layers.feature_interaction import dcn
+    from recommenders_tpu_torch.layers.feature_interaction import (
+        dot_interaction,
+    )
+
+    pre = _prefix(name)
+    if isinstance(module, dcn.Cross):
+        if module.projection_dim is None:
+            yield from _linear(path + ("dense",), f"{pre}dense",
+                               module.dense.bias is not None)
+        else:
+            yield from _linear(path + ("dense_u",), f"{pre}dense_u", False)
+            yield from _linear(path + ("dense_v",), f"{pre}dense_v",
+                               module.dense_v.bias is not None)
+    elif isinstance(module, dcn.MultiLayerDCN):
+        for i, (u, v) in enumerate(zip(module.dense_u, module.dense_v)):
+            yield from _linear(path + (f"dense_u_{i}",), f"{pre}dense_u.{i}",
+                               False)
+            yield from _linear(path + (f"dense_v_{i}",), f"{pre}dense_v.{i}",
+                               v.bias is not None)
+    elif not isinstance(module, dot_interaction.DotInteraction):
+        raise TypeError(f"no flax layout for {type(module).__name__}")
 
 
 def _gru(path: Path, name: str, units: int) -> Iterator[_Leaf]:
@@ -134,8 +186,14 @@ def _attention(path: Path, name: str, heads: int,
 def _leaves(model: nn.Module, path: Path = (),
             name: str = "") -> Iterator[_Leaf]:
     """Every parameter of `model` as flax leaves, for the port's
-    retrieval models and towers."""
+    retrieval, ranking and multitask models, their towers, MLPs,
+    interactions and embedding collections."""
+    from recommenders_tpu_torch.embedding import embedding as embedding_lib
+    from recommenders_tpu_torch.embedding import partial
+    from recommenders_tpu_torch.layers import blocks
     from recommenders_tpu_torch.layers import sequential
+    from recommenders_tpu_torch.models import multitask
+    from recommenders_tpu_torch.models import ranking
     from recommenders_tpu_torch.models import retrieval
 
     if isinstance(model, retrieval.TwoTowerRetrieval):
@@ -143,9 +201,36 @@ def _leaves(model: nn.Module, path: Path = (),
         yield from _leaves(model.candidate_tower, ("_candidate",),
                            "candidate_tower.")
         return
+    if isinstance(model, multitask.Multitask):
+        yield from _leaves(model.query_tower, ("_query",), "query_tower.")
+        yield from _leaves(model.candidate_tower, ("_candidate",),
+                           "candidate_tower.")
+        yield from _leaves(model.rating_head, ("_rating",), "rating_head")
+        return
+    if isinstance(model, ranking.Ranking):
+        yield from _leaves(model.embedding, ("embedding",), "embedding")
+        yield from _leaves(model.bottom, ("_bottom",), "bottom")
+        yield from _leaves(model.interaction, ("_interaction",),
+                           "interaction")
+        yield from _leaves(model.top, ("_top",), "top")
+        return
+    if isinstance(model, partial.PartialEmbedding):
+        for part in ("sharded_embedding", "dense_embedding"):
+            if hasattr(model, part):
+                yield from _leaves(getattr(model, part), path + (part,),
+                                   f"{_prefix(name)}{part}")
+        return
+    if isinstance(model, embedding_lib.TpuEmbedding):
+        for table in model.table_dict():
+            yield _Leaf(path + (table,), f"{_prefix(name)}{table}")
+        return
+    if isinstance(model, blocks.MLP):
+        yield from _mlp(model, path, name)
+        return
     if not isinstance(model, (retrieval.EmbeddingTower,
                               retrieval.SequenceTower)):
-        raise TypeError(f"no flax layout for {type(model).__name__}")
+        yield from _interaction(model, path, name)
+        return
     yield _Leaf(path + ("Embed_0", "embedding"), f"{name}embedding.weight")
     encoder = getattr(model, "encoder", None)
     if isinstance(encoder, sequential.GRUEncoder):
@@ -164,9 +249,7 @@ def _leaves(model: nn.Module, path: Path = (),
         for i in range(3 if encoder.dense_2 is not None else 2):
             yield from _linear(enc + (f"Dense_{i}",), f"{ename}.dense_{i}")
     if model.mlp is not None:
-        for i in range(len(model.mlp.layers)):
-            yield from _linear(path + ("MLP_0", f"Dense_{i}"),
-                               f"{name}mlp.layers.{i}")
+        yield from _mlp(model.mlp, path + ("MLP_0",), f"{name}mlp")
 
 
 def _flatten(tree: Mapping, prefix: Path = ()) -> Dict[Path, np.ndarray]:
@@ -182,8 +265,8 @@ def _flatten(tree: Mapping, prefix: Path = ()) -> Dict[Path, np.ndarray]:
 
 @torch.no_grad()
 def load_flax_params(model: nn.Module, params: Mapping) -> nn.Module:
-    """Copies flax params of a `TwoTowerRetrieval` (or of one tower)
-    into the port's module."""
+    """Copies flax params of a model (or of one of its parts, see the
+    module docstring) into the port's module."""
     state = dict(model.named_parameters())
     leaves = list(_leaves(model))
     flat = _flatten(params)

@@ -97,6 +97,9 @@ def test_scann_phases_pass_on_cpu_at_a_tiny_size(capsys):
 
 TRAIN_KERNELS = {
     "sorted_block_apply[adagrad bf16+SR]": "def _kernel(",
+    "fused_retrieval_fwd[f32 scores]": "def _fwd_kernel(",
+    "fused_retrieval_dq[f32 scores]": "def _dq_kernel(",
+    "fused_retrieval_dc[f32 scores]": "def _dc_kernel(",
     "fused_retrieval_fwd[bf16 scores]": "def _fwd_kernel(",
     "fused_retrieval_dq[bf16 scores]": "def _dq_kernel(",
     "fused_retrieval_dc[bf16 scores]": "def _dc_kernel(",
@@ -122,15 +125,17 @@ def test_training_phases_pass_on_cpu_at_a_tiny_size(capsys):
     assert report[0]["library_ms"] is None
     assert report[0]["floor_ms"] > 0
     assert all(r["library_ms"] > 0 for r in report[1:])
-    # K2's bound is the largest of its products at the bf16 peak, its
-    # exps at the SFU rate and its bytes; each term is printed on the
-    # kernel's own line, and the row carries the largest as `bound_ms`.
+    # K2's bound is the largest of its products at its operands' peak
+    # (bf16 or f32 scores), its exps at the SFU rate and its bytes; each
+    # term is printed on the kernel's own line, and the row carries the
+    # largest as `bound_ms`.
     out = capsys.readouterr().out
     for row in report[1:]:
         name = row["name"].split("_")[-1].split("[")[0]
+        label = row["name"].split("[")[1].split()[0]
         line = re.search(
-            rf"K2 {name}: kernel .* bound (\S+) ms \((\w+); products (\S+), "
-            rf"exp (\S+), bytes (\S+)\)", out)
+            rf"K2 {label} {name}: kernel .* bound (\S+) ms \((\w+); products "
+            rf"(\S+), exp (\S+), bytes (\S+)\)", out)
         assert line is not None
         terms = dict(zip(("products", "exp", "bytes"),
                          map(float, line.groups()[2:])))
@@ -147,6 +152,11 @@ def test_training_phases_pass_on_cpu_at_a_tiny_size(capsys):
     assert dq["products"] == dc["products"] == pytest.approx(
         2 * fwd["products"])
     assert dq["exp"] == dc["exp"] == fwd["exp"]
+    f32_fwd = chip_smoke.k2_bound_terms("fwd", q, c, 132, 1.98e9)
+    bf16_fwd = chip_smoke.k2_bound_terms("fwd", q.bfloat16(), c.bfloat16(),
+                                         132, 1.98e9)
+    assert f32_fwd["products"] == pytest.approx(
+        bf16_fwd["products"] * 989 / 67)
     assert fwd["exp"] == pytest.approx(4096 * 4096 / (16 * 132 * 1.98e9)
                                        * 1e3)
     for name in ("train", "parity", "train kernels", "train timing"):
@@ -332,6 +342,74 @@ def test_trainer_slice_phases_pass_on_cpu_at_a_tiny_size(capsys):
     for name in ("BruteForce", "Streaming.index",
                  "Streaming.index_from_dataset", "Bucketed f32"):
         assert re.search(rf"  {re.escape(name)}: \S+ queries/s", out)
+
+
+def test_ranking_slice_phases_pass_on_cpu_at_a_tiny_size(capsys):
+    """Phases 24-28 at a tiny size: the prebuilt Ranking fit / evaluate
+    and its card-vs-CPU parity (dot and DCN), the hybrid DLRM plain and
+    pipelined with the engine held to K1's twin, `Multitask` unfused and
+    fused, and the listwise functions. Off the card no kernel launches,
+    so every path's count is 0; the AUC floor holds only at the full
+    size."""
+    size = chip_smoke.RankingSize(tables=4, min_rows=200, max_rows=3000,
+                                  batch=128, batches=3, epochs=1,
+                                  eval_batches=2, parity_steps=2, users=256,
+                                  items=512, lists=64)
+    assert not chip_smoke.full_ranking(size)
+    assert chip_smoke.full_ranking(chip_smoke.RankingSize())
+    row, k2 = chip_smoke.ranking_slice(torch.device("cpu"), size, 0)
+    assert REPORT_KEYS <= set(row)
+    assert row["name"] == chip_smoke.K1_DLRM_ROW
+    assert row["max_abs_err"] == 0
+    assert row["bound_by"] == "bytes" and row["bound_ms"] > 0
+    assert "D=16 n=512 " in row["shape"] and "4 tables stacked" in row["shape"]
+    assert row["path_launches"] == {"hybrid DLRM, plain": 0,
+                                    "hybrid DLRM, pipelined": 0}
+    path, line = row["replaces"].split(":")
+    assert (ROOT / path).read_text().splitlines()[
+        int(line) - 1].startswith("def _kernel")
+    assert k2 == {name: {"multitask, fused fit": 0}
+                  for name in chip_smoke.K2_F32_ROWS.values()}
+    out = capsys.readouterr().out
+    for name in ("prebuilt dlrm", "ranking parity", "hybrid dlrm",
+                 "hybrid parity", "multitask", "multitask parity",
+                 "listwise"):
+        assert f"phase {name}: ok" in out
+    for form in ("dot", "dcn"):
+        assert re.search(rf"fit {form}: 1 x 3 x 128, examples/s by epoch "
+                         rf"\[\d+\], held-out auc by epoch \[\S+\], .* "
+                         rf"peak device memory .* evaluate accuracy \S+, "
+                         rf"auc \S+", out)
+        confined = chip_smoke.CONFINED_FAULT[form]
+        groups = "tables 0 \\(\\S+\\), bottom 0 \\(\\S+\\), " + (
+            "interaction 0 \\(\\S+\\), " if form == "dcn" else "")
+        assert re.search(rf"parity ranking {form}: .* relu flips 0; "
+                         rf"parameter gap by group \(limit\): {groups}"
+                         rf"top 0 \(\S+\), all 0; lr 1 % high: tables \S+, "
+                         rf".*; {confined} 1 % overstep: .*{confined} "
+                         rf"0\.\d*[1-9]", out)
+    for form in ("plain", "pipelined"):
+        assert re.search(rf"hybrid {form}: \S+ ms/step", out)
+        assert re.search(rf"parity hybrid {form}: .* relu flips 0; "
+                         rf"parameter gap by group \(limit\): bottom 0 "
+                         rf"\(\S+\), top 0 \(\S+\), all 0; lr 1 % high: "
+                         rf".*; bottom 1 % overstep: bottom 0\.\d*[1-9]",
+                         out)
+    assert "K1 DLRM: bit-equal to its twin" in out
+    for name in ("ranking_dot", "ranking_dcn", "hybrid"):
+        assert re.search(rf"{name} traced window \S+ ms .* device busy "
+                         rf"\S+ ms = \S+, idle \S+", out)
+    for form in ("unfused", "fused"):
+        assert re.search(rf"multitask {form}: .* examples/s, .* "
+                         rf"rating_rmse \S+", out)
+        assert re.search(rf"parity multitask {form}: .* relu flips 0; "
+                         rf"parameter gap by group \(limit\): query 0 "
+                         rf"\(\S+\), candidate 0 \(\S+\), rating 0 "
+                         rf"\(\S+\), all 0; lr 1 % high: ", out)
+    for name in chip_smoke.LISTWISE_LOSSES:
+        assert f"{name} 0/0" in out
+    for name in chip_smoke.LISTWISE_WEIGHTS:
+        assert f"{name} 0" in out
 
 
 def test_device_share_takes_the_union_of_kernel_intervals(tmp_path):

@@ -248,6 +248,8 @@ def _k1_case(kind, dtype, v, d, n, device, run=0):
     (500, 33, 200, 0),       # odd D: one column a lane, not pairs
     (4096, 64, 3500, 3000),  # one run of 3000 ids, past the window and tiles
     (131072, 64, 4093, 0),   # the step's shape, n not a multiple of 8
+    (4096, 16, 1024, 0),     # D = 16: column pairs on 8 of 32 lanes
+    (1000000, 16, 106496, 0),  # the hybrid DLRM step's width and ids
 ])
 def test_sparse_apply_kernel_matches_twin(device, kind, dtype, seed, v, d,
                                           n, run):
@@ -350,7 +352,9 @@ def test_fused_retrieval_kernels_match_twin(device, score_dtype, b, c, d,
     again = run(fused_retrieval.fused_retrieval_loss)
     torch.cuda.synchronize()
     after = fused_retrieval.fused_retrieval_loss.launches_by_kernel
-    assert all(after[k] == before[k] + 2 for k in before)
+    scores = "f32" if score_dtype is None else "bf16"
+    assert all(after[k] == before[k] + (2 if k[1] == scores else 0)
+               for k in before)
     # Parts fold in a fixed order, without atomics: bit-identical runs.
     assert all(torch.equal(x, y) for x, y in zip((loss, dq, dc), again))
     tloss, tdq, tdc = run(fused_retrieval.fused_retrieval_loss_reference)

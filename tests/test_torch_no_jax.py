@@ -45,7 +45,13 @@ def test_every_package_file_is_checked():
         "tasks/base.py", "tasks/retrieval.py", "ops/leaf_scoring.py",
         "layers/approximate.py", "layers/sequential.py", "metrics/base.py",
         "metrics/factorized_top_k.py", "models/base.py", "types.py",
-        "utils/profiling.py",
+        "utils/profiling.py", "tasks/ranking.py", "tasks/listwise.py",
+        "layers/feature_interaction/__init__.py",
+        "layers/feature_interaction/dcn.py",
+        "layers/feature_interaction/dot_interaction.py",
+        "embedding/partial.py", "models/ranking.py", "models/multitask.py",
+        "models/hybrid.py", "optimizers/__init__.py",
+        "optimizers/clippy_adagrad.py", "optimizers/composite.py",
     ):
         assert f"recommenders_tpu_torch/{module}" in names
     assert "chip_smoke.py" in names
