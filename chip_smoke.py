@@ -84,9 +84,10 @@ fatal when it fails:
      their plain twins at the step's shapes, K2's two launches bit for
      bit, and time them (K1 also on one run of 32 ids, its launch floor;
      K2 at both score types, a report row each); K2's bound is the
-     largest of its products at its operands' peak (bf16 tensor cores or
-     f32 CUDA cores), its exps at the SFU's rate (the SM clock from
-     `nvidia-smi`) and its bytes, each printed;
+     largest of its products on the bf16 tensor cores (six passes for f32
+     scores, which the kernels take in split precision; the f32 CUDA-core
+     figure is printed beside it), its exps at the SFU's rate (the SM
+     clock from `nvidia-smi`) and its bytes, each printed;
  12. time the four step forms (plain and pipelined, unfused and fused).
 
 The trainer slice: the stacked engine, `Trainer.fit` and corpus-level
@@ -176,8 +177,10 @@ each fatal when it fails:
      `examples/multitask.py:27`), `fit` for 30 batches unfused and then
      `fused=True` (K2 with f32 scores: 30 launches of each kernel fused,
      none unfused, none with bf16 scores, as the wrapper counts them by
-     kernel and score dtype), then 3 steps card against CPU as in phase
-     25, with the learning-rate fault;
+     kernel and score dtype), 5 steps of each form under
+     `utils.profiling.trace` (the device's busy and idle shares, as in
+     phase 22), then 3 steps card against CPU as in phase 25, with the
+     learning-rate fault;
  28. listwise: the seven functions of `tasks/listwise.py` on 4,096 lists
      of 8 (`examples/listwise_ranking.py:59`), half of them ragged by
      `mask`: values and score grads, card against CPU.
@@ -276,6 +279,8 @@ PEAK_OPS_PER_S = {"f32": 67e12, "bf16": 989e12, "int8": 989e12,
 # bf16 tensor-core passes K3 takes a product in: f32 rows split both
 # operands into three bf16 terms and take six of the nine term products.
 K3_PASSES = {"f32": 6, "bf16": 1, "int8": 1, "int4": 1}
+# The same for each of K2's products: f32 scores split as K3's f32 rows.
+K2_PASSES = {torch.float32: 6, torch.bfloat16: 1}
 # The SFU's exponentials a clock an SM (Hopper: 16), and the H100 SXM's
 # SMs and maximum SM clock, which stand in off the card (the card's own
 # are read from it).
@@ -1097,12 +1102,13 @@ def value_and_grads(fn, q, cand, kwargs):
 
 
 def k2_bound_terms(name: str, q, c, sms: int, clock_hz: float) -> dict:
-    """The three least times (ms) of one K2 kernel: its products at the
-    peak of its operands' type (bf16 scores: the tensor cores; f32: the
-    CUDA cores; fwd one [B, C, D] product, dq and dc two, the recomputed
-    scores and the coefficient product), its B·C exps at the SFU's rate,
-    and its bytes at the HBM rate (the operands, the [C] log-q and ids,
-    the [B] lse and weights it reads, and its f32 outputs, each once)."""
+    """The three least times (ms) of one K2 kernel: its products on the
+    bf16 tensor cores (fwd one [B, C, D] product, dq and dc two, the
+    recomputed scores and the coefficient product; f32 scores take each
+    in `K2_PASSES` split-precision passes), its B·C exps at the SFU's
+    rate, and its bytes at the HBM rate (the operands, the [C] log-q and
+    ids, the [B] lse and weights it reads, and its f32 outputs, each
+    once)."""
     b, d = q.shape
     cn = c.shape[0]
     products = (1 if name == "fwd" else 2) * 2.0 * b * cn * d
@@ -1110,8 +1116,8 @@ def k2_bound_terms(name: str, q, c, sms: int, clock_hz: float) -> dict:
                                             "dc": b * 8}[name]
     writes = {"fwd": b * 8, "dq": b * d * 4, "dc": cn * d * 4}[name]
     return {
-        "products": products / PEAK_OPS_PER_S[
-            "f32" if q.dtype == torch.float32 else "bf16"] * 1e3,
+        "products": K2_PASSES[q.dtype] * products / PEAK_OPS_PER_S["bf16"]
+        * 1e3,
         "exp": b * cn / (SFU_EXP_PER_CLOCK * sms * clock_hz) * 1e3,
         "bytes": (reads + writes) / HBM_BYTES_PER_S * 1e3,
     }
@@ -1121,7 +1127,7 @@ def check_k2(size: TrainSize, device, launches: dict, seed: int) -> list:
     """K2 (forward, dq, dc) against its twin with temperature, log-q,
     accidental hits and weights, f32 and bf16 scores, at B = C = batch;
     a report row each: bf16 scores are the main path's, f32 scores
-    (the CUDA-core kernels) the multitask path's."""
+    (split precision) the multitask path's."""
     q, cand, kw = k2_inputs(size, device, seed)
     b, d = q.shape
     rows = []
@@ -1206,6 +1212,11 @@ def check_k2(size: TrainSize, device, launches: dict, seed: int) -> list:
         for name in ("fwd", "dq", "dc"):
             terms = k2_bound_terms(name, qb, cb, sms, clock_hz)
             bound_term = max(terms, key=terms.get)
+            cuda_core = ""
+            if not bf16:   # The products' bound on the f32 CUDA cores.
+                f32_ms = (terms["products"] / K2_PASSES[qb.dtype]
+                          * PEAK_OPS_PER_S["bf16"] / PEAK_OPS_PER_S["f32"])
+                cuda_core = f"; f32 CUDA-core bound {f32_ms:.4g} ms"
             ms = graph_ms(kernels[name], device)
             rows.append({
                 "name": f"fused_retrieval_{name}[{label} scores]",
@@ -1230,7 +1241,7 @@ def check_k2(size: TrainSize, device, launches: dict, seed: int) -> list:
                   f"{rows[-1]['library_ms']:.3f} ms; bound "
                   f"{terms[bound_term]:.4g} ms ({bound_term}; products "
                   f"{terms['products']:.4g}, exp {terms['exp']:.4g}, bytes "
-                  f"{terms['bytes']:.4g})", flush=True)
+                  f"{terms['bytes']:.4g})" + cuda_core, flush=True)
     return rows
 
 
@@ -3307,9 +3318,12 @@ def multitask(device: torch.device, size: RankingSize, seed: int) -> dict:
                             size.batches if fused else 0, "f32")
         if fused:
             k2 = counts
+        traced = train_set[:RANKING_TRACED_STEPS]
+        traced_window(f"multitask_{form}", lambda: fit_trainer.fit(
+            state, lambda: iter(traced), verbose=False), len(traced), device)
         del model, fit_trainer, state
     phase("multitask", started, f"fit {size.batches} batches unfused and "
-          "fused")
+          "fused, each traced")
 
     # Card against CPU from one weight set (through `convert`).
     started = time.perf_counter()

@@ -14,9 +14,12 @@ PyTorch twin `fused_retrieval_loss_reference` (differentiable through
 autograd); for CUDA tensors it launches the kernels or raises. The
 kernels mask ragged tile edges, so every B, C ≥ B and D ≤ 256 runs on
 the kernels (the JAX package falls back to its reference for shapes its
-tiles do not divide). With bf16 scores the operands are rounded to bf16
-once, in the forward, and the kernels take their products on the tensor
-cores, each split over `_parts` pieces of its loop dimension whose
+tiles do not divide). The kernels take their products on the bf16 tensor
+cores: with bf16 scores the operands are rounded to bf16 once, in the
+forward; with f32 scores every product runs in split precision, each f32
+operand as three bf16 terms and six of their nine term products
+(`split_model` models that arithmetic in float64, with its error bound).
+Each kernel is split over `_parts` pieces of its loop dimension whose
 partial results a second small kernel folds in a fixed order. `launches`
 counts wrapper launches of a kernel, and `launches_by_kernel` splits
 them by kernel and score dtype: keys `("fwd" | "dq" | "dc", "bf16" |
@@ -27,7 +30,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -39,12 +42,15 @@ Tensor = torch.Tensor
 
 MIN_FLOAT = loss_layers.MIN_FLOAT
 
-# Widths the kernels take (the f32 path: each thread owns D/16
-# accumulator columns; the bf16 path: D padded to 16, at most 32 n-blocks
-# of 8 a warp), and the rows of each kernel tile.
+# Widths the kernels take (D padded to 16, at most 32 n-blocks of 8 a
+# warp), and the rows of each kernel's owned tile.
 _MAX_DIM = 256
 _TILE = 64
 _BLOCKS_PER_SM = 2
+# Blocks an SM the f32 kernels' parts are sized for: None asks the runtime
+# how many of the launching kernel an SM holds (three at D = 64), a number
+# overrides it (`tools/kernel_ab.py k2-parts --f32`).
+_F32_BLOCKS_PER_SM: Optional[float] = None
 
 
 def _check(q: Tensor, c: Tensor, remove_accidental_hits: bool,
@@ -155,9 +161,12 @@ def _kernel_fns():
     bwd.argtypes = [i, ptr, ptr, i, i, i, ptr, ptr, i, f, i, ptr, ptr, f, i,
                     ptr, ptr, ptr]
     bwd.restype = i
+    occupancy = lib.fused_retrieval_f32_blocks_per_sm
+    occupancy.argtypes = [i, i]
+    occupancy.restype = i
     lib.fused_retrieval_error_string.argtypes = [i]
     lib.fused_retrieval_error_string.restype = ctypes.c_char_p
-    return fwd, bwd, lib.fused_retrieval_error_string
+    return fwd, bwd, lib.fused_retrieval_error_string, occupancy
 
 
 def _score_args(inv_temp: float, bf16: bool):
@@ -168,15 +177,45 @@ def _score_args(inv_temp: float, bf16: bool):
     return int(has_div), (1.0 / inv_temp) if has_div else 1.0, int(bf16)
 
 
-def _parts(own_rows: int, loop_rows: int, sms: int) -> int:
+def _parts(own_rows: int, loop_rows: int, sms: int,
+           blocks_per_sm: Optional[float] = None) -> int:
     """Pieces the tensor-core kernels split their loop dimension into: a
-    block of 4 warps owns 64 rows of the output, and the grid should hold
-    `_BLOCKS_PER_SM` blocks an SM (at `bench.py`'s shape 4 were slower
-    than 2: more parts to write and fold; `tools/kernel_ab.py k2-parts`),
-    without a piece of less than one 64-row tile."""
+    block of 4 warps owns 64 rows of the output, and no piece is less
+    than one 64-row tile. bf16 scores (`blocks_per_sm` None): the grid
+    should hold `_BLOCKS_PER_SM` blocks an SM, rounded up (at `bench.py`'s
+    shape 4 were slower than 2: more parts to write and fold;
+    `tools/kernel_ab.py k2-parts`). f32 scores: as many as one wave of
+    `blocks_per_sm` blocks an SM holds, rounded down: a second, partial
+    wave of these longer blocks costs a whole block's time (`k2-parts
+    --f32`)."""
     blocks = -(-own_rows // _TILE)
-    want = -(-_BLOCKS_PER_SM * sms // blocks)
+    if blocks_per_sm is None:
+        want = -(-_BLOCKS_PER_SM * sms // blocks)
+    else:
+        want = int(blocks_per_sm * sms // blocks)
     return max(1, min(-(-loop_rows // _TILE), want))
+
+
+@functools.lru_cache(maxsize=None)
+def _f32_blocks_per_sm(name: str, d: int, device: torch.device) -> int:
+    """Blocks an SM holds of the f32 kernel `name` launches at width d."""
+    _, _, error_string, occupancy = _kernel_fns()
+    with torch.cuda.device(device):
+        blocks = occupancy({"fwd": 0, "dq": 1, "dc": 2}[name], d)
+    cuda_build.raise_on(max(-blocks, 0), f"fused_retrieval {name}",
+                        error_string)
+    if blocks == 0:
+        raise RuntimeError(f"fused_retrieval {name}: no f32 block fits an "
+                           f"SM at D = {d}")
+    return blocks
+
+
+def _f32_parts(name: str, own_rows: int, loop_rows: int, d: int,
+               device: torch.device) -> int:
+    per_sm = _F32_BLOCKS_PER_SM
+    if per_sm is None:
+        per_sm = _f32_blocks_per_sm(name, d, device)
+    return _parts(own_rows, loop_rows, cuda_build.sm_count(device), per_sm)
 
 
 def _check_operands(q, c, tensors, bf16):
@@ -205,17 +244,18 @@ def forward_kernel(q, c, logq, ids, config):
     cn = c.shape[0]
     lse = torch.empty(b, dtype=torch.float32, device=q.device)
     pos = torch.empty(b, dtype=torch.float32, device=q.device)
-    parts = _parts(b, cn, cuda_build.sm_count(q.device)) if bf16 else 1
-    scratch = (torch.empty(3 * parts * b, dtype=torch.float32,
-                           device=q.device) if bf16 else None)
-    fwd, _, error_string = _kernel_fns()
+    parts = (_parts(b, cn, cuda_build.sm_count(q.device)) if bf16
+             else _f32_parts("fwd", b, cn, d, q.device))
+    scratch = torch.empty(3 * parts * b, dtype=torch.float32,
+                          device=q.device)
+    fwd, _, error_string, _ = _kernel_fns()
     has_div, divisor, bf = _score_args(inv_temp, bf16)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fwd(q.data_ptr(), c.data_ptr(), b, cn, d,
                   cuda_build.ptr(logq), cuda_build.ptr(ids), has_div,
-                  divisor, bf, parts, cuda_build.ptr(scratch),
-                  lse.data_ptr(), pos.data_ptr(), stream)
+                  divisor, bf, parts, scratch.data_ptr(), lse.data_ptr(),
+                  pos.data_ptr(), stream)
     cuda_build.raise_on(err, "fused_retrieval fwd", error_string)
     _count("fwd", bf16)
     return lse, pos
@@ -231,18 +271,19 @@ def backward_kernel(name, q, c, logq, ids, w, lse, config):
     b, d = q.shape
     cn = c.shape[0]
     own, loop = (b, cn) if name == "dq" else (cn, b)
-    _, bwd, error_string = _kernel_fns()
+    _, bwd, error_string, _ = _kernel_fns()
     has_div, divisor, bf = _score_args(inv_temp, bf16)
     out = torch.empty((own, d), dtype=torch.float32, device=q.device)
-    parts = _parts(own, loop, cuda_build.sm_count(q.device)) if bf16 else 1
-    scratch = (torch.empty(parts * own * d, dtype=torch.float32,
-                           device=q.device) if bf16 else None)
+    parts = (_parts(own, loop, cuda_build.sm_count(q.device)) if bf16
+             else _f32_parts(name, own, loop, d, q.device))
+    scratch = torch.empty(parts * own * d, dtype=torch.float32,
+                          device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = bwd({"dq": 0, "dc": 1}[name], q.data_ptr(), c.data_ptr(), b,
                   cn, d, cuda_build.ptr(logq), cuda_build.ptr(ids), has_div,
                   divisor, bf, lse.data_ptr(), cuda_build.ptr(w), inv_temp,
-                  parts, cuda_build.ptr(scratch), out.data_ptr(), stream)
+                  parts, scratch.data_ptr(), out.data_ptr(), stream)
     cuda_build.raise_on(err, f"fused_retrieval {name}", error_string)
     _count(name, bf16)
     return out
@@ -313,3 +354,105 @@ def fused_retrieval_loss_reference(
             sample_weight, per_example.shape
         )
     return torch.sum(per_example)
+
+
+# The f32 coefficient's rounding (2⁻²⁴ relative, 2⁻¹⁵⁰ below f32's normal
+# range) before the kernels split it.
+_F32_UNIT = 2.0**-24
+_F32_SUBNORMAL_HALF_ULP = 2.0**-150
+
+
+class SplitModel(NamedTuple):
+    """`split_model`'s float64 loss, dq and dc, and bounds on their
+    distance from the exact ones."""
+
+    loss: Tensor
+    dq: Tensor
+    dc: Tensor
+    loss_bound: Tensor
+    dq_bound: Tensor
+    dc_bound: Tensor
+
+
+def split_model(
+    query_embeddings: Tensor,
+    candidate_embeddings: Tensor,
+    sample_weight: Optional[Tensor] = None,
+    candidate_sampling_probability: Optional[Tensor] = None,
+    candidate_ids: Optional[Tensor] = None,
+    *,
+    temperature: Optional[float] = None,
+    remove_accidental_hits: bool = False,
+) -> SplitModel:
+    """The f32-score kernels' arithmetic in float64, for small shapes.
+
+    The loss and its gradients as `csrc/fused_retrieval.cu` forms them with
+    f32 scores, less the f32 rounding it shares with the plain twin: the
+    scores are the sum of the six exact bf16 term products of q and c
+    (`scoring.split_scores`), corrected in `_score_tile`'s order; the
+    coefficients `P − y` (times `w` for dc) are rounded to f32, as the
+    kernels hold them, and multiply c (dq) or q (dc) through the same six
+    term products. The rest is exact in float64.
+
+    Bounds against the same function with exact products, from the
+    split's dropped terms (`scoring.split_error_bound`, `δ` on a score):
+    log P̃_ij lies within the log-softmax of the scores with every other
+    score of the row moved by `δ_ik + δ_ij` against it (down, then up),
+    which bounds |P̃ − P| and each loss term −log P_ii without a
+    Lipschitz constant (scores may be large); dq and dc add |P̃ − P|·|x|,
+    the coefficient's f32 rounding and the coefficient product's own
+    dropped terms. Builds `[B, C, C]` float64 intervals: small shapes only.
+    """
+    q, c = query_embeddings, candidate_embeddings
+    _check(q, c, remove_accidental_hits, candidate_ids)
+    q = q.to(torch.float32)
+    c = c.to(torch.float32)
+    b, cn = q.shape[0], c.shape[0]
+    inv_temp = 1.0 / temperature if temperature is not None else 1.0
+    # The kernels divide by the f32 `1/inv_temp` (`_score_args`).
+    divisor = float(torch.tensor(1.0 / inv_temp, dtype=torch.float32))
+    s = scoring.split_scores(q, c)
+    delta = scoring.split_error_bound(q, c)
+    if temperature is not None:
+        s = s / divisor
+        delta = delta / divisor
+    if candidate_sampling_probability is not None:
+        logq = torch.log(torch.clamp(candidate_sampling_probability.to(
+            torch.float32), 1e-6, 1.0))
+        s = s - logq.double()[None, :]
+    y = torch.eye(b, cn, dtype=torch.float64)
+    if remove_accidental_hits:
+        dup = candidate_ids[:b, None] == candidate_ids[None, :]
+        s = s + (dup.double() - y) * MIN_FLOAT
+    w = (torch.ones(b, dtype=torch.float64) if sample_weight is None
+         else sample_weight.reshape(b).double())
+
+    log_p = torch.log_softmax(s, dim=1)
+    diag = torch.arange(b)
+    loss = -(w * log_p[diag, diag]).sum()
+    # log P̃_ij = −LSE_k(s_ik − s_ij), k = j contributing exactly 0.
+    diff = s[:, None, :] - s[:, :, None]
+    move = (delta[:, None, :] + delta[:, :, None]) * (
+        1 - torch.eye(cn, dtype=torch.float64))
+    lo = -torch.logsumexp(diff + move, dim=2)
+    hi = -torch.logsumexp(diff - move, dim=2)
+    p = log_p.exp()
+    p_bound = torch.maximum(hi.exp() - p, p - lo.exp()).clamp_min(0)
+    loss_bound = (w.abs() * torch.maximum(
+        log_p[diag, diag] - lo[diag, diag],
+        hi[diag, diag] - log_p[diag, diag]).clamp_min(0)).sum()
+
+    coef = p - y
+    coef_q = coef.float()
+    coef_c = (coef * w[:, None]).float()
+    dq = inv_temp * scoring.split_scores(coef_q, c.T) * w[:, None]
+    dc = inv_temp * scoring.split_scores(coef_c.T, q.T)
+    rounding = lambda x: _F32_UNIT * x.abs() + _F32_SUBNORMAL_HALF_ULP
+    dq_bound = inv_temp * w.abs()[:, None] * (
+        (p_bound + rounding(coef)) @ c.double().abs()
+        + scoring.split_error_bound(coef_q, c.T))
+    dc_bound = inv_temp * (
+        ((p_bound * w.abs()[:, None]) + rounding(coef * w[:, None])).T
+        @ q.double().abs()
+        + scoring.split_error_bound(coef_c.T, q.T))
+    return SplitModel(loss, dq, dc, loss_bound, dq_bound, dc_bound)

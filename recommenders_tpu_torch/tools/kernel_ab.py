@@ -3,7 +3,8 @@
 settings in turn, so that both readings share the card and its clock.
 
     python3 recommenders_tpu_torch/tools/kernel_ab.py k2-parts \
-        [--blocks-per-sm 2 4 4 2]
+        [--f32] [--blocks-per-sm 2 4 4 2]
+    python3 recommenders_tpu_torch/tools/kernel_ab.py k2-f32 [--root DIR]
     python3 recommenders_tpu_torch/tools/kernel_ab.py k3-f32 [--root DIR]
     python3 recommenders_tpu_torch/tools/kernel_ab.py k1 [--root DIR]
     python3 recommenders_tpu_torch/tools/kernel_ab.py leaf [--root DIR]
@@ -14,7 +15,13 @@ settings in turn, so that both readings share the card and its clock.
 shape (B = C = 4096, D = 64, bf16 scores, with temperature, log-q,
 accidental hits and weights, as `chip_smoke.py` draws them), by CUDA-graph
 replay, with `fused_retrieval._BLOCKS_PER_SM` set to each value of
-`--blocks-per-sm` in turn.
+`--blocks-per-sm` in turn, and restored after; with `--f32`, f32 scores
+and `_F32_BLOCKS_PER_SM` (a fraction may be given: the f32 rule rounds
+the parts down).
+
+`k2-f32`: K2's fwd, dq and dc with f32 scores (the multitask path's
+bodies) at the same shape and knobs, each by CUDA-graph replay (20 calls
+captured, 5 replays), 3 times.
 
 `k3-f32`: the f32 body of K3 (`csrc/bucketed_scores.cu`) at the serving
 smoke's shape (1024 queries, 1,000,000 rows padded to 1,001,472, D = 128,
@@ -43,10 +50,11 @@ CUDA-graph replay, with `leaf_scoring._K5_BLOCKS_PER_SM` (the blocks an
 SM its probe-walk split aims for) set to each value of `--blocks-per-sm`
 in turn, and restored after.
 
-`k3-f32`, `k1` and `leaf` import the port's package from the checkout `--root`
-(this one by default) and set up and time it with this checkout's
-`chip_smoke.py`, so that two checkouts are compared by the same code,
-running the mode once for each, in turn: parent, change, change, parent.
+`k2-f32`, `k3-f32`, `k1` and `leaf` import the port's package from the
+checkout `--root` (this one by default) and set up and time it with this
+checkout's `chip_smoke.py`, so that two checkouts are compared by the
+same code, running the mode once for each, in turn: parent, change,
+change, parent.
 
 Each prints the card's name and power limit, a line a reading, and last a
 JSON object of the readings. Without CUDA it exits non-zero.
@@ -67,39 +75,69 @@ SEED = 0
 READS = 3
 
 
-def k2_parts(cs, values) -> dict:
+def k2_calls(cs, device: torch.device, bf16: bool) -> dict:
+    """K2's fwd, dq and dc calls at `bench.py`'s shape, on the operands
+    `chip_smoke.check_k2` times them on (bf16 or f32 scores)."""
     from recommenders_tpu_torch.ops import fused_retrieval
 
-    size = cs.TrainSize()
-    device = torch.device("cuda")
-    q, cand, kw = cs.k2_inputs(size, device, SEED)
-    qb = q.to(torch.bfloat16).contiguous()
-    cb = cand.to(torch.bfloat16).contiguous()
+    q, cand, kw = cs.k2_inputs(cs.TrainSize(), device, SEED)
+    dtype = torch.bfloat16 if bf16 else torch.float32
+    q_op = q.to(dtype).contiguous()
+    c_op = cand.to(dtype).contiguous()
     logq = torch.log(torch.clamp(kw["candidate_sampling_probability"],
                                  1e-6, 1.0)).float().contiguous()
     ids = kw["candidate_ids"].to(torch.int32).contiguous()
     w = kw["sample_weight"].float().contiguous()
-    config = (1.0 / cs.K2_TEMPERATURE, True)
+    config = (1.0 / cs.K2_TEMPERATURE, bf16)
+    lse, _ = fused_retrieval.forward_kernel(q_op, c_op, logq, ids, config)
+    return {
+        "fwd": lambda: fused_retrieval.forward_kernel(
+            q_op, c_op, logq, ids, config),
+        "dq": lambda: fused_retrieval.backward_kernel(
+            "dq", q_op, c_op, logq, ids, w, lse, config),
+        "dc": lambda: fused_retrieval.backward_kernel(
+            "dc", q_op, c_op, logq, ids, w, lse, config),
+    }
+
+
+def k2_parts(cs, values, bf16: bool = True) -> dict:
+    from recommenders_tpu_torch.ops import fused_retrieval
+
+    size = cs.TrainSize()
+    device = torch.device("cuda")
+    kernels = k2_calls(cs, device, bf16)
     sms = cs.cuda_build.sm_count(device)
+    knob = "_BLOCKS_PER_SM" if bf16 else "_F32_BLOCKS_PER_SM"
+    default = getattr(fused_retrieval, knob)
+    label = "bf16" if bf16 else "f32"
     readings = []
-    for value in values:
-        fused_retrieval._BLOCKS_PER_SM = value
-        lse, _ = fused_retrieval.forward_kernel(qb, cb, logq, ids, config)
-        kernels = {
-            "fwd": lambda: fused_retrieval.forward_kernel(
-                qb, cb, logq, ids, config),
-            "dq": lambda: fused_retrieval.backward_kernel(
-                "dq", qb, cb, logq, ids, w, lse, config),
-            "dc": lambda: fused_retrieval.backward_kernel(
-                "dc", qb, cb, logq, ids, w, lse, config),
-        }
-        ms = {name: cs.graph_ms(fn, device) for name, fn in kernels.items()}
-        parts = fused_retrieval._parts(size.batch, size.batch, sms)
-        readings.append({"blocks_per_sm": value, "parts": parts, "ms": ms})
-        print(f"  K2 blocks/SM {value} ({parts} parts): fwd {ms['fwd']:.4f}"
-              f" dq {ms['dq']:.4f} dc {ms['dc']:.4f} ms (graph replay)",
-              flush=True)
-    return {"k2_parts": readings}
+    try:
+        for value in values:
+            setattr(fused_retrieval, knob, int(value) if bf16 else value)
+            ms = {name: cs.graph_ms(fn, device)
+                  for name, fn in kernels.items()}
+            parts = (fused_retrieval._parts(size.batch, size.batch, sms)
+                     if bf16 else fused_retrieval._f32_parts(
+                         "fwd", size.batch, size.batch, size.dim, device))
+            readings.append({"blocks_per_sm": value, "parts": parts,
+                             "ms": ms})
+            print(f"  K2 {label} blocks/SM {value} ({parts} parts): fwd "
+                  f"{ms['fwd']:.4f} dq {ms['dq']:.4f} dc {ms['dc']:.4f} ms "
+                  "(graph replay)", flush=True)
+    finally:
+        setattr(fused_retrieval, knob, default)
+    return {"k2_parts": readings, "scores": label}
+
+
+def k2_f32(cs) -> dict:
+    device = torch.device("cuda")
+    readings = {}
+    for name, fn in k2_calls(cs, device, bf16=False).items():
+        readings[name] = [cs.graph_ms(fn, device) for _ in range(READS)]
+        print(f"  K2 f32 {name}: "
+              + " / ".join(f"{t:.4f}" for t in readings[name])
+              + " ms (graph replay)", flush=True)
+    return {"k2_f32_ms": readings}
 
 
 def k3_f32(cs) -> dict:
@@ -208,10 +246,12 @@ def load(root: Path):
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("what",
-                        choices=("k2-parts", "k3-f32", "k1", "leaf",
-                                 "k5-splits"))
+                        choices=("k2-parts", "k2-f32", "k3-f32", "k1",
+                                 "leaf", "k5-splits"))
     parser.add_argument("--root", type=Path, default=ROOT)
-    parser.add_argument("--blocks-per-sm", type=int, nargs="+")
+    parser.add_argument("--blocks-per-sm", type=float, nargs="+")
+    parser.add_argument("--f32", action="store_true",
+                        help="k2-parts: f32 scores")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("kernel_ab: no CUDA device", file=sys.stderr)
@@ -223,7 +263,10 @@ def main() -> int:
     cs.cuda_build.build()
     device = torch.device("cuda")
     if args.what == "k2-parts":
-        result = k2_parts(cs, args.blocks_per_sm or [2, 4, 4, 2])
+        result = k2_parts(cs, args.blocks_per_sm or [2, 4, 4, 2],
+                          bf16=not args.f32)
+    elif args.what == "k2-f32":
+        result = k2_f32(cs)
     elif args.what == "k3-f32":
         result = k3_f32(cs)
     elif args.what == "k1":
@@ -231,8 +274,8 @@ def main() -> int:
     elif args.what == "leaf":
         result = leaf(cs, device)
     else:
-        result = k5_splits(cs, device, args.blocks_per_sm or [3, 6, 12, 24,
-                                                              48])
+        result = k5_splits(cs, device, [int(v) for v in args.blocks_per_sm
+                                        or [3, 6, 12, 24, 48]])
     print(json.dumps(dict(result, root=str(args.root))))
     return 0
 

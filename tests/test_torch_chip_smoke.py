@@ -125,8 +125,9 @@ def test_training_phases_pass_on_cpu_at_a_tiny_size(capsys):
     assert report[0]["library_ms"] is None
     assert report[0]["floor_ms"] > 0
     assert all(r["library_ms"] > 0 for r in report[1:])
-    # K2's bound is the largest of its products at its operands' peak
-    # (bf16 or f32 scores), its exps at the SFU rate and its bytes; each
+    # K2's bound is the largest of its products on the bf16 tensor cores
+    # (six split-precision passes for f32 scores), its exps at the SFU
+    # rate and its bytes; each
     # term is printed on the kernel's own line, and the row carries the
     # largest as `bound_ms`.
     out = capsys.readouterr().out
@@ -145,6 +146,11 @@ def test_training_phases_pass_on_cpu_at_a_tiny_size(capsys):
         assert row["bound_ms"] == pytest.approx(terms[line[2]], rel=1e-3)
         assert row["bound_by"] == ("bytes" if line[2] == "bytes"
                                    else "operations")
+        if label == "f32":   # The replaced CUDA-core design's bound beside.
+            cuda_core = re.search(rf"K2 f32 {name}: kernel .*\); f32 "
+                                  rf"CUDA-core bound (\S+) ms", out)
+            assert float(cuda_core[1]) == pytest.approx(
+                terms["products"] / 6 * 989 / 67, rel=1e-3)
     q, c = torch.zeros(4096, 64), torch.zeros(4096, 64)
     fwd, dq, dc = (chip_smoke.k2_bound_terms(n, q, c, 132, 1.98e9)
                    for n in ("fwd", "dq", "dc"))
@@ -156,7 +162,8 @@ def test_training_phases_pass_on_cpu_at_a_tiny_size(capsys):
     bf16_fwd = chip_smoke.k2_bound_terms("fwd", q.bfloat16(), c.bfloat16(),
                                          132, 1.98e9)
     assert f32_fwd["products"] == pytest.approx(
-        bf16_fwd["products"] * 989 / 67)
+        bf16_fwd["products"] * chip_smoke.K2_PASSES[torch.float32])
+    assert chip_smoke.K2_PASSES[torch.float32] == chip_smoke.K3_PASSES["f32"]
     assert fwd["exp"] == pytest.approx(4096 * 4096 / (16 * 132 * 1.98e9)
                                        * 1e3)
     for name in ("train", "parity", "train kernels", "train timing"):
@@ -190,8 +197,8 @@ def test_main_fails_without_cuda_and_prints_no_result():
     assert "CUDA is not available" in proc.stderr
 
 
-@pytest.mark.parametrize("what", ["k2-parts", "k3-f32", "k1", "leaf",
-                                  "k5-splits"])
+@pytest.mark.parametrize("what", ["k2-parts", "k2-f32", "k3-f32", "k1",
+                                  "leaf", "k5-splits"])
 def test_kernel_ab_fails_without_cuda(what):
     if torch.cuda.is_available():
         pytest.skip("CUDA is present; this checks the CPU-only refusal")
@@ -396,7 +403,8 @@ def test_ranking_slice_phases_pass_on_cpu_at_a_tiny_size(capsys):
                          rf".*; bottom 1 % overstep: bottom 0\.\d*[1-9]",
                          out)
     assert "K1 DLRM: bit-equal to its twin" in out
-    for name in ("ranking_dot", "ranking_dcn", "hybrid"):
+    for name in ("ranking_dot", "ranking_dcn", "hybrid",
+                 "multitask_unfused", "multitask_fused"):
         assert re.search(rf"{name} traced window \S+ ms .* device busy "
                          rf"\S+ ms = \S+, idle \S+", out)
     for form in ("unfused", "fused"):

@@ -59,6 +59,24 @@ def test_fused_retrieval_parts_fill_the_card(own, loop, parts):
     assert blocks * parts >= 2 * 132 or parts == -(-loop // 64)
 
 
+@pytest.mark.parametrize("own,loop,per_sm,parts", [
+    (4096, 4096, 3, 6),  # the multitask step at D = 64: 384 blocks
+    (129, 4099, 3, 65),  # 3 row tiles; the loop's 65 tiles cap the parts
+    (4099, 129, 2, 3),   # dc of that shape: 65 row tiles, 3 loop tiles
+    (4096, 4096, 1, 2),  # one block an SM (D = 256)
+    (64, 64, 3, 1),      # one loop tile: no split
+    (40000, 4096, 3, 1),  # more row tiles than one wave holds
+])
+def test_fused_retrieval_f32_parts_fill_one_wave(own, loop, per_sm, parts):
+    """The f32 kernels' parts: as many as one wave of the blocks an SM
+    holds, never more (a partial second wave costs a whole block)."""
+    assert fused_retrieval._parts(own, loop, 132, per_sm) == parts
+    blocks = -(-own // 64)
+    assert blocks * parts <= per_sm * 132 or parts == 1
+    assert (parts == -(-loop // 64)
+            or blocks * (parts + 1) > per_sm * 132)
+
+
 @pytest.mark.parametrize("qn,n,d,buckets,plan", [
     (1024, 1 << 20, 128, 4096, (128, 1)),    # bf16 / int8: 512 blocks
     (1024, 1 << 20, 128, 2048, (128, 2)),    # int4: 256 blocks, split in 2

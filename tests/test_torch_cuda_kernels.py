@@ -368,6 +368,104 @@ def test_fused_retrieval_kernels_match_twin(device, score_dtype, b, c, d,
         assert ((got - want).abs() <= tol).all()
 
 
+def _k2_adversarial(kind, shape, g, device):
+    """f32 values of `tests/test_torch_k2_split.py`'s kinds at the scale a
+    softmax takes (|x| ≤ 1): `residues`, `ones`, `spread` (exponents
+    2⁻⁴⁰ … 2⁻¹) and `subnormal` (half the values below 2⁻¹¹⁰), every
+    split term busy."""
+    exps = lambda lo, hi: torch.exp2(torch.randint(
+        lo, hi + 1, shape, device=device, generator=g).double())
+    sign = torch.randint(0, 2, shape, device=device, generator=g) * 2.0 - 1
+    mantissa = 1 + torch.rand(shape, device=device, generator=g,
+                              dtype=torch.float64)
+    if kind == "residues":
+        h = 1 + torch.randint(0, 32, shape, device=device,
+                              generator=g).double() * 2.0**-7
+        x = (h + (2.0**-8 - 2.0**-16) + (2.0**-17 - 2.0**-23)) * exps(-5, -1)
+    elif kind == "ones":
+        x = sign * (2 - 2.0**-23) * exps(-5, -1)
+    elif kind == "spread":
+        x = sign * mantissa * exps(-40, -1)
+    else:
+        tiny = torch.rand(shape, device=device, generator=g) < 0.5
+        x = sign * mantissa * torch.where(tiny, exps(-149, -111),
+                                          exps(-5, -1))
+    return x.float()
+
+
+@pytest.mark.parametrize("kind", ["ones", "residues", "spread", "subnormal"])
+@pytest.mark.parametrize("b,c,d", [(256, 1024, 64), (129, 4099, 72)])
+def test_fused_retrieval_f32_kernels_on_adversarial_values(device, kind, b,
+                                                           c, d):
+    """The split-precision f32 bodies on values that keep all three bf16
+    terms of every operand busy, every knob: the twin's f32 tolerance,
+    f32 launches only, and two launches bit-identical."""
+    from recommenders_tpu_torch.ops import fused_retrieval
+
+    g = torch.Generator(device=device).manual_seed(7)
+    q = _k2_adversarial(kind, (b, d), g, device)
+    cand = _k2_adversarial(kind, (c, d), g, device)
+    kw = dict(
+        temperature=0.2, remove_accidental_hits=True,
+        candidate_ids=torch.randint(0, 64, (c,), device=device, generator=g),
+        candidate_sampling_probability=torch.rand(
+            c, device=device, generator=g) + 0.01,
+        sample_weight=torch.rand(b, device=device, generator=g) + 0.5,
+    )
+
+    def run(fn):
+        qq = q.clone().requires_grad_(True)
+        cc = cand.clone().requires_grad_(True)
+        loss = fn(qq, cc, **kw)
+        loss.backward()
+        return loss.detach(), qq.grad, cc.grad
+
+    before = dict(fused_retrieval.fused_retrieval_loss.launches_by_kernel)
+    got = run(fused_retrieval.fused_retrieval_loss)
+    again = run(fused_retrieval.fused_retrieval_loss)
+    torch.cuda.synchronize()
+    after = fused_retrieval.fused_retrieval_loss.launches_by_kernel
+    assert all(after[k] == before[k] + (2 if k[1] == "f32" else 0)
+               for k in before)
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+    want = run(fused_retrieval.fused_retrieval_loss_reference)
+    assert all(bool(torch.isfinite(t).all()) for t in got)
+    assert abs(float(got[0] - want[0])) <= 1e-5 * abs(float(want[0]))
+    for x, t in zip(got[1:], want[1:]):
+        tol = 1e-5 * t.abs() + 1e-4 * float(t.abs().max())
+        assert ((x - t).abs() <= tol).all()
+
+
+@pytest.mark.parametrize("d,offset", [(37, 0), (64, 1)])
+def test_fused_retrieval_f32_kernels_take_unaligned_rows(device, d, offset):
+    """f32 rows that are not 16-byte aligned (D % 4 != 0, or operands
+    that start 4 bytes past an aligned address) are staged with 4-byte
+    copies: the twin's f32 tolerance, as aligned rows."""
+    from recommenders_tpu_torch.ops import fused_retrieval
+
+    g = torch.Generator(device=device).manual_seed(3)
+    b, c = 70, 200
+    data = [torch.randn(n * d + offset, device=device, generator=g)
+            * d ** -0.25 for n in (b, c)]
+    kw = dict(temperature=0.3, sample_weight=torch.rand(
+        b, device=device, generator=g) + 0.5)
+
+    def run(fn):
+        bases = [x.clone().requires_grad_(True) for x in data]
+        q, cand = (x[offset:].view(n, d) for x, n in zip(bases, (b, c)))
+        loss = fn(q, cand, **kw)
+        loss.backward()
+        return loss.detach(), bases[0].grad, bases[1].grad
+
+    got = run(fused_retrieval.fused_retrieval_loss)
+    assert all(x[offset:].data_ptr() % 16 != 0 for x in data) or d % 4
+    want = run(fused_retrieval.fused_retrieval_loss_reference)
+    assert abs(float(got[0] - want[0])) <= 1e-5 * abs(float(want[0]))
+    for x, t in zip(got[1:], want[1:]):
+        tol = 1e-5 * t.abs() + 1e-4 * float(t.abs().max())
+        assert ((x - t).abs() <= tol).all()
+
+
 # --- K4 and K5: probed leaf scoring ------------------------------------------
 #
 # Kernel and twin take the same products in f32 in another order (the query
