@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Runs the PyTorch port's retrieval serving, ScaNN serving, training,
-trainer and ranking slices on one NVIDIA GPU and checks them.
+trainer, ranking and data slices on one NVIDIA GPU and checks them.
 
     python3 chip_smoke.py [--seed 0] [--requests 3]
 
@@ -185,10 +185,45 @@ each fatal when it fails:
      of 8 (`examples/listwise_ranking.py:59`), half of them ragged by
      `mask`: values and score grads, card against CPU.
 
+The data slice (the README's user journey, `examples/full_pipeline.py:
+24-77`, and the quality-parity acceptance):
+ 29. pipeline at MovieLens-1M's published size (6,040 users, 3,706
+     movies, 1,000,209 ratings): `synthetic_movielens` written as an
+     ML-1M `ratings.dat` and read back equal by `load_movielens`; string
+     ids → `build_vocabulary` / `encode`; a 0.8 split; one epoch of
+     `NativeBatcher` (B = 4,096, shuffled, 4 threads; `native/loader.cc`
+     built with g++, the phase fails if it does not build) →
+     `TwoTowerRetrieval(fused=True)` at width 64 with bf16 scores under
+     Adagrad 0.5 → `Trainer.fit` (K2 a launch of each kernel a batch);
+     corpus eval at k = 10 and 100 over BruteForce and Bucketed f32
+     (K3 a launch a batch; the width-64 embeddings zero-padded to 128);
+     a checkpoint saved and restored on the card, 5 resumed steps
+     bit-equal to 5 uninterrupted ones, the file restored on the CPU
+     equal; one user's top 5 decoded back to movie strings; vocab s,
+     native rows/s, examples/s, eval queries/s, checkpoint MB and save /
+     restore s printed;
+ 30. featurization: `examples/featurization.py`'s towers (`Normalizer`
+     and a 100-bin `Discretizer` on the device, `TextVectorizer` with 64
+     tokens, `hash_bucket` into 2,048 bins, `masked_mean`), 3 Adagrad
+     steps of 8,192 on the card and the CPU from one weight set: losses
+     to rtol 1e-4, hash buckets and discretized ids bit-equal;
+ 31. quality parity: `recommenders_tpu_torch/tools/quality_parity.py`
+     at `tools/reference_parity.py`'s defaults (100,000 interactions,
+     split 0.8, 3 epochs, width 32, batch 8,192, Adagrad 0.1, seed 42):
+     retrieval unfused and `fused=True` (K2 with f32 scores), each
+     top-100 within 0.003 of the JAX package's recorded 0.8589 and
+     top-10 / top-50 within 0.01 of 0.1926 / 0.6650; the rating model's
+     RMSE within 0.003 of 0.8662 (`docs/PARITY_HEAD_TO_HEAD.md:7-11`);
+ 32. unified embedding: the tool's three-way study at the recorded
+     run's size (200,000 examples, 8 epochs, batch 8,192, Adam 0.01):
+     each AUC within 0.015 of the JAX means (collisionless 0.7279,
+     unified 0.7376, hash 0.5841; `docs/PARITY_HEAD_TO_HEAD.md:33-35`),
+     and collisionless − hash and unified − hash both above 0.10.
+
 The phases run in the order serving, ScaNN, training, trainer slice,
-ranking slice. Each kernel's row in the `{"kernels": [...]}` line
-carries `path_launches`, its launches on the later slices' paths
-(phases 18, 20, 23, 26, 27). It prints the card's
+ranking slice, data slice. Each kernel's row in the `{"kernels": [...]}`
+line carries `path_launches`, its launches on the later slices' paths
+(phases 18, 20, 23, 26, 27, 29, 31). It prints the card's
 name and power limit, one `{"kernels": [...]}` line
 and, last, `{"ok": true, "device": {...}}`. Without CUDA, or run outside
 a checkout of the repository, it exits non-zero and prints no result.
@@ -204,6 +239,7 @@ import json
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -214,10 +250,14 @@ from torch.nn import functional as F
 
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 
+from recommenders_tpu_torch import data  # noqa: E402
 from recommenders_tpu_torch import metrics  # noqa: E402
 from recommenders_tpu_torch import models  # noqa: E402
 from recommenders_tpu_torch import optimizers  # noqa: E402
 from recommenders_tpu_torch import tasks  # noqa: E402
+from recommenders_tpu_torch.data import native_loader  # noqa: E402
+from recommenders_tpu_torch.data import preprocessing  # noqa: E402
+from recommenders_tpu_torch.data import vocab  # noqa: E402
 from recommenders_tpu_torch.embedding import config as emb_config  # noqa: E402
 from recommenders_tpu_torch.embedding import engine as emb_engine  # noqa: E402
 from recommenders_tpu_torch.embedding import sparse_optimizer  # noqa: E402
@@ -231,11 +271,14 @@ from recommenders_tpu_torch.models import ranking  # noqa: E402
 from recommenders_tpu_torch.models import retrieval  # noqa: E402
 from recommenders_tpu_torch.ops import cuda_build  # noqa: E402
 from recommenders_tpu_torch.ops import fused_retrieval  # noqa: E402
+from recommenders_tpu_torch.ops import hashing  # noqa: E402
 from recommenders_tpu_torch.ops import leaf_scoring  # noqa: E402
 from recommenders_tpu_torch.ops import quantization  # noqa: E402
 from recommenders_tpu_torch.ops import scoring  # noqa: E402
 from recommenders_tpu_torch.ops import sparse_apply  # noqa: E402
 from recommenders_tpu_torch.tasks import listwise  # noqa: E402
+from recommenders_tpu_torch.tools import quality_parity  # noqa: E402
+from recommenders_tpu_torch.utils import checkpoint  # noqa: E402
 from recommenders_tpu_torch.utils import convert  # noqa: E402
 from recommenders_tpu_torch.utils import profiling  # noqa: E402
 
@@ -811,13 +854,15 @@ K2_TEMPERATURE = 0.2
 K2_ID_RANGE = 1024
 
 
-def check_k2_counts(label: str, counts: dict, want: int,
+def check_k2_counts(label: str, counts: dict, want,
                     scores: str) -> None:
-    """Each K2 kernel launched `want` times with `scores` scores (the
-    wrapper's count by kernel and score dtype) and never with the
-    other."""
+    """Each K2 kernel launched `want` times (an int, or a dict by kernel
+    name) with `scores` scores (the wrapper's count by kernel and score
+    dtype) and never with the other."""
     for (name, kind), count in counts.items():
-        expected = want if kind == scores else 0
+        expected = 0
+        if kind == scores:
+            expected = want[name] if isinstance(want, dict) else want
         check(count == expected, f"{label}: {count} K2 {name} launches with "
               f"{kind} scores, expected {expected}")
 
@@ -1123,6 +1168,38 @@ def k2_bound_terms(name: str, q, c, sms: int, clock_hz: float) -> dict:
     }
 
 
+def k2_against_twin(q, cand, fkw: dict, label: str) -> tuple:
+    """K2's loss and grads (`fused_retrieval_loss`, launching the kernels
+    on the card) against its twin's on the same inputs and knobs `fkw`;
+    fails past the score dtype's tolerance. Returns (loss, twin loss,
+    loss |err|, max |err| of dq and dc)."""
+    loss, dq, dc = value_and_grads(
+        fused_retrieval.fused_retrieval_loss, q, cand, fkw)
+    tloss, tdq, tdc = value_and_grads(
+        fused_retrieval.fused_retrieval_loss_reference, q, cand, fkw)
+    sync(q.device)
+    # Tolerance. f32 scores: the loss to rtol 1e-5, the grads (sums of C
+    # terms in another order) to 1e-4 of their largest magnitude. bf16
+    # scores: the kernel rounds the backward's probability coefficients
+    # to bf16 before each product, as the TPU kernel does, where the
+    # twin's autograd keeps them f32: grads to 2e-2 relative plus 2e-3 of
+    # their largest magnitude.
+    bf16 = fkw.get("score_dtype") == torch.bfloat16
+    loss_err = float((loss - tloss).abs())
+    check(loss_err <= 1e-5 * float(tloss.abs()),
+          f"{label}: loss {float(loss)} vs twin {float(tloss)}")
+    errs = {}
+    for name, g, t in (("dq", dq, tdq), ("dc", dc, tdc)):
+        scale = float(t.abs().max())
+        err = (g - t).abs()
+        tol = ((2e-2 * t.abs() + 2e-3 * scale) if bf16
+               else (1e-5 * t.abs() + 1e-4 * scale))
+        check(bool((err <= tol).all()),
+              f"{label} {name}: max |err| {float(err.max())}")
+        errs[name] = float(err.max())
+    return loss, tloss, loss_err, errs
+
+
 def check_k2(size: TrainSize, device, launches: dict, seed: int) -> list:
     """K2 (forward, dq, dc) against its twin with temperature, log-q,
     accidental hits and weights, f32 and bf16 scores, at B = C = batch;
@@ -1134,31 +1211,10 @@ def check_k2(size: TrainSize, device, launches: dict, seed: int) -> list:
     for score_dtype in (torch.float32, torch.bfloat16):
         fkw = dict(kw, temperature=K2_TEMPERATURE,
                    remove_accidental_hits=True, score_dtype=score_dtype)
-        loss, dq, dc = value_and_grads(
-            fused_retrieval.fused_retrieval_loss, q, cand, fkw)
-        tloss, tdq, tdc = value_and_grads(
-            fused_retrieval.fused_retrieval_loss_reference, q, cand, fkw)
-        sync(device)
-        # Tolerance. f32 scores: the loss to rtol 1e-5, the grads (sums
-        # of C terms in another order) to 1e-4 of their largest
-        # magnitude. bf16 scores: the kernel rounds the backward's
-        # probability coefficients to bf16 before each product, as the
-        # TPU kernel does, where the twin's autograd keeps them f32:
-        # grads to 2e-2 relative plus 2e-3 of their largest magnitude.
         bf16 = score_dtype == torch.bfloat16
-        loss_err = float((loss - tloss).abs())
-        check(loss_err <= 1e-5 * float(tloss.abs()),
-              f"K2 {score_dtype}: loss {float(loss)} vs twin {float(tloss)}")
-        errs = {}
-        for name, g, t in (("dq", dq, tdq), ("dc", dc, tdc)):
-            scale = float(t.abs().max())
-            err = (g - t).abs()
-            tol = ((2e-2 * t.abs() + 2e-3 * scale) if bf16
-                   else (1e-5 * t.abs() + 1e-4 * scale))
-            check(bool((err <= tol).all()),
-                  f"K2 {score_dtype} {name}: max |err| {float(err.max())}")
-            errs[name] = float(err.max())
         label = "bf16" if bf16 else "f32"
+        loss, tloss, loss_err, errs = k2_against_twin(q, cand, fkw,
+                                                      f"K2 {label}")
         print(f"  K2 {label} scores: loss "
               f"{float(loss):.6f} vs twin {float(tloss):.6f}, max |err| "
               f"dq {errs['dq']:.3g}, dc {errs['dc']:.3g}")
@@ -3414,16 +3470,581 @@ def ranking_slice(device: torch.device, size: RankingSize,
     return row, k2
 
 
+# --- The data slice: the user journey, featurization, quality parity -------
+
+
+@dataclasses.dataclass(frozen=True)
+class PipelineSize:
+    users: int = 6_040            # MovieLens-1M's published size
+    movies: int = 3_706
+    ratings: int = 1_000_209
+    dim: int = 64                 # examples/full_pipeline.py:47-50
+    batch: int = 4096             # examples/full_pipeline.py:55
+    threads: int = 4
+    resume_steps: int = 5         # tests/test_checkpoint.py:73-88
+    top: int = 5
+
+
+PIPELINE_LR = 0.5                 # examples/full_pipeline.py:53
+PIPELINE_KS = (10, 100)           # examples/full_pipeline.py:67
+
+
+class PaddedBucketed(factorized_top_k.Bucketed):
+    """Bucketed over embeddings zero-padded to a multiple of 128 wide
+    (K3's widths): zero columns leave every score as it was."""
+
+    def __init__(self, **kwargs):
+        super().__init__(query_fn=self.pad, **kwargs)
+
+    @staticmethod
+    def pad(x: torch.Tensor) -> torch.Tensor:
+        return F.pad(x, (0, -x.shape[1] % 128))
+
+    def index(self, candidates, identifiers=None):
+        return super().index(self.pad(candidates), identifiers)
+
+
+def write_ratings_dat(path: Path, ds) -> None:
+    """The dataset as an ML-1M `ratings.dat` (`user::item::rating::time`,
+    1-based ids)."""
+    table = np.stack([ds.user_ids.astype(np.int64) + 1,
+                      ds.movie_ids.astype(np.int64) + 1,
+                      ds.ratings.astype(np.int64), ds.timestamps], axis=1)
+    np.savetxt(path, table, fmt="%d", delimiter="::")
+
+
+def pipeline_model(size: PipelineSize, users: int, movies: int, device,
+                   seed: int):
+    """`examples/full_pipeline.py`'s towers of width 64, fused (K2, bf16
+    scores)."""
+    gen = torch.Generator(device).manual_seed(seed)
+    return models.TwoTowerRetrieval(
+        models.EmbeddingTower(users, size.dim, device=device, generator=gen),
+        models.EmbeddingTower(movies, size.dim, device=device, generator=gen),
+        fused=True, score_dtype=torch.bfloat16)
+
+
+def train_tensors(state) -> dict:
+    """The parameters and the optimizer's state tensors, on the CPU."""
+    out = {k: v.detach().cpu().clone() for k, v in state.params.items()}
+    for i, slots in state.opt_state.state_dict()["state"].items():
+        for k, v in slots.items():
+            if isinstance(v, torch.Tensor):
+                out[f"opt/{i}/{k}"] = v.detach().cpu().clone()
+    return out
+
+
+def same_tensors(a: dict, b: dict) -> bool:
+    return a.keys() == b.keys() and all(torch.equal(a[k], b[k]) for k in a)
+
+
+def pipeline(device: torch.device, size: PipelineSize, seed: int) -> dict:
+    """Phase 29: raw ids → vocabularies → `NativeBatcher` → fused
+    `Trainer.fit` → corpus eval (BruteForce, Bucketed f32) → checkpoint
+    and bit-exact resume → decoded top movies; returns K2's and K3's
+    launches on the path."""
+    # 29. The README's user journey at MovieLens-1M's size.
+    started = time.perf_counter()
+    ds = data.synthetic_movielens(num_users=size.users,
+                                  num_movies=size.movies,
+                                  num_interactions=size.ratings, seed=seed)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "ratings.dat"
+        t = time.perf_counter()
+        write_ratings_dat(path, ds)
+        write_s = time.perf_counter() - t
+        t = time.perf_counter()
+        loaded = data.load_movielens(str(path), size.users, size.movies)
+        read_s = time.perf_counter() - t
+    for name in ("user_ids", "movie_ids", "ratings", "timestamps"):
+        check(np.array_equal(getattr(loaded, name), getattr(ds, name)),
+              f"ratings.dat read back: {name} differ")
+    raw = {"user": np.char.add("user_", loaded.user_ids.astype(str)),
+           "movie": np.char.add("movie_", loaded.movie_ids.astype(str))}
+    t = time.perf_counter()
+    user_vocab = vocab.build_vocabulary(raw["user"])
+    movie_vocab = vocab.build_vocabulary(raw["movie"])
+    build_s = time.perf_counter() - t
+    t = time.perf_counter()
+    encoded = data.SyntheticMovieLens(
+        user_ids=user_vocab.encode(raw["user"]),
+        movie_ids=movie_vocab.encode(raw["movie"]),
+        ratings=loaded.ratings, timestamps=loaded.timestamps,
+        num_users=user_vocab.size, num_movies=movie_vocab.size)
+    encode_s = time.perf_counter() - t
+    check(int(encoded.user_ids.min()) >= 1
+          and int(encoded.movie_ids.min()) >= 1, "an id encoded as OOV")
+    train_split, test_split = encoded.split(0.8, seed=17)
+    train_set = {k: train_split.as_dict()[k] for k in ("user_id",
+                                                       "movie_id")}
+    test_set = {k: test_split.as_dict()[k] for k in ("user_id", "movie_id")}
+    print(f"  pipeline data: {size.ratings} ratings written as ratings.dat "
+          f"in {write_s:.3f} s, read back equal in {read_s:.3f} s; "
+          f"vocabularies {user_vocab.size} users, {movie_vocab.size} movies "
+          f"built in {build_s:.3f} s, encoded in {encode_s:.3f} s "
+          f"(vocab {build_s + encode_s:.3f} s)", flush=True)
+
+    check(data.native_available(), "the native batcher did not build: "
+          f"{native_loader._build_error}")
+    batcher = data.NativeBatcher(train_set, size.batch, shuffle=True,
+                                 seed=seed, drop_remainder=True,
+                                 num_threads=size.threads)
+    t = time.perf_counter()
+    rows = sum(b["user_id"].shape[0] for b in batcher())
+    native_rows = rows / (time.perf_counter() - t)
+    batches = len(train_set["user_id"]) // size.batch
+    check(rows == batches * size.batch, f"NativeBatcher gave {rows} rows")
+    model = pipeline_model(size, user_vocab.size, movie_vocab.size, device,
+                           seed)
+    fit_trainer = models.Trainer(
+        model, lambda p: quickstart_adagrad(p, PIPELINE_LR))
+    state = fit_trainer.init(torch.Generator(device).manual_seed(seed),
+                             next(iter(batcher())))
+    sync(device)
+    reset_train_counts()
+    state, history = fit_trainer.fit(state, batcher, verbose=False)
+    sync(device)
+    k2 = dict(fused_retrieval.fused_retrieval_loss.launches_by_kernel)
+    fit = history["epochs"][0]
+    check(np.isfinite(fit["loss"]), "pipeline fit: non-finite loss")
+    if device.type == "cuda":
+        check_k2_counts("pipeline fit", k2, batches, "bf16")
+    print(f"  pipeline fit: native batcher {native_rows:.0f} rows/s alone "
+          f"({size.threads} threads); {batches} x {size.batch}, "
+          f"{fit['examples_per_sec']:.0f} examples/s, loss "
+          f"{fit['loss']:.4f}; K2 launches {k2_text(k2)}", flush=True)
+
+    candidates = {"movie_id": np.arange(movie_vocab.size, dtype=np.int32)}
+    eval_batches = data.batched(test_set, size.batch)
+    evals, qps = {}, {}
+    factories = {
+        "BruteForce": None,
+        "Bucketed f32": lambda: PaddedBucketed(
+            k=max(PIPELINE_KS), device=device, **BUCKETED["f32"]),
+    }
+    queries = (len(test_set["user_id"]) // size.batch) * size.batch
+    warm = [next(eval_batches())]
+    for name, factory in factories.items():
+        # One batch through the index first, off the clock and the
+        # counts: the rate is the warm one, whatever ran before.
+        retrieval.evaluate_with_corpus_metrics(
+            fit_trainer, state, warm, candidates, ks=PIPELINE_KS,
+            index_factory=factory)
+        reset_counts()
+        sync(device)
+        t = time.perf_counter()
+        evals[name] = retrieval.evaluate_with_corpus_metrics(
+            fit_trainer, state, eval_batches, candidates, ks=PIPELINE_KS,
+            index_factory=factory)
+        sync(device)
+        qps[name] = queries / (time.perf_counter() - t)
+    k3 = scoring.bucketed_scores.launches_by_format["f32"]
+    if device.type == "cuda":
+        check(k3 == queries // size.batch, f"{k3} K3 launches in the "
+              f"pipeline's Bucketed eval, expected {queries // size.batch}")
+    want = list(evals["BruteForce"].values())
+    got = list(evals["Bucketed f32"].values())
+    check(0 < want[0] <= want[1] < 1, f"pipeline accuracies {want}")
+    check(abs(got[1] - want[1]) <= BUCKETED_ACCURACY_MARGIN,
+          f"pipeline Bucketed top-100 {got[1]} vs BruteForce {want[1]}")
+    for name in factories:
+        print(f"  pipeline eval {name}: {qps[name]:.0f} queries/s, top-"
+              f"{list(PIPELINE_KS)} accuracy "
+              f"{[round(v, 5) for v in evals[name].values()]}", flush=True)
+
+    # Checkpoint on the card, then resume: 5 steps from the restored
+    # state must equal 5 steps from the state that was never saved.
+    steps = list(data.batched(train_set, size.batch, shuffle=True,
+                              seed=seed + 1)())[:size.resume_steps]
+    with tempfile.TemporaryDirectory() as tmp:
+        manager = checkpoint.CheckpointManager(tmp)
+        sync(device)
+        t = time.perf_counter()
+        manager.save(state.step, state)
+        save_s = time.perf_counter() - t
+        saved = train_tensors(state)
+        megabytes = sum(f.stat().st_size for f in Path(tmp).rglob("*")
+                        if f.is_file()) / 1e6
+        losses_a = []
+        for batch in steps:
+            state, loss = fit_trainer.train_step(state, batch)
+            losses_a.append(float(loss))
+        continued = train_tensors(state)
+        sync(device)
+        t = time.perf_counter()
+        state = manager.restore(template=state)
+        sync(device)
+        restore_s = time.perf_counter() - t
+        check(same_tensors(train_tensors(state), saved),
+              "the restored state differs from the saved one")
+        losses_b = []
+        for batch in steps:
+            state, loss = fit_trainer.train_step(state, batch)
+            losses_b.append(float(loss))
+        check(losses_a == losses_b, f"resumed losses {losses_b} differ "
+              f"from the uninterrupted run's {losses_a}")
+        check(same_tensors(train_tensors(state), continued),
+              "the resumed state differs from the uninterrupted run's")
+        host_model = pipeline_model(size, user_vocab.size, movie_vocab.size,
+                                    "cpu", seed + 1)
+        host_trainer = models.Trainer(
+            host_model, lambda p: quickstart_adagrad(p, PIPELINE_LR))
+        host_state = host_trainer.init(torch.Generator().manual_seed(seed))
+        host_state = checkpoint.restore(str(Path(tmp) / str(
+            manager.latest_step())), host_state)
+        check(same_tensors(train_tensors(host_state), saved),
+              "the card's checkpoint restored on the CPU differs")
+    print(f"  pipeline checkpoint: {megabytes:.3f} MB, save {save_s:.3f} s, "
+          f"restore {restore_s:.3f} s; {size.resume_steps} resumed steps "
+          f"bit-equal (losses {[round(x, 5) for x in losses_b]}); restored "
+          "on the CPU equal", flush=True)
+
+    user = raw["user"][0]
+    with torch.no_grad():
+        model.eval()
+        corpus = model.candidate_embeddings(
+            {"movie_id": torch.arange(movie_vocab.size, device=device)})
+        index = factorized_top_k.BruteForce(k=size.top, device=device)
+        index.index(corpus)
+        query = model.query_embeddings({"user_id": torch.from_numpy(
+            user_vocab.encode(np.asarray([user]))).to(device)})
+        _, ids = index(query)
+    movies = [str(m) for m in movie_vocab.decode(ids[0].cpu().numpy())]
+    check(len(movies) == size.top and all(
+        m.startswith("movie_") or m == "[OOV]" for m in movies),
+        f"decoded recommendations {movies}")
+    phase("pipeline", started, f"{size.ratings} ratings, fit {batches} "
+          f"batches fused, "
+          f"eval over BruteForce and Bucketed f32 (K3 {k3}), checkpoint; "
+          f"top {size.top} for {user}: {movies}")
+    return {
+        **{K2_ROWS[name]: {"pipeline, fused fit": k2.get((name, "bf16"), 0)}
+           for name in K2_ROWS},
+        "bucketed_scores[f32]": {"pipeline eval, Bucketed f32": k3},
+    }
+
+
+@dataclasses.dataclass(frozen=True)
+class FeaturizationSize:
+    interactions: int = 100_000   # examples/featurization.py:103
+    batch: int = 8192             # examples/featurization.py:146
+    # Under the example's Adagrad 0.3 the loss grows from step 2 on, in
+    # the JAX example too, and amplifies rounding: over 5 steps the port
+    # parts from JAX on the CPU by up to 4.1e-4 relative
+    # (tests/test_torch_featurization.py), and from the CPU on the card
+    # as `--featurization-drift 5` prints (PERF.md, section 6). The
+    # first 3 steps stay within the 1e-4 limit in both.
+    steps: int = 3
+    bins: int = 100               # examples/featurization.py:110
+    max_tokens: int = 64          # examples/featurization.py:112
+    hash_bins: int = 2048         # examples/featurization.py:139
+
+
+FEATURIZATION_LR = 0.3            # examples/featurization.py:145
+TITLE_WORDS = (
+    "star galaxy night return empire dark knight lost city of the "
+    "last great secret garden river king queen storm golden shadow "
+    "summer winter dream stone fire ice crown legend journey"
+).split()                         # examples/featurization.py:32-36
+
+
+def synthetic_titles(num_movies: int) -> list:
+    """`examples/featurization.py::synthetic_titles`: 2-4 word titles."""
+    rng = np.random.RandomState(99)
+    titles = []
+    for _ in range(num_movies):
+        words = rng.choice(TITLE_WORDS, size=rng.randint(2, 5),
+                           replace=False)
+        titles.append(" ".join(words).title() + "!")
+    return titles
+
+
+class FeaturizedQuery(nn.Module):
+    """User id + the timestamp normalized and discretized on the device
+    (`examples/featurization.py::QueryTower`)."""
+
+    def __init__(self, num_users, normalizer, discretizer, device, gen,
+                 dim: int = 32):
+        super().__init__()
+        self.normalizer, self.discretizer = normalizer, discretizer
+        self.user = nn.Embedding(num_users, dim, device=device)
+        self.time = nn.Embedding(discretizer.num_bins, dim // 2,
+                                 device=device)
+        self.mlp = blocks.MLP(dim + dim // 2 + 1, (64, dim), device=device)
+        with torch.no_grad():
+            self.user.weight.normal_(0.0, dim ** -0.5, generator=gen)
+            self.time.weight.normal_(0.0, (dim // 2) ** -0.5, generator=gen)
+        self.mlp.reset_parameters(gen)
+
+    def forward(self, inputs):
+        ts = inputs["timestamp"]
+        return self.mlp(torch.cat([
+            self.user(inputs["user_id"]), self.time(self.discretizer(ts)),
+            self.normalizer(ts)[:, None]], dim=-1))
+
+
+class FeaturizedCandidate(nn.Module):
+    """Hashed movie id + mean-pooled title tokens
+    (`examples/featurization.py::CandidateTower`)."""
+
+    def __init__(self, hash_bins, title_vocab, device, gen, dim: int = 32):
+        super().__init__()
+        self.hash_bins = hash_bins
+        self.movie = nn.Embedding(hash_bins, dim, device=device)
+        self.tokens = nn.Embedding(title_vocab, dim, device=device)
+        self.mlp = blocks.MLP(2 * dim, (64, dim), device=device)
+        with torch.no_grad():
+            self.movie.weight.normal_(0.0, dim ** -0.5, generator=gen)
+            self.tokens.weight.normal_(0.0, dim ** -0.5, generator=gen)
+        self.mlp.reset_parameters(gen)
+
+    def forward(self, inputs):
+        bucket = hashing.hash_bucket(inputs["movie_id"], self.hash_bins,
+                                     salt=7)
+        tokens = inputs["title_tokens"]
+        return self.mlp(torch.cat([
+            self.movie(bucket),
+            preprocessing.masked_mean(self.tokens(tokens), tokens)], dim=-1))
+
+
+def featurization_data(size: FeaturizationSize, seed: int) -> dict:
+    """`examples/featurization.py`'s host-side adaptation (the Keras
+    `adapt()` step) on a synthetic MovieLens split, and the first
+    `size.steps` shuffled batches of its inputs."""
+    train, _ = data.synthetic_movielens(
+        num_interactions=size.interactions, seed=seed).split(0.8)
+    user_vocab = vocab.build_vocabulary([f"user_{u}" for u in
+                                         train.user_ids])
+    titles = synthetic_titles(train.num_movies)
+    vectorizer = preprocessing.TextVectorizer.adapt(
+        titles, max_tokens=size.max_tokens)
+    title_tokens = vectorizer(titles, sequence_length=4)
+    inputs = {"user_id": user_vocab.encode([f"user_{u}" for u in
+                                            train.user_ids]),
+              "movie_id": train.movie_ids, "timestamp": train.timestamps,
+              "title_tokens": title_tokens[train.movie_ids]}
+    return {
+        "train": train, "user_vocab": user_vocab, "vectorizer": vectorizer,
+        "normalizer": preprocessing.Normalizer.adapt(train.timestamps),
+        "discretizer": preprocessing.Discretizer.adapt(
+            train.timestamps, num_bins=size.bins),
+        "steps": list(data.batched(inputs, size.batch, shuffle=True,
+                                   seed=seed)())[:size.steps],
+    }
+
+
+def featurization_model(prep: dict, size: FeaturizationSize, where,
+                        seed: int) -> models.TwoTowerRetrieval:
+    gen = torch.Generator(where).manual_seed(seed)
+    return models.TwoTowerRetrieval(
+        FeaturizedQuery(prep["user_vocab"].size, prep["normalizer"],
+                        prep["discretizer"], where, gen),
+        FeaturizedCandidate(size.hash_bins, prep["vectorizer"].vocab_size,
+                            where, gen),
+        query_key=("user_id", "timestamp"),
+        candidate_key=("movie_id", "title_tokens"),
+        batch_metric_ks=(10, 100))
+
+
+def featurization_losses(device: torch.device, size: FeaturizationSize,
+                         seed: int, prep: dict) -> tuple:
+    """The same steps under the example's Adagrad on the CPU and on
+    `device` from one weight set; returns (card losses, CPU losses)."""
+    losses = []
+    weights = None
+    for where in (torch.device("cpu"), device):
+        model = featurization_model(prep, size, where, seed)
+        if weights is not None:
+            model.load_state_dict(weights)
+        weights = cpu_params(model)
+        losses.append(trainer_steps(model, lambda p: quickstart_adagrad(
+            p, FEATURIZATION_LR), prep["steps"])[1])
+    return losses[1], losses[0]
+
+
+def relative_gaps(got: list, want: list) -> list:
+    return [abs(a - b) / abs(b) for a, b in zip(got, want)]
+
+
+def featurization(device: torch.device, size: FeaturizationSize, seed: int):
+    """Phase 30: `examples/featurization.py`'s towers, card against CPU."""
+    # 30. Host-side adaptation, then the same steps on the card and the
+    # CPU from one weight set.
+    started = time.perf_counter()
+    prep = featurization_data(size, seed)
+    card_losses, host_losses = featurization_losses(device, size, seed,
+                                                    prep)
+    gaps = relative_gaps(card_losses, host_losses)
+    check(max(gaps) <= 1e-4,
+          f"featurization losses {card_losses} vs CPU {host_losses}")
+    train, discretizer = prep["train"], prep["discretizer"]
+    movie_ids = torch.from_numpy(train.movie_ids)
+    ts = torch.from_numpy(train.timestamps)
+    buckets = hashing.hash_bucket(movie_ids.to(device), size.hash_bins, 7)
+    bins = discretizer(ts.to(device))
+    check(torch.equal(buckets.cpu(), hashing.hash_bucket(
+        movie_ids, size.hash_bins, 7)), "hash buckets differ card vs CPU")
+    check(torch.equal(bins.cpu(), discretizer(ts)),
+          "discretized timestamps differ card vs CPU")
+    norm_err = float((prep["normalizer"](ts.to(device)).cpu()
+                      - prep["normalizer"](ts)).abs().max())
+    print(f"  featurization: {prep['user_vocab'].size} users, "
+          f"{discretizer.num_bins} time buckets, "
+          f"{prep['vectorizer'].vocab_size} title tokens; losses "
+          f"{[round(x, 5) for x in card_losses]} vs CPU "
+          f"{[round(x, 5) for x in host_losses]} (relative gaps "
+          f"{[float(f'{g:.3g}') for g in gaps]}); {len(buckets)} hash "
+          f"buckets and discretized ids bit-equal, normalized max |err| "
+          f"{norm_err:.3g}", flush=True)
+    phase("featurization", started, f"{size.steps} steps of "
+          f"{size.batch}, card vs CPU")
+
+
+def featurization_drift(device: torch.device, size: FeaturizationSize,
+                        seed: int):
+    """`--featurization-drift STEPS`: phase 30's card-vs-CPU losses and
+    their relative gap at each of `size.steps` steps, printed as one
+    JSON line and not held to a limit (a diagnostic of how the example's
+    Adagrad 0.3 amplifies rounding as its loss grows)."""
+    card, host = featurization_losses(device, size, seed,
+                                      featurization_data(size, seed))
+    print(json.dumps({"seed": seed, "steps": size.steps, "card": card,
+                      "cpu": host, "gap": relative_gaps(card, host)}),
+          flush=True)
+
+
+def full_quality(args) -> bool:
+    """Whether `args` are the tool's defaults (its device aside): the
+    bounds against the JAX package's recorded means hold only at that
+    size. The bounds themselves are the tool's constants."""
+    defaults = vars(quality_parity.parse_args([]))
+    return all(getattr(args, k) == v for k, v in defaults.items()
+               if k != "device")
+
+
+# Phase 31's fused retrieval run against its unfused run, which starts
+# from the same weights and takes the same batches: K2 with f32 scores
+# (split precision) stands in for the unfused path's f32 scores and
+# softmax, so each epoch's loss stays within K2's own loss tolerance
+# against its twin (rtol 1e-5), and each top-k accuracy within 0.001 (a
+# query whose positive sits within rounding of a rank boundary may change
+# sides).
+FUSED_LOSS_RTOL = 1e-5
+FUSED_TOPK_MARGIN = 0.001
+
+
+def quality(device: torch.device, args) -> dict:
+    """Phases 31 and 32: `tools/quality_parity.py` at its defaults, held
+    to the JAX package's recorded means; the fused retrieval run also
+    held to the unfused one, and K2 to its twin on the run's own
+    embeddings. Returns K2 f32's launches on the fused retrieval run."""
+    # 31. Retrieval unfused and fused (K2, f32 scores), and the rating
+    # model.
+    started = time.perf_counter()
+    train, test = quality_parity.movielens_split(args)
+    results = {}
+    for run, fused in (("retrieval", False), ("retrieval fused", True)):
+        reset_train_counts()
+        model = quality_parity.retrieval_model(
+            train.num_users, train.num_movies, args, fused=fused)
+        results[run] = quality_parity.train_retrieval(model, train, test,
+                                                      args)
+        if fused:
+            k2 = dict(fused_retrieval.fused_retrieval_loss.launches_by_kernel)
+    steps = args.epochs * (len(train) // args.batch)
+    if device.type == "cuda":
+        # `Trainer.init`'s forward pass on a sample batch launches fwd once.
+        check_k2_counts("quality parity, fused retrieval", k2,
+                        {"fwd": steps + 1, "dq": steps, "dc": steps}, "f32")
+    plain, fused_run = results["retrieval"], results["retrieval fused"]
+    loss_gap = max(abs(a - b) / abs(b) for a, b in zip(fused_run["losses"],
+                                                       plain["losses"]))
+    check(loss_gap <= FUSED_LOSS_RTOL, f"fused retrieval's epoch losses "
+          f"{fused_run['losses']} vs unfused {plain['losses']}")
+    topk_gap = max(abs(fused_run[k] - plain[k])
+                   for k in ("top_10", "top_50", "top_100"))
+    check(topk_gap <= FUSED_TOPK_MARGIN, f"fused retrieval's top-k "
+          f"{fused_run} vs unfused {plain}")
+    # K2 against its twin at this path's shapes and on its own inputs:
+    # the trained towers' embeddings of the first training batch.
+    first = next(data.batched(train.as_dict(), args.batch, shuffle=True,
+                              seed=args.seed)())
+    with torch.no_grad():
+        batch = {k: torch.from_numpy(v).to(device) for k, v in first.items()}
+        q = model.query_embeddings(batch)
+        cand = model.candidate_embeddings(batch)
+    loss, tloss, loss_err, errs = k2_against_twin(
+        q, cand, {"score_dtype": None}, "quality K2 f32")
+    results["ranking"] = quality_parity.run_ours_ranking(train, test, args)
+    for run, values in results.items():
+        check(all(np.isfinite(v) and v > 0 for k, v in values.items()
+                  if k in quality_parity.RECORDED),
+              f"{run}: a metric is not positive and finite ({values})")
+        print(f"  {run}: " + ", ".join(
+            f"{k} {v:.4f} (JAX {quality_parity.RECORDED[k]})"
+            for k, v in values.items() if k in quality_parity.RECORDED)
+            + f"; epoch losses {[round(x, 5) for x in values['losses']]}, "
+            f"fit {values['train_seconds']:.3f} s", flush=True)
+    print(f"  quality fused retrieval: K2 launches {k2_text(k2)}; against "
+          f"unfused, epoch losses within {loss_gap:.3g} relative (limit "
+          f"{FUSED_LOSS_RTOL}), top-k within {topk_gap:.3g} (limit "
+          f"{FUSED_TOPK_MARGIN}); K2 f32 on the trained embeddings of a "
+          f"batch (B=C={q.shape[0]} D={q.shape[1]}): loss {float(loss):.6f} "
+          f"vs twin {float(tloss):.6f} (|err| {loss_err:.3g}), max |err| "
+          f"dq {errs['dq']:.3g}, dc {errs['dc']:.3g}", flush=True)
+    failures = quality_parity.quality_failures(results)
+    check(not failures or not full_quality(args), "; ".join(failures))
+    phase("quality parity", started, f"{args.interactions} interactions, "
+          f"{args.epochs} epochs of {args.batch}; retrieval unfused and "
+          "fused, ranking")
+
+    # 32. The unified-embedding three-way study.
+    started = time.perf_counter()
+    uet = quality_parity.run_ours_uet(*quality_parity.make_uet(args), args)
+    check(all(0 < v < 1 for v in uet.values()), f"uet AUCs {uet}")
+    print("  uet AUC: " + ", ".join(
+        f"{k} {v:.4f} (JAX {quality_parity.RECORDED[k]})"
+        for k, v in uet.items()) + f"; collisionless - hash "
+        f"{uet['collisionless'] - uet['hash']:.4f}, unified - hash "
+        f"{uet['unified'] - uet['hash']:.4f}", flush=True)
+    failures = quality_parity.quality_failures({"uet": uet})
+    check(not failures or not full_quality(args), "; ".join(failures))
+    phase("unified embedding", started, f"{args.examples} examples, "
+          f"{args.uet_epochs} epochs, three arms")
+    return {K2_F32_ROWS[name]: {"quality parity, fused retrieval":
+                                k2.get((name, "f32"), 0)}
+            for name in K2_F32_ROWS}
+
+
+def data_slice(device: torch.device, pipeline_size: PipelineSize,
+               featurization_size: FeaturizationSize, quality_args,
+               seed: int) -> list:
+    """Phases 29-32; returns the kernels' launches on their paths."""
+    counts = [pipeline(device, pipeline_size, seed)]
+    featurization(device, featurization_size, seed)
+    counts.append(quality(device, quality_args))
+    return counts
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--requests", type=int, default=Size.requests)
+    parser.add_argument(
+        "--featurization-drift", type=int, metavar="STEPS",
+        help="only print phase 30's card-vs-CPU loss gaps over STEPS "
+        "steps at --seed, then exit with no result line")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit(
             "chip_smoke: FAILED: CUDA is not available; this smoke runs "
             "only on an NVIDIA GPU"
         )
+    if args.featurization_drift:
+        featurization_drift(
+            torch.device("cuda", 0),
+            FeaturizationSize(steps=args.featurization_drift), args.seed)
+        return 0
     # f32 products stay f32 in the twin and the library call (no TF32).
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -3439,6 +4060,9 @@ def main() -> int:
     counts_by_phase = [trainer(device, TrainerSize(), args.seed),
                        corpus_eval(device, CorpusSize(), args.seed)]
     k1_dlrm, k2_f32 = ranking_slice(device, RankingSize(), args.seed)
+    counts_by_phase += data_slice(
+        device, PipelineSize(), FeaturizationSize(),
+        quality_parity.parse_args(["--device", str(device)]), args.seed)
     for counts in counts_by_phase + [k2_f32]:
         for row, by_path in counts.items():
             paths.setdefault(row, {}).update(by_path)

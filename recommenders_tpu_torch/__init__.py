@@ -32,11 +32,16 @@ Ported so far:
     tables), `tasks.Ranking` and `tasks.listwise`, `models.Multitask`
     (retrieval + rating, `fused=True` through K2), `models.HybridTrainer`
     (a dense head under a torch optimizer over an `EmbeddingEngine`'s
-    tables, K1), and `optimizers` (Clippy Adagrad, composite).
+    tables, K1), and `optimizers` (Clippy Adagrad, composite);
+  - the data path: `data` (vocabularies, preprocessing, synthetic
+    MovieLens and its file reader, the native C++ batcher over
+    `native/loader.cc`), `ops.hashing` and
+    `embedding.UnifiedEmbedding`, and `utils.checkpoint`.
 """
 
 __version__ = "0.1.0"
 
+from recommenders_tpu_torch import data
 from recommenders_tpu_torch import embedding
 from recommenders_tpu_torch import layers
 from recommenders_tpu_torch import metrics
@@ -46,5 +51,5 @@ from recommenders_tpu_torch import optimizers
 from recommenders_tpu_torch import tasks
 from recommenders_tpu_torch import utils
 
-__all__ = ["embedding", "layers", "metrics", "models", "ops", "optimizers",
-           "tasks", "utils"]
+__all__ = ["data", "embedding", "layers", "metrics", "models", "ops",
+           "optimizers", "tasks", "utils"]

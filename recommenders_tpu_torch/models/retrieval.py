@@ -18,7 +18,7 @@ carry across with `utils.convert`.
 
 from __future__ import annotations
 
-from typing import Dict, Mapping, Optional, Sequence, Tuple, Union
+from typing import Callable, Dict, Mapping, Optional, Sequence, Tuple, Union
 
 import torch
 from torch import nn
@@ -43,8 +43,6 @@ class EmbeddingTower(nn.Module):
     """Scalar-id tower: embedding lookup plus an optional MLP head.
 
     Negative ids (padding) are clamped to row 0, as in the JAX tower.
-    The embedding is initialised like the JAX package's default:
-    truncated normal with standard deviation `1/sqrt(embedding_dim)`.
 
     Args:
       vocab_size: Id vocabulary.
@@ -53,6 +51,10 @@ class EmbeddingTower(nn.Module):
         `out_features`).
       device: Where the weights live (default CUDA).
       generator: Optional `torch.Generator` for the initial weights.
+      embedding_init: Optional `(weight, generator)` callable that fills
+        the `[vocab_size, embedding_dim]` table in place (the JAX tower's
+        `embedding_init`). Defaults to the JAX package's default:
+        truncated normal with standard deviation `1/sqrt(embedding_dim)`.
     """
 
     def __init__(
@@ -62,9 +64,12 @@ class EmbeddingTower(nn.Module):
         mlp_units: Sequence[int] = (),
         device: Union[str, torch.device] = "cuda",
         generator: Optional[torch.Generator] = None,
+        embedding_init: Optional[Callable[
+            [Tensor, Optional[torch.Generator]], object]] = None,
     ) -> None:
         super().__init__()
         device = device_lib.resolve(device)
+        self.embedding_init = embedding_init
         self.embedding = nn.Embedding(vocab_size, embedding_dim, device=device)
         self.mlp = (
             blocks.MLP(embedding_dim, tuple(mlp_units), device=device)
@@ -76,10 +81,14 @@ class EmbeddingTower(nn.Module):
     def reset_parameters(
         self, generator: Optional[torch.Generator] = None
     ) -> None:
-        blocks.truncated_normal_(
-            self.embedding.weight, self.embedding.embedding_dim ** -0.5,
-            generator,
-        )
+        if self.embedding_init is None:
+            blocks.truncated_normal_(
+                self.embedding.weight, self.embedding.embedding_dim ** -0.5,
+                generator,
+            )
+        else:
+            with torch.no_grad():
+                self.embedding_init(self.embedding.weight, generator)
         if self.mlp is not None:
             self.mlp.reset_parameters(generator)
 

@@ -37,6 +37,8 @@ from typing import Callable, Optional, Sequence, Tuple, Union
 import torch
 
 from recommenders_tpu_torch.ops import cuda_build
+from recommenders_tpu_torch.ops.hashing import M32 as _M32
+from recommenders_tpu_torch.ops.hashing import mul32 as _mul32
 from recommenders_tpu_torch.utils import device as device_lib
 
 Tensor = torch.Tensor
@@ -44,8 +46,6 @@ Tensor = torch.Tensor
 # scalars tuple) -> new states`: elementwise over rows, and the identity
 # for rows with count == 0.
 RuleFn = Callable[..., Sequence[Tensor]]
-
-_M32 = 0xFFFFFFFF
 
 # The kernel's rule kinds (`csrc/sparse_apply.cu`, enum Kind).
 KIND_IDS = {"sgd": 0, "adagrad": 1, "rowwise_adagrad": 2, "adam": 3,
@@ -75,13 +75,6 @@ class BlockRule:
 
     def __call__(self, *args):
         return self.fn(*args)
-
-
-def _mul32(x: Tensor, c: int) -> Tensor:
-    """`(x · c) mod 2³²` for `0 ≤ x < 2³²` in int64, without overflow."""
-    lo = x * (c & 0xFFFF)
-    hi = ((x * (c >> 16)) & 0xFFFF) << 16
-    return (lo + hi) & _M32
 
 
 def _u32(value: Union[int, Tensor]) -> Union[int, Tensor]:

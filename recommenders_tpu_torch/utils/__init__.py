@@ -1,9 +1,10 @@
-"""Utilities: device resolution, activations, weight conversion,
-profiling."""
+"""Utilities: device resolution, activations, checkpointing, weight
+conversion, profiling."""
 
 from recommenders_tpu_torch.utils import activations
+from recommenders_tpu_torch.utils import checkpoint
 from recommenders_tpu_torch.utils import convert
 from recommenders_tpu_torch.utils import device
 from recommenders_tpu_torch.utils import profiling
 
-__all__ = ["activations", "convert", "device", "profiling"]
+__all__ = ["activations", "checkpoint", "convert", "device", "profiling"]

@@ -2,7 +2,8 @@
 
 `load_flax_params` takes the flax `params` of a `TwoTowerRetrieval`, a
 `Ranking` or a `Multitask` (or of one of their parts: a tower, an `MLP`,
-an interaction, a `TpuEmbedding` / `PartialEmbedding`) as a nested dict
+an interaction, a `TpuEmbedding` / `PartialEmbedding` /
+`UnifiedEmbedding`) as a nested dict
 of NumPy arrays (e.g. `jax.tree.map(np.asarray, params)`, with
 `nn.meta.unbox` applied to a sharded embedding's `Partitioned` boxes)
 and copies them into the port's module; `to_flax_params` is the
@@ -14,6 +15,8 @@ inverse. The names map as (kernels `[in, out]` transposed to
     embedding/{sharded_embedding,dense_embedding}/<table> (Ranking)
                                    ↔ embedding.<partition>.<table>
                                      (padded rows)
+    shared_tables/<table> (UnifiedEmbedding)
+                                   ↔ shared_tables.<table>
     _bottom / _top (Ranking)       ↔ bottom / top
     _interaction/{dense | dense_u, dense_v}      (Cross)
                 / {dense_u_i, dense_v_i}         (MultiLayerDCN)
@@ -190,6 +193,7 @@ def _leaves(model: nn.Module, path: Path = (),
     interactions and embedding collections."""
     from recommenders_tpu_torch.embedding import embedding as embedding_lib
     from recommenders_tpu_torch.embedding import partial
+    from recommenders_tpu_torch.embedding import unified
     from recommenders_tpu_torch.layers import blocks
     from recommenders_tpu_torch.layers import sequential
     from recommenders_tpu_torch.models import multitask
@@ -219,6 +223,10 @@ def _leaves(model: nn.Module, path: Path = (),
             if hasattr(model, part):
                 yield from _leaves(getattr(model, part), path + (part,),
                                    f"{_prefix(name)}{part}")
+        return
+    if isinstance(model, unified.UnifiedEmbedding):
+        yield from _leaves(model.shared_tables, path + ("shared_tables",),
+                           f"{_prefix(name)}shared_tables")
         return
     if isinstance(model, embedding_lib.TpuEmbedding):
         for table in model.table_dict():

@@ -7,12 +7,14 @@ of the script must pass, and the kernels' report must carry every key
 the script promises.
 """
 
+import json
 import re
 import shutil
 import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -440,3 +442,106 @@ def test_device_share_takes_the_union_of_kernel_intervals(tmp_path):
     assert busy == pytest.approx(0.040)          # 10-40 and 60-70 us
     assert n == 3
     assert top[0] == ("a", (pytest.approx(0.030), 2))
+
+
+def test_data_phases_pass_on_cpu_at_a_tiny_size(capsys):
+    """Phases 29-32 at a tiny size: the pipeline (ratings.dat written and
+    read back, vocabularies, the native batcher, fused fit, corpus eval
+    over BruteForce and the padded Bucketed index, checkpoint with a
+    bit-exact resume and a CPU restore, decoded top movies), the
+    featurization towers card-vs-CPU (here CPU against CPU), and the
+    quality-parity runs. Off the card no kernel launches; the bounds
+    against the JAX package's recorded means hold only at the tool's
+    defaults."""
+    from recommenders_tpu_torch.tools import quality_parity
+
+    args = quality_parity.parse_args([
+        "--device", "cpu", "--interactions", "10000", "--epochs", "1",
+        "--batch", "1024", "--examples", "8000", "--uet-epochs", "1"])
+    assert not chip_smoke.full_quality(args)
+    assert chip_smoke.full_quality(quality_parity.parse_args([
+        "--device", "cuda:0"]))
+    counts = chip_smoke.data_slice(
+        torch.device("cpu"),
+        chip_smoke.PipelineSize(users=300, movies=400, ratings=30_000,
+                                dim=16, batch=1024, threads=2),
+        chip_smoke.FeaturizationSize(interactions=10_000, batch=1024,
+                                     steps=2),
+        args, 0)
+    assert counts == [
+        {**{name: {"pipeline, fused fit": 0}
+            for name in chip_smoke.K2_ROWS.values()},
+         "bucketed_scores[f32]": {"pipeline eval, Bucketed f32": 0}},
+        {name: {"quality parity, fused retrieval": 0}
+         for name in chip_smoke.K2_F32_ROWS.values()},
+    ]
+    out = capsys.readouterr().out
+    for name in ("pipeline", "featurization", "quality parity",
+                 "unified embedding"):
+        assert f"phase {name}: ok" in out
+    assert re.search(r"pipeline data: 30000 ratings written as ratings.dat "
+                     r"in \S+ s, read back equal in \S+ s; vocabularies 301 "
+                     r"users, 401 movies built .* \(vocab \S+ s\)", out)
+    assert re.search(r"pipeline fit: native batcher \d+ rows/s alone \(2 "
+                     r"threads\); 23 x 1024, \d+ examples/s", out)
+    for name in ("BruteForce", "Bucketed f32"):
+        assert re.search(rf"pipeline eval {name}: \d+ queries/s, top-\[10, "
+                         rf"100\] accuracy \[0\.\d+, 0\.\d+\]", out)
+    assert re.search(r"pipeline checkpoint: \S+ MB, save \S+ s, restore \S+ "
+                     r"s; 5 resumed steps bit-equal .* restored on the CPU "
+                     r"equal", out)
+    assert re.search(r"top 5 for user_\d+: \['movie_\d+'", out)
+    assert re.search(r"featurization: .* \(relative gaps \[0\.0, 0\.0\]\); "
+                     r"\d+ hash buckets and discretized ids bit-equal", out)
+    for run in ("retrieval", "retrieval fused"):
+        assert re.search(rf"  {run}: top_10 0\.\d+ \(JAX 0.1926\), top_50 "
+                         rf"\S+ \(JAX 0.665\), top_100 \S+ \(JAX 0.8589\)",
+                         out)
+    assert re.search(r"ranking: rmse 0\.\d+ \(JAX 0.8662\)", out)
+    # The fused run against the unfused one, and K2 (here its twin) on
+    # the fused run's own embeddings at the path's shapes.
+    assert re.search(r"quality fused retrieval: K2 launches .*; against "
+                     r"unfused, epoch losses within \S+ relative \(limit "
+                     r"1e-05\), top-k within \S+ \(limit 0\.001\); K2 f32 "
+                     r"on the trained embeddings of a batch \(B=C=1024 "
+                     r"D=32\): loss \S+ vs twin \S+ \(\|err\| 0\)", out)
+    assert re.search(r"uet AUC: collisionless 0\.\d+ \(JAX 0.7279\), hash "
+                     r"\S+ \(JAX 0.5841\), unified \S+ \(JAX 0.7376\)", out)
+
+
+def test_featurization_drift_prints_each_steps_gap(capsys):
+    """`--featurization-drift`'s report: one JSON line of both runs'
+    losses and their relative gaps, here CPU against CPU (equal)."""
+    chip_smoke.featurization_drift(
+        torch.device("cpu"), chip_smoke.FeaturizationSize(
+            interactions=5_000, batch=512, steps=3), 1)
+    report = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert report["seed"] == 1 and report["steps"] == 3
+    assert report["card"] == report["cpu"] and len(report["cpu"]) == 3
+    assert report["gap"] == [0.0, 0.0, 0.0]
+
+
+def test_ratings_dat_round_trips_through_load_movielens(tmp_path):
+    from recommenders_tpu_torch import data
+
+    ds = data.synthetic_movielens(num_users=50, num_movies=60,
+                                  num_interactions=700, seed=3)
+    path = tmp_path / "ratings.dat"
+    chip_smoke.write_ratings_dat(path, ds)
+    assert path.read_text().splitlines()[0].count("::") == 3
+    back = data.load_movielens(str(path), 50, 60)
+    for name in ("user_ids", "movie_ids", "ratings", "timestamps"):
+        np.testing.assert_array_equal(getattr(back, name), getattr(ds, name))
+
+
+def test_padded_bucketed_scores_as_bruteforce_on_narrow_embeddings():
+    gen = torch.Generator().manual_seed(0)
+    corpus = torch.randn(700, 64, generator=gen)
+    queries = torch.randn(8, 64, generator=gen)
+    index = chip_smoke.PaddedBucketed(k=5, device="cpu",
+                                      **chip_smoke.BUCKETED["f32"])
+    index.index(corpus)
+    scores, ids = index(queries)
+    want_scores, want_ids = torch.topk(queries @ corpus.T, 5)
+    torch.testing.assert_close(scores, want_scores, rtol=1e-6, atol=1e-5)
+    assert torch.equal(ids.sort(1).values, want_ids.sort(1).values)

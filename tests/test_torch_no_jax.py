@@ -52,6 +52,10 @@ def test_every_package_file_is_checked():
         "embedding/partial.py", "models/ranking.py", "models/multitask.py",
         "models/hybrid.py", "optimizers/__init__.py",
         "optimizers/clippy_adagrad.py", "optimizers/composite.py",
+        "ops/hashing.py", "embedding/unified.py", "data/__init__.py",
+        "data/vocab.py", "data/preprocessing.py", "data/movielens.py",
+        "data/native_loader.py", "utils/checkpoint.py",
+        "tools/quality_parity.py",
     ):
         assert f"recommenders_tpu_torch/{module}" in names
     assert "chip_smoke.py" in names
