@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Runs the PyTorch port's retrieval serving, ScaNN serving, training,
-trainer, ranking and data slices on one NVIDIA GPU and checks them.
+trainer, ranking, data and distribution slices on one NVIDIA GPU and
+checks them.
 
     python3 chip_smoke.py [--seed 0] [--requests 3]
 
@@ -220,10 +221,38 @@ The data slice (the README's user journey, `examples/full_pipeline.py:
      unified 0.7376, hash 0.5841; `docs/PARITY_HEAD_TO_HEAD.md:33-35`),
      and collisionless − hash and unified − hash both above 0.10.
 
+Distribution (`recommenders_tpu_torch/parallel/`), at the widths above:
+ 33. a one-rank group (NCCL, from a `FileStore`): `ShardedBucketed` in
+     the four formats over the serving corpus (1,024-query request,
+     k = 100), `ShardedScaNN` (`int8_reorder`, K4, and `int8_bucketed`,
+     K5) built over the clustered corpus, the meshed engine
+     (`bench.py`'s, 3 steps), one pooled-negatives step (the quickstart
+     towers, fused: K2 with f32 scores) and 3 `Trainer(mesh)` steps,
+     each bit-equal to its unsharded counterpart (results, and states
+     after the steps); each path's kernels must launch;
+ 34. four ranks share the card (`parallel.launch.run_ranks`, gloo, so
+     collectives stage through host memory): the same indexes on a
+     `(4,)` model axis (each rank holds its shard and launches its own
+     kernels; every rank's results equal), held against phase 33's
+     one-device results: ShardedBucketed recall@100 against BruteForce
+     at least the one-device index's; the gather path's ids equal except
+     inside score ties (counted) and its reorder scores bit-equal; the
+     bucketed path's recall at least one device's; the partition equal
+     to the one-device build's; the meshed engine's f32 states (sgd,
+     adagrad, rowwise_adagrad, adam) bit-equal to unsharded (else within
+     rtol 1e-5 / atol 5e-7, and said which), its bf16 + SR state
+     bit-equal to the same four ranks on the CPU (K1's twin); on a
+     `(2, 2)` data × model mesh, `benchmarks/id_exchange.py`'s exchange
+     (2²⁰ × 128, batch 8,192) equal to the dense gather and scatter-add,
+     the pooled-negatives step's loss and change to rtol 1e-5 and 1e-4 /
+     1e-6 of the global-batch step, and `Trainer(mesh)`'s to those of one
+     device. Each rank prints its request and step times, its time in
+     collectives and its launches, labelled as four ranks on one card.
+
 The phases run in the order serving, ScaNN, training, trainer slice,
-ranking slice, data slice. Each kernel's row in the `{"kernels": [...]}`
-line carries `path_launches`, its launches on the later slices' paths
-(phases 18, 20, 23, 26, 27, 29, 31). It prints the card's
+ranking slice, data slice, distribution. Each kernel's row in the
+`{"kernels": [...]}` line carries `path_launches`, its launches on the
+later slices' paths (phases 18, 20, 23, 26, 27, 29, 31, 33, 34). It prints the card's
 name and power limit, one `{"kernels": [...]}` line
 and, last, `{"ok": true, "device": {...}}`. Without CUDA, or run outside
 a checkout of the repository, it exits non-zero and prints no result.
@@ -276,6 +305,9 @@ from recommenders_tpu_torch.ops import leaf_scoring  # noqa: E402
 from recommenders_tpu_torch.ops import quantization  # noqa: E402
 from recommenders_tpu_torch.ops import scoring  # noqa: E402
 from recommenders_tpu_torch.ops import sparse_apply  # noqa: E402
+from recommenders_tpu_torch.parallel import ann as ann_lib  # noqa: E402
+from recommenders_tpu_torch.parallel import corpus as corpus_lib  # noqa: E402
+from recommenders_tpu_torch.parallel import mesh as parallel_mesh  # noqa: E402
 from recommenders_tpu_torch.tasks import listwise  # noqa: E402
 from recommenders_tpu_torch.tools import quality_parity  # noqa: E402
 from recommenders_tpu_torch.utils import checkpoint  # noqa: E402
@@ -4026,6 +4058,720 @@ def data_slice(device: torch.device, pipeline_size: PipelineSize,
     return counts
 
 
+# --- Distribution: one-rank NCCL group and four ranks on one card ------------
+
+
+@dataclasses.dataclass(frozen=True)
+class ParallelSize:
+    """The two distributed phases' widths: the smoke's own
+    configurations (`Size`, `ScannSize`, `TrainSize`, `TrainerSize`) and
+    `benchmarks/id_exchange.py:53-59`'s exchange (2²⁰ × 128, batch
+    8,192)."""
+    serving: Size = Size(requests=2)
+    scann: ScannSize = ScannSize(requests=2)
+    train: TrainSize = TrainSize()
+    trainer: TrainerSize = TrainerSize()
+    steps: int = 3
+    exchange_rows: int = 1 << 20
+    exchange_dim: int = 128
+    exchange_batch: int = 8192
+
+
+# The sharded ScaNN indexes: the gather path (K4) and the main path (K5).
+PARALLEL_INDEXES = ("int8_reorder", MAIN_INDEX)
+
+
+# Meshed-engine rules held f32-bit-equal to the unsharded engine, and the
+# four-rank fall-back tolerance (`tests/test_meshed_kernel.py`).
+MESHED_KINDS = ("sgd", "adagrad", "rowwise_adagrad", "adam")
+MESHED_RTOL, MESHED_ATOL = 1e-5, 5e-7
+POOLED_LR = 1.0
+
+
+# The report rows each distributed path must launch on the card.
+PATH_ROWS = {
+    "sharded bucketed": [f"bucketed_scores[{f}]" for f in BUCKETED],
+    "sharded ScaNN": ["probed_leaf_scores[int8]",
+                      "probed_bucketed_scores[int8]"],
+    "meshed engine": ["sorted_block_apply[adagrad bf16+SR]"],
+    "pooled negatives": [f"fused_retrieval_{n}[f32 scores]"
+                         for n in ("fwd", "dq", "dc")],
+}
+
+
+def check_launched(device: torch.device, path: str, counts: dict) -> None:
+    """On the card, every kernel of `path` launched (its wrappers count
+    kernel launches only; the CPU runs the twins)."""
+    if device.type != "cuda":
+        return
+    kind = next(k for k in PATH_ROWS if path.startswith(k))
+    idle = [row for row in PATH_ROWS[kind] if not counts.get(row)]
+    check(not idle, f"{path}: {idle} never launched")
+
+
+def request_ms(fn, device: torch.device, calls: int = 3) -> float:
+    """Host ms of one `fn()` ending in a synchronize, the mean of
+    `calls` after a warm-up."""
+    fn()
+    sync(device)
+    start = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    sync(device)
+    return (time.perf_counter() - start) * 1e3 / calls
+
+
+def parallel_group(device: torch.device, root: str):
+    """A one-rank default group from a `FileStore` (NCCL on the card)."""
+    import torch.distributed as dist
+
+    store = dist.FileStore(str(Path(root) / "store"), 1)
+    dist.init_process_group("nccl" if device.type == "cuda" else "gloo",
+                            store=store, rank=0, world_size=1)
+
+
+def reset_all_counts() -> None:
+    reset_counts()
+    reset_leaf_counts()
+    reset_train_counts()
+
+
+def tally(paths: dict, path: str) -> None:
+    """Adds the launches since the last `reset_all_counts` to `path`'s."""
+    into = paths.setdefault(path, {})
+    for row, n in kernel_counts().items():
+        into[row] = into.get(row, 0) + n
+
+
+def group_collectives(device: torch.device, mesh) -> int:
+    """Every collective helper on `mesh`'s one-rank group on tensors on
+    `device` (NCCL on the card), each held to what a one-rank group
+    gives (its input back; the differentiable gather's backward, the
+    cotangent); returns the collectives run."""
+    calls = parallel_mesh.STATS["calls"]
+    gen = torch.Generator(device).manual_seed(5)
+    x = torch.randn(64, 32, generator=gen, device=device)
+    for t in (x, x.to(torch.bfloat16), (x * 100).to(torch.int64),
+              x > 0):
+        check(torch.equal(parallel_mesh.all_gather(t, mesh, "model"), t)
+              and torch.equal(parallel_mesh.broadcast(t, mesh, "model"), t),
+              f"phase 33: a one-rank all-gather or broadcast of {t.dtype} "
+              "changed its input")
+    for op in ("sum", "max", "min"):
+        check(torch.equal(parallel_mesh.all_reduce(x, mesh, "model", op),
+                          x), f"phase 33: a one-rank all-reduce {op} "
+              "changed its input")
+    leaf = x.clone().requires_grad_(True)
+    (parallel_mesh.gather(leaf, mesh, "model") * x).sum().backward()
+    check(torch.equal(leaf.grad, x), "phase 33: the one-rank gather's "
+          "backward is not its cotangent")
+    return parallel_mesh.STATS["calls"] - calls
+
+
+def kernel_counts() -> dict:
+    """Launches by report row since the last `reset_all_counts`."""
+    out = {f"bucketed_scores[{f}]": n for f, n in
+           scoring.bucketed_scores.launches_by_format.items()}
+    for fn in KERNEL_FNS.values():
+        out.update({f"{fn.__name__}[{f}]": n
+                    for f, n in fn.launches_by_format.items()})
+    out["sorted_block_apply[adagrad bf16+SR]"] = (
+        sparse_apply.sorted_block_apply.launches)
+    by = fused_retrieval.fused_retrieval_loss.launches_by_kernel
+    for name in K2_ROWS:
+        for label in ("bf16", "f32"):
+            out[f"fused_retrieval_{name}[{label} scores]"] = by.get(
+                (name, label), 0)
+    return out
+
+
+def serving_inputs(size: Size, seed: int, device: torch.device):
+    """(the serving slice's 1M × 128 corpus, its first request of 1024
+    users' query embeddings), from `serving_model`'s weights."""
+    model, _ = serving_model(size, seed, device)
+    with torch.no_grad():
+        corpus = model.candidate_embeddings(
+            {"movie_id": torch.arange(size.items, device=device)})
+        users = torch.from_numpy(np.random.RandomState(seed + 1).randint(
+            0, size.users, size.batch)).to(device)
+        queries = model.query_embeddings({"user_id": users})
+    return corpus.contiguous(), queries
+
+
+def meshed_engine(size: TrainSize, device, mesh, kind: str, bf16: bool):
+    """`bench.py`'s engine (or its f32 form under `kind`) on `mesh`."""
+    return emb_engine.EmbeddingEngine(
+        (emb_config.FeatureConfig(emb_config.TableConfig(
+            size.users, size.dim, name="user"), name="user_id"),
+         emb_config.FeatureConfig(emb_config.TableConfig(
+             size.items, size.dim, name="item"), name="item_id")),
+        optimizer=emb_config.OptimizerSpec(kind=kind,
+                                           learning_rate=TRAIN_LR),
+        dtype=torch.bfloat16 if bf16 else torch.float32,
+        slot_dtype=torch.bfloat16 if bf16 else None,
+        stochastic_rounding=bf16, mesh=mesh, device=device)
+
+
+def engine_steps(size: TrainSize, device, mesh, kind: str, bf16: bool,
+                 seed: int, act_grads=None) -> tuple:
+    """3 unfused steps of the engine from `logical_state`'s tables and
+    the slots `init` gives `kind`: (the logical state after them as NumPy,
+    bf16 as bits; the activation grads each step took, on the CPU). With
+    `act_grads`, the steps apply those instead of their own (the card's
+    grads fed to a CPU run, so K1's twin meets the kernel's inputs)."""
+    engine = meshed_engine(size, device, mesh, kind, bf16)
+    start = convert.engine_state_to_logical(engine, engine.init())
+    start["tables"] = logical_state(size, seed)["tables"]
+    state = convert.engine_state_from_logical(engine, start)
+    taken = []
+    for i, batch in enumerate(train_batches(size, seed + 5, 3, device)):
+        if act_grads is None:
+            acts = engine.lookup(state, batch)
+            _, _, grads = engine._value_and_grad(train_loss(False), acts)
+            taken.append({k: v.cpu() for k, v in grads.items()})
+        else:
+            grads = {k: v.to(device) for k, v in act_grads[i].items()}
+        state = engine.update(state, batch, grads)
+    return convert.engine_state_to_logical(engine, state), taken
+
+
+def same_logical(a: dict, b: dict) -> bool:
+    return all(np.array_equal(a["tables"][n], b["tables"][n])
+               and all(np.array_equal(a["slots"][n][k], b["slots"][n][k])
+                       for k in a["slots"][n])
+               for n in a["tables"])
+
+
+def logical_close(a: dict, b: dict) -> bool:
+    return all(np.allclose(a["tables"][n], b["tables"][n],
+                           rtol=MESHED_RTOL, atol=MESHED_ATOL)
+               for n in a["tables"])
+
+
+def pooled_model(size: TrainerSize, device, seed: int):
+    """The quickstart towers with the fused task at f32 scores (K2's
+    f32 bodies): bf16 scores round the backward's coefficients to bf16,
+    where the pooled step's other sum order moves them by an ulp."""
+    model = trainer_model(size, device, fused=True, seed=seed)
+    model.task = tasks.Retrieval(fused=True)
+    return model
+
+
+def pooled_run(size: TrainerSize, device, mesh, seed: int) -> tuple:
+    """One pooled-negatives step (fused, f32 scores, SGD lr 1) of the
+    quickstart towers on `mesh`'s data axis, over the global batch;
+    (loss, the parameters' change as NumPy)."""
+    from recommenders_tpu_torch.parallel import retrieval_step
+
+    model = pooled_model(size, device, seed)
+    before = cpu_params(model)
+    opt = torch.optim.SGD(model.parameters(), lr=POOLED_LR)
+    step = retrieval_step.make_pooled_negatives_train_step(model, opt, mesh)
+    batch = trainer_batches(size, seed + 3, 1)[0]
+    local = {k: torch.from_numpy(v).to(device) for k, v in
+             parallel_mesh.shard_batch(batch, mesh).items()}
+    loss = float(step(local))
+    return loss, {k: (v - before[k]).numpy() for k, v in
+                  cpu_params(model).items()}
+
+
+def global_step(size: TrainerSize, device, seed: int) -> tuple:
+    """The one-device step `pooled_run` must equal: the global batch
+    through the fused task, SGD lr 1."""
+    model = pooled_model(size, device, seed)
+    before = cpu_params(model)
+    opt = torch.optim.SGD(model.parameters(), lr=POOLED_LR)
+    batch = {k: torch.from_numpy(v).to(device) for k, v in
+             trainer_batches(size, seed + 3, 1)[0].items()}
+    opt.zero_grad()
+    loss = model.task(model.query_embeddings(batch),
+                      model.candidate_embeddings(batch)).loss
+    loss.backward()
+    opt.step()
+    return float(loss.detach()), {k: (v - before[k]).numpy() for k, v in
+                         cpu_params(model).items()}
+
+
+def trainer_run(size: TrainerSize, device, mesh, seed: int) -> tuple:
+    """`size.parity_steps` `Trainer` steps (unfused, quickstart Adagrad)
+    on `mesh` (or one device); (losses, final parameters as NumPy)."""
+    model = trainer_model(size, device, fused=False, seed=seed)
+    run = models.Trainer(model, quickstart_adagrad, mesh=mesh)
+    state, losses = run.init(), []
+    for batch in trainer_batches(size, seed + 4, size.parity_steps):
+        state, loss = run.train_step(state, batch)
+        losses.append(float(loss))
+    return losses, {k: v.numpy() for k, v in cpu_params(model).items()}
+
+
+def one_rank(device: torch.device, size: ParallelSize, seed: int) -> tuple:
+    """Phase 33: every sharded entry point on a one-rank group (NCCL on
+    the card) at full width, each bit-equal to its unsharded
+    counterpart. Returns (the launches by report row, the references
+    phase 34 compares with)."""
+    import torch.distributed as dist
+    from recommenders_tpu_torch import parallel
+
+    started = time.perf_counter()
+    laps, last = {}, [started]
+
+    def lap(name):
+        sync(device)
+        now = time.perf_counter()
+        laps[name] = round(now - last[0], 3)
+        last[0] = now
+
+    root = tempfile.mkdtemp(prefix="one_rank_")
+    parallel_group(device, root)
+    ref, paths = {}, {}
+    try:
+        model_mesh = parallel.create_mesh((1,), ("model",), device.type)
+        data_mesh = parallel.create_mesh((1,), ("data",), device.type)
+        corpus, queries = serving_inputs(size.serving, seed, device)
+        ref["brute"] = factorized_top_k.BruteForce(
+            k=K, device=device).index(corpus)(queries)[1].cpu().numpy()
+        parallel_mesh.reset_stats()
+        collectives = {"helpers": group_collectives(device, model_mesh)}
+        timings = {}
+        for fmt, kw in BUCKETED.items():
+            single = factorized_top_k.Bucketed(
+                k=K, device=device, **kw).index(corpus)
+            sharded = ann_lib.ShardedBucketed(
+                k=K, mesh=model_mesh, device=device, **kw).index(corpus)
+            reset_all_counts()
+            got = sharded(queries)
+            tally(paths, "sharded bucketed 1-rank")
+            want = single(queries)
+            timings[f"bucketed {fmt}"] = (
+                request_ms(lambda: single(queries), device),
+                request_ms(lambda: sharded(queries), device))
+            check(all(torch.equal(a, b) for a, b in zip(got, want)),
+                  f"phase 33: one-rank ShardedBucketed {fmt} differs "
+                  "from Bucketed")
+            ref[f"bucketed {fmt}"] = want[1].cpu().numpy()
+        del corpus
+        lap("bucketed")
+        scann_corpus, requests = clustered_data(size.scann, seed)
+        scann_corpus = torch.from_numpy(scann_corpus).to(device)
+        scann_q = torch.from_numpy(requests[0]).to(device)
+        configs = scann_configs(size.scann)
+        for name in PARALLEL_INDEXES:
+            settings = configs[name][0]
+            single = approximate.ScaNN(k=K, device=device, **settings).index(
+                scann_corpus)
+            want = single(scann_q)
+            ref[f"scann {name}"] = tuple(x.cpu().numpy() for x in want)
+            ref[f"scann {name} centroids"] = single._centroids.cpu().numpy()
+            sharded = ann_lib.ShardedScaNN(approximate.ScaNN(
+                k=K, device=device, **settings), mesh=model_mesh).index(
+                    scann_corpus)
+            reset_all_counts()
+            got = sharded(scann_q)
+            tally(paths, "sharded ScaNN 1-rank")
+            timings[f"scann {name}"] = (
+                request_ms(lambda: single(scann_q), device),
+                request_ms(lambda: sharded(scann_q), device))
+            check(all(torch.equal(a, b) for a, b in zip(got, want)),
+                  f"phase 33: one-rank ShardedScaNN {name} differs from "
+                  "ScaNN")
+        ref["scann brute"] = factorized_top_k.BruteForce(
+            k=K, device=device).index(scann_corpus)(scann_q)[1].cpu().numpy()
+        del scann_corpus
+        lap("scann")
+        reset_all_counts()
+        got = engine_steps(size.train, device, model_mesh, "adagrad", True,
+                           seed)[0]
+        paths["meshed engine 1-rank"] = kernel_counts()
+        want = engine_steps(size.train, device, None, "adagrad", True,
+                            seed)[0]
+        check(same_logical(got, want), "phase 33: one-rank meshed engine "
+              "differs from the unsharded engine")
+        for kind in MESHED_KINDS:
+            ref[f"engine {kind}"] = engine_steps(size.train, device, None,
+                                                 kind, False, seed)[0]
+        lap("engine")
+        reset_all_counts()
+        pooled = pooled_run(size.trainer, device, data_mesh, seed)
+        paths["pooled negatives 1-rank"] = kernel_counts()
+        ref["global step"] = global_step(size.trainer, device, seed)
+        check(pooled[0] == ref["global step"][0] and all(
+            np.array_equal(pooled[1][k], v)
+            for k, v in ref["global step"][1].items()),
+            "phase 33: one-rank pooled negatives differ from the "
+            "global-batch step")
+        got = trainer_run(size.trainer, device, data_mesh, seed)
+        ref["trainer"] = trainer_run(size.trainer, device, None, seed)
+        check(got[0] == ref["trainer"][0] and all(
+            np.array_equal(got[1][k], v)
+            for k, v in ref["trainer"][1].items()),
+            "phase 33: one-rank Trainer(mesh) differs from Trainer")
+        lap("pooled and trainer")
+        collectives["sharded paths"] = (parallel_mesh.STATS["calls"]
+                                        - collectives["helpers"])
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(root, ignore_errors=True)
+    for path, counts in paths.items():
+        check_launched(device, path, counts)
+    backend = "NCCL" if device.type == "cuda" else "gloo"
+    print(f"  one-rank {backend} collectives run: {collectives}; launches "
+          + json.dumps({p: {k: v for k, v in c.items() if v}
+                        for p, c in paths.items()}))
+    print("  one-rank request ms (one device, one-rank sharded): "
+          + json.dumps({k: [round(a, 3), round(b, 3)]
+                        for k, (a, b) in timings.items()}))
+    phase("33 one-rank group", started,
+          "ShardedBucketed x4, ShardedScaNN x2, meshed engine, pooled "
+          f"negatives, Trainer(mesh) bit-equal to unsharded; s {laps}")
+    return paths, ref
+
+
+def _digest(tree) -> str:
+    """A digest of the arrays and numbers of a nested result."""
+    import hashlib
+
+    h = hashlib.sha256()
+
+    def walk(x):
+        if isinstance(x, torch.Tensor):
+            x = x.detach().cpu().contiguous().reshape(-1).view(torch.uint8)
+        if isinstance(x, dict):
+            for k in sorted(x):
+                h.update(str(k).encode())
+                walk(x[k])
+        elif isinstance(x, (list, tuple)):
+            for v in x:
+                walk(v)
+        else:
+            h.update(np.ascontiguousarray(np.asarray(x)).tobytes())
+
+    walk(tree)
+    return h.hexdigest()[:16]
+
+
+def four_rank_worker(device: torch.device, size: ParallelSize,
+                     seed: int) -> dict:
+    """Phase 34's rank: every sharded path on this rank's shard. Rank 0
+    returns the arrays the parent compares; every rank its digests,
+    launches and times."""
+    import torch.distributed as dist
+    from recommenders_tpu_torch import parallel
+    from recommenders_tpu_torch.parallel import embedding_lookup
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rank = dist.get_rank()
+    out = {"rank": rank, "launches": {}, "ms": {}, "digests": {}}
+    keep = rank == 0
+    model_mesh = parallel.create_mesh((4,), ("model",), device.type)
+    grid = parallel.create_mesh((2, 2), device_type=device.type)
+
+    def timed(label, fn):
+        sync(device)
+        start = time.perf_counter()
+        value = fn()
+        sync(device)
+        out["ms"][label] = (time.perf_counter() - start) * 1e3
+        return value
+
+    def record(path, value):
+        out["digests"][path] = _digest(value)
+        if keep:
+            out[path] = value
+
+    parallel_mesh.reset_stats()
+    reset_all_counts()
+    corpus, queries = serving_inputs(size.serving, seed, device)
+    shards = {}
+    for fmt, kw in BUCKETED.items():
+        index = ann_lib.ShardedBucketed(k=K, mesh=model_mesh, device=device,
+                                        **kw).index(corpus)
+        index(queries)   # warm-up
+        got = timed(f"bucketed {fmt} request",
+                    lambda: index(queries))
+        record(f"bucketed {fmt}", tuple(x.cpu().numpy() for x in got))
+        shards[fmt] = (index, got)
+    out["launches"]["sharded bucketed 4-rank"] = kernel_counts()
+    out["shard twin"] = {}
+    for fmt, (index, (scores, ids)) in shards.items():
+        out["shard twin"][fmt] = shard_against_twin(index, queries, fmt)
+        if keep:
+            out[f"bucketed {fmt} dot err"] = exact_dots(
+                fmt, corpus, queries, scores, ids, device)
+    del corpus, index, shards
+    reset_all_counts()
+    scann_corpus, requests = clustered_data(size.scann, seed)
+    scann_corpus = torch.from_numpy(scann_corpus).to(device)
+    scann_q = torch.from_numpy(requests[0]).to(device)
+    configs = scann_configs(size.scann)
+    for name in PARALLEL_INDEXES:
+        index = ann_lib.ShardedScaNN(approximate.ScaNN(
+            k=K, device=device, **configs[name][0]),
+            mesh=model_mesh).index(scann_corpus)
+        index(scann_q)   # warm-up
+        got = timed(f"scann {name} request", lambda: index(scann_q))
+        record(f"scann {name}", tuple(x.cpu().numpy() for x in got))
+        record(f"scann {name} centroids", index._centroids.cpu().numpy())
+    del scann_corpus, index
+    out["launches"]["sharded ScaNN 4-rank"] = kernel_counts()
+    reset_all_counts()
+    state, grads = timed("meshed engine 3 steps", lambda: engine_steps(
+        size.train, device, model_mesh, "adagrad", True, seed))
+    record("engine bf16", state)
+    record("engine grads", grads)
+    out["launches"]["meshed engine 4-rank"] = kernel_counts()
+    for kind in MESHED_KINDS:
+        record(f"engine {kind}", engine_steps(
+            size.train, device, model_mesh, kind, False, seed)[0])
+    # The id exchange on (data, model) = (2, 2).
+    gen = torch.Generator(device).manual_seed(seed + 7)
+    table = torch.randn(size.exchange_rows, size.exchange_dim,
+                        generator=gen, device=device)
+    ids = torch.randint(0, size.exchange_rows, (size.exchange_batch,),
+                        generator=gen, device=device)
+    grads = torch.randn(size.exchange_batch, size.exchange_dim,
+                        generator=gen, device=device)
+    shard = corpus_lib.shard_rows(table, grid, "model").contiguous()
+    local_ids = parallel.shard_batch(ids, grid)
+    rows = timed("exchange lookup", lambda: embedding_lookup.sharded_lookup(
+        shard, local_ids, grid))
+    added = timed("exchange scatter-add",
+                  lambda: embedding_lookup.sharded_scatter_add(
+                      shard, local_ids, parallel.shard_batch(grads, grid),
+                      grid, scale=-0.1))
+    dense = table.clone().index_add_(0, ids, -0.1 * grads)
+    out["exchange ok"] = (
+        torch.equal(rows, table[local_ids])
+        and bool(torch.allclose(added, corpus_lib.shard_rows(
+            dense, grid, "model"), rtol=1e-6, atol=1e-6)))
+    del table, dense, shard
+    # The first optimizer step of a process under a process group
+    # imports `torch.distributed.tensor` (seconds of host time): once
+    # off the clock.
+    pooled_run(size.trainer, device, grid, seed)
+    reset_all_counts()
+    record("pooled", timed("pooled negatives step",
+                           lambda: pooled_run(size.trainer, device,
+                                              grid, seed)))
+    out["launches"]["pooled negatives 4-rank"] = kernel_counts()
+    record("trainer", timed("Trainer(mesh) steps", lambda: trainer_run(
+        size.trainer, device, grid, seed)))
+    out["collectives"] = dict(parallel_mesh.STATS)
+    for path, counts in out["launches"].items():
+        check_launched(device, path, counts)
+    return out
+
+
+def shard_against_twin(index, queries: torch.Tensor, fmt: str) -> dict:
+    """This rank's K3 launch over its own shard, with the shard's
+    `valid_rows` (below the shard's rows on the last rank), against
+    `bucketed_scores_reference` at the same `valid_rows`: scores within
+    `score_tolerance`, ids equal where the twin's bucket winner is clear
+    of its runner-up, and no padding row where the twin found a real
+    one. Returns the rank's valid rows and the max |err|."""
+    q = (queries if index._quantize
+         else queries.to(index._candidates.dtype))[:TWIN_QUERIES]
+    packed4 = fmt == "int4"
+    vals, rows = scoring.bucketed_scores_padded(
+        q, index._candidates, index._scales, index._buckets, index._chunk,
+        index._query_tile, index._valid_rows, packed4)
+    twin_vals, twin_rows = scoring.bucketed_scores_reference(
+        q, index._candidates, index._scales, buckets=index._buckets,
+        valid_rows=index._valid_rows, packed4=packed4)
+    err = (vals - twin_vals).abs()
+    tol = score_tolerance(index, q, twin_rows, twin_vals)
+    check(bool((err <= tol).all()), f"phase 34: shard K3 {fmt} scores off "
+          f"the twin by {float(err.max())}")
+    real = twin_vals > scoring.MIN_FLOAT / 2
+    check(bool((rows[real] < index._valid_rows).all()),
+          f"phase 34: shard K3 {fmt} returned a padding row")
+    stored = index._candidates
+    if packed4:
+        stored = quantization.unpack_nibbles(stored)
+    table = scoring.reference_scores(
+        q, stored, index._scales, index._valid_rows).view(
+            q.shape[0], -1, index._buckets)
+    if table.shape[1] > 1:
+        top2 = table.topk(2, dim=1).values
+        separated = (top2[:, 0] - top2[:, 1]) > 2 * tol
+    else:   # one row a bucket: its winner has no runner-up
+        separated = torch.ones_like(real)
+    check(torch.equal(rows[separated], twin_rows[separated]),
+          f"phase 34: shard K3 {fmt} ids differ from the twin's in a "
+          "separated bucket")
+    return {"valid_rows": index._valid_rows,
+            "rows": index._rows_per_shard,
+            "max_abs_err": float(err.max())}
+
+
+def exact_dots(fmt: str, corpus: torch.Tensor, queries: torch.Tensor,
+               scores: torch.Tensor, ids: torch.Tensor, device) -> float:
+    """The sharded index's returned scores against exact dots of the
+    returned rows: f32 dots of the corpus rows, or of the rows as one
+    device's index of the format stores them (bf16, or dequantized
+    codes: a row's codes depend on that row only), within
+    `score_tolerance`. Returns the max |err|."""
+    single = factorized_top_k.Bucketed(k=K, device=device,
+                                       **BUCKETED[fmt]).index(corpus)
+    check(bool((ids >= 0).all()), f"phase 34: ShardedBucketed {fmt} "
+          "returned an empty slot")
+    codes, scales = stored_rows(single, ids)
+    exact = (scored_query(single, queries)[:, None, :]
+             * codes).sum(-1) * scales
+    tol = score_tolerance(single, queries, ids, exact)
+    err = (scores - exact).abs()
+    check(bool((err <= tol).all()), f"phase 34: ShardedBucketed {fmt}'s "
+          f"scores are not exact dots of its rows ({float(err.max())})")
+    return float(err.max())
+
+
+def engine_cpu_worker(device: torch.device, size: TrainSize, seed: int,
+                      act_grads: list):
+    """The four-rank bf16 + SR engine on the CPU (K1's twin per shard)
+    fed the card's activation grads: the card's bit-level reference."""
+    from recommenders_tpu_torch import parallel
+
+    mesh = parallel.create_mesh((4,), ("model",), device.type)
+    return engine_steps(size, device, mesh, "adagrad", True, seed,
+                        act_grads)[0]
+
+
+def ties_apart(got: tuple, want: tuple) -> int:
+    """Positions where two top-k id lists differ; each must sit in a
+    score tie (the same score twice in its row), or the check fails."""
+    (gs, gi), (ws, wi) = got, want
+    apart = np.argwhere(gi != wi)
+    for r, c in apart:
+        tied = (ws[r] == ws[r, c]).sum() > 1 or (gs[r] == gs[r, c]).sum() > 1
+        check(tied and set(gi[r]) == set(wi[r]),
+              f"phase 34: row {r} col {c} differs outside a score tie")
+    return len(apart)
+
+
+def four_ranks(device: torch.device, size: ParallelSize, ref: dict,
+               seed: int) -> dict:
+    """Phase 34: four processes share the card through `run_ranks` on
+    gloo (collectives staged through host memory); each runs its
+    shard's K1 / K3 / K4 / K5 / K2. Held against phase 33's unsharded
+    references. Returns the launches by report row (all ranks)."""
+    from recommenders_tpu_torch.parallel import launch
+
+    started = time.perf_counter()
+    ranks = launch.run_ranks(four_rank_worker, 4, "gloo", device.type,
+                             size, seed, timeout=900, threads=2)
+    r0 = ranks[0]
+    for r in ranks[1:]:
+        apart = [k for k in r0["digests"]
+                 if r["digests"][k] != r0["digests"][k]]
+        check(not apart, f"phase 34: rank {r['rank']}'s {apart} differ "
+              "from rank 0's")
+    brute = ref["brute"]
+    for fmt in BUCKETED:
+        scores, ids = r0[f"bucketed {fmt}"]
+        got, one = recall(torch.from_numpy(ids), torch.from_numpy(brute)), \
+            recall(torch.from_numpy(ref[f"bucketed {fmt}"]),
+                   torch.from_numpy(brute))
+        check(got >= one, f"phase 34: ShardedBucketed {fmt} recall@100 "
+              f"{got:.4f} below one device's {one:.4f}")
+        twins = [r["shard twin"][fmt] for r in ranks]
+        print(f"  sharded bucketed {fmt}: recall@100 {got:.4f} "
+              f"(one device {one:.4f}); scores exact dots (max |err| "
+              f"{r0[f'bucketed {fmt} dot err']:.3g}); each shard's K3 vs "
+              "its twin at its valid rows: "
+              + json.dumps([[t["valid_rows"], t["rows"],
+                             float(f"{t['max_abs_err']:.3g}")]
+                            for t in twins]))
+    ties = {}
+    for name in PARALLEL_INDEXES:
+        check(np.array_equal(r0[f"scann {name} centroids"],
+                             ref[f"scann {name} centroids"]),
+              f"phase 34: {name}'s ranks built another partition than "
+              "one device")
+        got, want = r0[f"scann {name}"], ref[f"scann {name}"]
+        if configs_gather(size, name):
+            ties[name] = ties_apart(got, want)
+            check(np.array_equal(np.sort(got[0], 1), np.sort(want[0], 1)),
+                  f"phase 34: {name}'s reorder scores are not bit-equal")
+        else:
+            mine = recall(torch.from_numpy(got[1]),
+                          torch.from_numpy(ref["scann brute"]))
+            one = recall(torch.from_numpy(want[1]),
+                         torch.from_numpy(ref["scann brute"]))
+            check(mine >= one, f"phase 34: {name} recall@100 {mine:.4f} "
+                  f"below one device's {one:.4f}")
+            print(f"  sharded {name}: recall@100 {mine:.4f} (one device "
+                  f"{one:.4f})")
+    print(f"  sharded ScaNN gather path: {ties} ids apart, each in a score "
+          "tie")
+    reasons = {}
+    for kind in MESHED_KINDS:
+        got, want = r0[f"engine {kind}"], ref[f"engine {kind}"]
+        if same_logical(got, want):
+            reasons[kind] = "bit-equal"
+        else:
+            check(logical_close(got, want), f"phase 34: meshed {kind} "
+                  f"outside rtol {MESHED_RTOL} / atol {MESHED_ATOL}")
+            reasons[kind] = "within tolerance"
+    print(f"  meshed engine f32 vs unsharded: {reasons}")
+    host = launch.run_ranks(engine_cpu_worker, 4, "gloo", "cpu", size.train,
+                            seed, r0["engine grads"], timeout=600,
+                            threads=2)[0]
+    check(same_logical(r0["engine bf16"], host), "phase 34: the four-rank "
+          "bf16 + SR engine differs from its CPU run")
+    check(all(r["exchange ok"] for r in ranks),
+          "phase 34: the (2, 2) id exchange differs from the dense gather")
+    loss, change = r0["pooled"]
+    want_loss, want_change = ref["global step"]
+    check(np.isclose(loss, want_loss, rtol=1e-5) and all(
+        np.allclose(change[k], v, rtol=1e-4, atol=1e-6)
+        for k, v in want_change.items()),
+        "phase 34: pooled negatives differ from the global-batch step")
+    losses, params = r0["trainer"]
+    want_losses, want_params = ref["trainer"]
+    check(np.allclose(losses, want_losses, rtol=1e-5) and all(
+        np.allclose(params[k], v, rtol=1e-4, atol=1e-6)
+        for k, v in want_params.items()),
+        "phase 34: Trainer(mesh) differs from the global-batch step")
+    card = (torch.cuda.get_device_name(0) if device.type == "cuda"
+            else "CPU")
+    label = f"4 ranks on one {card}, gloo through host"
+    for r in ranks:
+        launched = {p: {k: v for k, v in c.items() if v}
+                    for p, c in r["launches"].items()}
+        print(f"  rank {r['rank']} ({label}): ms "
+              + json.dumps({k: round(v, 3) for k, v in r["ms"].items()})
+              + f"; collectives {r['collectives']['calls']} calls "
+              f"{r['collectives']['seconds'] * 1e3:.1f} ms host, "
+              f"{r['collectives']['staged_bytes'] / 2**20:.1f} MiB staged; "
+              f"launches {json.dumps(launched)}", flush=True)
+    paths = {}
+    for path in r0["launches"]:
+        for row in r0["launches"][path]:
+            total = sum(r["launches"][path][row] for r in ranks)
+            paths.setdefault(row, {})[f"{path} (all ranks)"] = total
+    phase("34 four ranks on one card", started, label)
+    return paths
+
+
+def configs_gather(size: ParallelSize, name: str) -> bool:
+    return scann_configs(size.scann)[name][1] == "K4"
+
+
+def distribution(device: torch.device, size: ParallelSize, seed: int):
+    """Phases 33-34; returns the launches by report row and path."""
+    paths, ref = one_rank(device, size, seed)
+    four = four_ranks(device, size, ref, seed)
+    by_row = {}
+    for path, counts in paths.items():
+        for row, n in counts.items():
+            if n:
+                by_row.setdefault(row, {})[path] = n
+    for row, by_path in four.items():
+        for path, n in by_path.items():
+            if n:
+                by_row.setdefault(row, {})[path] = n
+    return by_row
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -4063,6 +4809,7 @@ def main() -> int:
     counts_by_phase += data_slice(
         device, PipelineSize(), FeaturizationSize(),
         quality_parity.parse_args(["--device", str(device)]), args.seed)
+    counts_by_phase.append(distribution(device, ParallelSize(), args.seed))
     for counts in counts_by_phase + [k2_f32]:
         for row, by_path in counts.items():
             paths.setdefault(row, {}).update(by_path)

@@ -16,17 +16,24 @@ JAX package.
 its tables as `nn.Parameter`s, one per `TableConfig.name`, rows padded
 to a multiple of 128, and looks features up through `lookup_feature`.
 Its gradients are dense (the autograd of the gather), as under optax;
-the sparse path is `engine.EmbeddingEngine`.
+the sparse path is `engine.EmbeddingEngine`. With a `mesh` and
+`shard_tables`, each table parameter holds this rank's rows of the table
+(row-sharded over the table axis, as `nn.with_partitioning((MODEL_AXIS,
+None))` shards it in JAX, `recommenders_tpu/embedding/embedding.py:177`)
+and lookups go through `parallel.embedding_lookup.ShardedGather`.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Mapping, Optional, Sequence, Tuple, Union
+from typing import Callable, Dict, Mapping, Optional, Sequence, Tuple, Union
 
 import torch
 from torch import nn
 
 from recommenders_tpu_torch.embedding import config as config_lib
+from recommenders_tpu_torch.ops import sparse_apply
+from recommenders_tpu_torch.parallel import embedding_lookup
+from recommenders_tpu_torch.utils import collectives
 from recommenders_tpu_torch.utils import device as device_lib
 
 Tensor = torch.Tensor
@@ -77,32 +84,61 @@ def combine(
     raise ValueError(f"Unknown combiner {combiner!r}")
 
 
+class _GatherRows(torch.autograd.Function):
+    """`table[rows]` whose backward sums duplicate rows' gradients in
+    batch order (`sparse_apply.fixed_order_index_add_`), so two backward
+    passes give the same bits. `index_select`'s own backward
+    (`index_add_`) adds with atomics on the card, in arrival order."""
+
+    @staticmethod
+    def forward(ctx, table, rows):
+        ctx.save_for_backward(rows)
+        ctx.shape = table.shape
+        return torch.index_select(table, 0, rows)
+
+    @staticmethod
+    def backward(ctx, grad):
+        (rows,) = ctx.saved_tensors
+        out = torch.zeros(ctx.shape, dtype=grad.dtype, device=grad.device)
+        return sparse_apply.fixed_order_index_add_(out, rows, grad), None
+
+
 def gather_rows(table: Tensor, ids: Tensor) -> Tensor:
     """`table[max(ids, 0)]` as a new tensor (never a view), with
-    `PAD_ID` positions zeroed."""
-    out = torch.index_select(table, 0, torch.clamp(ids.reshape(-1), min=0))
+    `PAD_ID` positions zeroed. Differentiable in `table`, with
+    duplicate ids' gradients summed in a fixed order."""
+    rows = torch.clamp(ids.reshape(-1), min=0)
+    if table.requires_grad and torch.is_grad_enabled():
+        out = _GatherRows.apply(table, rows)
+    else:
+        out = torch.index_select(table, 0, rows)
     out = out.view(tuple(ids.shape) + (table.shape[1],))
-    return out.masked_fill_((ids == PAD_ID)[..., None], 0.0)
+    return out.masked_fill((ids == PAD_ID)[..., None], 0.0)
 
 
 def lookup_feature(
     table: Tensor,
     feature_config: config_lib.FeatureConfig,
     feature: FeatureInput,
+    gather: Callable[[Tensor, Tensor], Tensor] = None,
 ) -> Tensor:
-    """Looks one feature up in a table. Returns a new tensor."""
+    """Looks one feature up in a table. Returns a new tensor.
+
+    `gather(table, ids)` reads the rows (default `gather_rows`; a
+    sharded table passes its exchange)."""
+    gather = gather or gather_rows
     if isinstance(feature, tuple):
         ids, weights = feature
     else:
         ids, weights = feature, None
     if ids.dim() == 1:
-        return gather_rows(table, ids)
+        return gather(table, ids)
     if ids.dim() != 2:
         raise ValueError(
             f"Feature {feature_config.name!r} ids must be rank 1 or 2, got "
             f"shape {tuple(ids.shape)}."
         )
-    gathered = gather_rows(table, ids)                  # [B, L, dim]
+    gathered = gather(table, ids)                       # [B, L, dim]
     if feature_config.max_sequence_length > 0:
         return gathered
     return combine(gathered, ids, feature_config.table.combiner, weights)
@@ -131,13 +167,16 @@ class TpuEmbedding(nn.Module):
 
     Args:
       feature_configs: The feature declarations.
-      shard_tables: Whether the tables are meant to be row-sharded (the
-        meshed layout comes with the distribution slice). On one device
-        every table is whole either way.
+      shard_tables: Row-shard the tables over the mesh's table axis
+        (with a `mesh`); without one every table is whole either way.
       dtype: Table dtype.
       device: Where the tables live (default CUDA).
       generator: Optional `torch.Generator` for the initial tables, drawn
-        in table order by each table's initializer.
+        in table order by each table's initializer. With a mesh every
+        rank draws the whole tables and keeps its rows, so the logical
+        tables do not depend on the mesh.
+      mesh: Optional `parallel.Mesh`.
+      table_axis: The mesh axis the tables' rows are sharded over.
     """
 
     def __init__(
@@ -147,11 +186,17 @@ class TpuEmbedding(nn.Module):
         dtype: torch.dtype = torch.float32,
         device: device_lib.DeviceLike = "cuda",
         generator: Optional[torch.Generator] = None,
+        mesh: Optional[collectives.Mesh] = None,
+        table_axis: str = collectives.MODEL_AXIS,
     ) -> None:
         super().__init__()
         device = device_lib.resolve(device)
         self.feature_configs = tuple(feature_configs)
         self.shard_tables = shard_tables
+        self.mesh = collectives.check_mesh(mesh, "TpuEmbedding")
+        self.table_axis = table_axis
+        shards = collectives.axis_size(mesh, table_axis) if shard_tables else 1
+        self._sharded = shards > 1
         self._configs = {fc.name: fc for fc in self.feature_configs}
         for name, tc in self._tables().items():
             if not name.isidentifier():
@@ -160,6 +205,10 @@ class TpuEmbedding(nn.Module):
             init = tc.initializer or config_lib.default_initializer(tc.dim)
             table = init(generator, (_pad_vocab(tc.vocabulary_size), tc.dim),
                          dtype, device)
+            if self._sharded:
+                per = table.shape[0] // shards
+                i = collectives.axis_index(mesh, table_axis)
+                table = table[i * per:(i + 1) * per].clone()
             self.register_parameter(name, nn.Parameter(table))
 
     def _tables(self) -> Dict[str, config_lib.TableConfig]:
@@ -183,12 +232,17 @@ class TpuEmbedding(nn.Module):
                 f"Features {sorted(unknown)} have no FeatureConfig. "
                 f"Known: {sorted(self._configs)}."
             )
+        gather = self._sharded_gather if self._sharded else None
         return {
             fname: lookup_feature(
                 getattr(self, self._configs[fname].table.name),
-                self._configs[fname], feature)
+                self._configs[fname], feature, gather=gather)
             for fname, feature in features.items()
         }
+
+    def _sharded_gather(self, shard: Tensor, ids: Tensor) -> Tensor:
+        return embedding_lookup.gather_rows(shard, ids, self.mesh,
+                                            self.table_axis)
 
     def table_dict(self) -> Dict[str, Tensor]:
         """The table parameters by table name."""

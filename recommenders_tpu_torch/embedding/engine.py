@@ -1,10 +1,10 @@
 """Decoupled embedding engine: sparse lookups and updates outside autograd.
 
-Port of `recommenders_tpu/embedding/engine.py`, unsharded, with
-`row_sharding="div"`. Embedding tables are not autograd parameters: the
-engine gathers activations, the caller differentiates its loss with
-respect to the activations, and `update` turns the activation gradients
-into per-row gradients and applies the per-table sparse optimizer:
+Port of `recommenders_tpu/embedding/engine.py`. Embedding tables are
+not autograd parameters: the engine gathers activations, the caller
+differentiates its loss with respect to the activations, and `update`
+turns the activation gradients into per-row gradients and applies the
+per-table sparse optimizer:
 
     engine = EmbeddingEngine(feature_configs, device="cuda")
     state = engine.init(torch.Generator().manual_seed(0))
@@ -28,8 +28,22 @@ spec live as row ranges of one storage tensor, so `update` sorts their
 ids together and K1 launches once for the whole group
 (`recommenders_tpu/embedding/engine.py:236-301,847-919`).
 
-Lane packing is a TPU layout and the meshed engine comes in a later
-slice; asking for either raises `NotImplementedError`.
+With a `mesh` (`parallel.create_mesh`), every storage is row-sharded
+over `table_axis`: this rank holds `[rows / S, dim]` of it, and every
+rank calls the engine with the same arguments (SPMD). `row_sharding`
+"div" gives rank r the contiguous rows `[r·R, (r+1)·R)`; "mod" gives it
+the logical rows `{i : i % S == r}`, stored as a permutation
+(`(i % S)·R + i // S`) of a contiguous block. A lookup gathers the rows
+this shard owns and sums over the table axis (exactly the unsharded
+gather). An update gathers the (id, grad) pairs over the data axis, so
+every shard sees the global list, rebases it onto its row range (every
+id outside `[0, R)` becomes padding) and runs K1 on its own shard: the
+shard-local update of the reference's SparseCore engine
+(`recommenders_tpu/embedding/engine.py:783-845`). The stochastic
+rounding seed of rank r's shard is the unsharded seed plus `r·7919`.
+
+Lane packing is a TPU layout; asking for it raises
+`NotImplementedError`.
 """
 
 from __future__ import annotations
@@ -42,6 +56,8 @@ import torch
 from recommenders_tpu_torch.embedding import config as config_lib
 from recommenders_tpu_torch.embedding import embedding as embedding_lib
 from recommenders_tpu_torch.embedding import sparse_optimizer
+from recommenders_tpu_torch.parallel import embedding_lookup
+from recommenders_tpu_torch.utils import collectives
 from recommenders_tpu_torch.utils import device as device_lib
 
 Tensor = torch.Tensor
@@ -76,7 +92,9 @@ class EmbeddingEngine:
     Args:
       feature_configs: Feature declarations (tables may be shared).
       optimizer: Default `OptimizerSpec` for tables that set none.
-      mesh: Must be None (the meshed engine comes in a later slice).
+      mesh: Optional `parallel.Mesh`; storages are row-sharded over its
+        `table_axis`, and the update gathers (id, grad) pairs over its
+        `data_axis` (if it has one).
       dtype: Table dtype (f32 or bf16).
       row_sharding: "div" or "mod"; without a mesh both are the identity.
       sparse_update_kernel: None or True takes the kernel path (K1 for
@@ -98,6 +116,8 @@ class EmbeddingEngine:
       exact_grad_routing: Accepted; duplicate sums are always exact f32.
       lane_pack: Must be None or False (lane packing is a TPU layout).
       device: Where the state lives (default CUDA).
+      table_axis: The mesh axis sharding table rows.
+      data_axis: The mesh axis the batch is sharded over.
     """
 
     def __init__(
@@ -114,15 +134,16 @@ class EmbeddingEngine:
         exact_grad_routing: bool = True,
         lane_pack: Optional[bool] = None,
         device="cuda",
+        table_axis: str = collectives.MODEL_AXIS,
+        data_axis: str = collectives.DATA_AXIS,
     ) -> None:
         if row_sharding not in ("div", "mod"):
             raise ValueError(
                 f"row_sharding must be 'div' or 'mod', got {row_sharding!r}"
             )
-        if mesh is not None:
-            raise NotImplementedError(
-                "The meshed engine is not ported yet (ROADMAP.md Queue A)."
-            )
+        self.mesh = collectives.check_mesh(mesh, "EmbeddingEngine")
+        self.table_axis = table_axis
+        self.data_axis = data_axis
         if stack_tables and row_sharding == "mod":
             raise ValueError(
                 "stack_tables requires row_sharding='div' (the mod "
@@ -176,6 +197,11 @@ class EmbeddingEngine:
                 offset += self._padded_rows(self._tables[name])
             self._storage_members[sname] = members
             self._storage_rows[sname] = offset
+            if offset % self._num_shards():
+                raise ValueError(
+                    f"storage {sname!r}: {offset} rows do not divide over "
+                    f"the {self._num_shards()}-way {table_axis!r} axis."
+                )
 
     def _spec(self, tc: config_lib.TableConfig) -> config_lib.OptimizerSpec:
         return tc.optimizer or self.default_optimizer
@@ -183,23 +209,61 @@ class EmbeddingEngine:
     def _padded_rows(self, tc: config_lib.TableConfig) -> int:
         return embedding_lib._pad_vocab(tc.vocabulary_size)
 
+    def _num_shards(self) -> int:
+        return collectives.axis_size(self.mesh, self.table_axis)
+
+    def _shard(self) -> int:
+        return collectives.axis_index(self.mesh, self.table_axis)
+
+    def _sharded(self) -> bool:
+        return self._num_shards() > 1
+
+    def _mod(self) -> bool:
+        return self.row_sharding == "mod" and self._sharded()
+
+    def _local_rows(self, rows: int) -> slice:
+        """This shard's block of a storage's `rows` physical rows."""
+        per = rows // self._num_shards()
+        return slice(self._shard() * per, (self._shard() + 1) * per)
+
+    def _permute(self, logical: Tensor, tc: config_lib.TableConfig) -> Tensor:
+        """Logical rows → the physical (mod-permuted) row order."""
+        if not self._mod():
+            return logical
+        s = self._num_shards()
+        p = torch.arange(logical.shape[0], device=logical.device)
+        per = logical.shape[0] // s
+        return logical[(p % per) * s + p // per]
+
+    def _unpermute(self, physical: Tensor,
+                   tc: config_lib.TableConfig) -> Tensor:
+        if not self._mod():
+            return physical
+        ids = torch.arange(physical.shape[0], device=physical.device)
+        return physical[self._to_physical(ids, tc)]
+
     # --- State ------------------------------------------------------------
 
     def init(self, generator: Optional[torch.Generator] = None) -> EngineState:
         """Initializes tables (in declaration order) and slots.
 
         The draws come from `generator`, which must live on the engine's
-        device (or be None); they never equal the JAX engine's.
+        device (or be None); they never equal the JAX engine's. Under a
+        mesh every rank draws the whole tables from the same generator
+        state and keeps its own shard, so the logical tables do not
+        depend on the mesh.
         """
         drawn = {}
         for name, tc in self._tables.items():
             init = tc.initializer or config_lib.default_initializer(tc.dim)
-            drawn[name] = init(generator, (self._padded_rows(tc), tc.dim),
-                               self.dtype, self.device).to(self.dtype)
+            drawn[name] = self._permute(
+                init(generator, (self._padded_rows(tc), tc.dim),
+                     self.dtype, self.device).to(self.dtype), tc)
         tables, slots = {}, {}
         for sname, members in self._storage_members.items():
-            tables[sname] = torch.cat(
-                [drawn.pop(m) for m in members]).contiguous()
+            storage = torch.cat([drawn.pop(m) for m in members])
+            tables[sname] = storage[
+                self._local_rows(storage.shape[0])].contiguous()
             slots[sname] = sparse_optimizer.init_slots(
                 self._spec(self._tables[members[0]]), tables[sname],
                 self.slot_dtype,
@@ -213,11 +277,26 @@ class EmbeddingEngine:
             return plane
         return plane[offset:offset + self._padded_rows(self._tables[name])]
 
+    def _whole(self, plane: Tensor) -> Tensor:
+        """A storage plane with every shard's rows (a collective over the
+        table axis when sharded; the plane itself otherwise)."""
+        if not self._sharded():
+            return plane
+        return collectives.all_gather(plane, self.mesh, self.table_axis, dim=0)
+
+    def _logical_rows(self, plane: Tensor, name: str) -> Tensor:
+        """Table `name`'s rows of a whole storage plane, in logical
+        order."""
+        return self._unpermute(self._member_rows(plane, name),
+                               self._tables[name])
+
     def logical_tables(self, state: EngineState) -> Dict[str, Tensor]:
         """Tables with rows in logical id order: the storage itself for
-        a solo table, a view of its row range for a stacked one."""
-        return {name: self._member_rows(
-                    state.tables[self._storage[name][0]], name)
+        a solo table, a view of its row range for a stacked one. Under
+        a mesh the shards are gathered first (a collective: every rank
+        calls it) and mod-sharded rows are put back in logical order."""
+        whole = {sname: self._whole(t) for sname, t in state.tables.items()}
+        return {name: self._logical_rows(whole[self._storage[name][0]], name)
                 for name in self._tables}
 
     def logical_state(self, state: EngineState) -> Dict:
@@ -225,13 +304,17 @@ class EmbeddingEngine:
         "step": step}`: the JAX engine's layout-free form. Row planes of
         a stacked storage come back as views of each member's rows; a
         slot that is not a row plane (clippy's scalar clipping factor)
-        is shared by every member."""
+        is shared by every member. Under a mesh it is a collective and
+        every rank gets the whole state."""
         slots: Dict[str, Dict[str, Tensor]] = {}
         for sname, members in self._storage_members.items():
             rows = state.tables[sname].shape[0]
+            planes = {k: (self._whole(v) if v.dim() == 2
+                          and v.shape[0] == rows else v)
+                      for k, v in state.slots[sname].items()}
             for name in members:
                 slots[name] = {
-                    k: (self._member_rows(v, name)
+                    k: (self._logical_rows(planes[k], name)
                         if v.dim() == 2 and v.shape[0] == rows else v)
                     for k, v in state.slots[sname].items()
                 }
@@ -240,9 +323,10 @@ class EmbeddingEngine:
 
     def state_from_logical(self, logical: Mapping) -> EngineState:
         """This engine's `EngineState` from `logical_state` output (of
-        this engine, or of one with another stacking layout), moved to
-        the engine's device and cast to its table and slot dtypes. Table
-        names and shapes must match."""
+        this engine, or of one with another stacking layout or mesh),
+        moved to the engine's device and cast to its table and slot
+        dtypes; under a mesh, this rank keeps its own shard. Table names
+        and shapes must match."""
         slot_dtype = self.slot_dtype or torch.float32
         for name, tc in self._tables.items():
             table = logical["tables"][name]
@@ -254,27 +338,45 @@ class EmbeddingEngine:
                 )
         tables, slots = {}, {}
         for sname, members in self._storage_members.items():
-            tables[sname] = torch.cat([
-                logical["tables"][m].to(self.device, self.dtype)
-                for m in members
-            ]).contiguous()
+            own = self._local_rows(self._storage_rows[sname])
+
+            def storage(planes, dtype, own=own, members=members):
+                whole = torch.cat([
+                    self._permute(p.to(self.device), self._tables[m])
+                    for p, m in zip(planes, members)])
+                return whole[own].to(dtype).contiguous()
+
+            tables[sname] = storage(
+                [logical["tables"][m] for m in members], self.dtype)
             slots[sname] = {}
             for k, v in logical["slots"][members[0]].items():
                 if v.dim() == 2 and v.shape[0] == self._padded_rows(
                         self._tables[members[0]]):
-                    v = torch.cat([logical["slots"][m][k].to(self.device)
-                                   for m in members])
-                slots[sname][k] = v.to(self.device, slot_dtype).contiguous()
+                    slots[sname][k] = storage(
+                        [logical["slots"][m][k] for m in members],
+                        slot_dtype)
+                else:
+                    slots[sname][k] = v.to(self.device,
+                                           slot_dtype).contiguous()
         return EngineState(tables=tables, slots=slots,
                            step=int(logical["step"]))
 
     def _to_physical(self, ids: Tensor, tc: config_lib.TableConfig) -> Tensor:
         """Logical ids → rows of the table's storage: the identity for a
-        solo table; a stacked member's ids move by its row offset.
+        solo table (or, sharded "mod", the permutation `(i % S)·R +
+        i // S`); a stacked member's ids move by its row offset.
         Negative ids (`PAD_ID`) pass through. An id past the member's
         rows maps to the storage's row count, outside every member, so
         `update` drops it and `lookup` refuses it, as for a solo table
         (the JAX engine would land it in the next member)."""
+        if self._mod():
+            s = self._num_shards()
+            per = self._padded_rows(tc) // s
+            phys = torch.where(ids >= self._padded_rows(tc),
+                               self._padded_rows(tc),
+                               (ids % s) * per + torch.div(
+                                   ids, s, rounding_mode="floor"))
+            return torch.where(ids < 0, ids, phys)
         sname, offset = self._storage[tc.name]
         if sname == tc.name:
             return ids
@@ -313,8 +415,13 @@ class EmbeddingEngine:
                 out[fname] = embedding_lib.lookup_feature(
                     state.tables[sname], fc,
                     self._physical_feature(fc, feature),
+                    gather=self._sharded_gather if self._sharded() else None,
                 )
         return out
+
+    def _sharded_gather(self, shard: Tensor, ids: Tensor) -> Tensor:
+        return embedding_lookup.gather_rows(shard, ids, self.mesh,
+                                            self.table_axis)
 
     # --- Backward ---------------------------------------------------------
 
@@ -387,6 +494,12 @@ class EmbeddingEngine:
         with stochastic rounding differs between the stacked and the
         unstacked layouts, and f32 state (or rounding off) does not. The
         tensors of `state` are updated in place; use the returned state.
+
+        Under a mesh, `features` and `activation_grads` are this rank's
+        data slice. Each storage's pairs are gathered over the data axis
+        (in rank order, so the global list is the global batch's), a
+        `max_unique_ids` table folds the global list, and each shard
+        runs K1 on its own rows with seed `+ shard · 7919`.
         """
         use_kernel = self.sparse_update_kernel
         if use_kernel is None:
@@ -403,16 +516,40 @@ class EmbeddingEngine:
             sr_seed = None
             if self.stochastic_rounding:
                 sr_seed = _wrap_int32(state.step * 1000003 + t_idx)
+            # A stacked group never holds a max_unique_ids table.
+            max_unique = tc.max_unique_ids
+            if self.mesh is not None:
+                ids, grads, max_unique = self._shard_pairs(
+                    ids, grads, max_unique, tables[name].shape[0])
+                if sr_seed is not None:
+                    sr_seed = _wrap_int32(sr_seed + self._shard() * 7919)
             tables[name], slots[name] = sparse_optimizer.apply_sparse(
                 self._spec(tc), tables[name], slots[name], ids, grads,
                 state.step,
-                # A stacked group never holds a max_unique_ids table.
-                max_unique=tc.max_unique_ids,
+                max_unique=max_unique,
                 use_kernel=use_kernel,
                 sr_seed=sr_seed,
                 exact_routing=self.exact_grad_routing,
             )
         return EngineState(tables=tables, slots=slots, step=state.step + 1)
+
+    def _shard_pairs(self, ids: Tensor, grads: Tensor,
+                     max_unique: Optional[int], rows: int):
+        """`(ids, grads, max_unique)` for this shard's update: the pairs
+        of the whole data axis, folded first for a `max_unique_ids`
+        table (globally, as the unsharded engine folds, so the same ids
+        survive a step that exceeds the bound), then rebased onto this
+        shard's rows with every id outside them made padding, so a
+        foreign id never reaches K1 or takes a fold slot."""
+        ids = collectives.all_gather(ids, self.mesh, self.data_axis)
+        grads = collectives.all_gather(grads, self.mesh, self.data_axis)
+        if max_unique is not None and max_unique < ids.shape[0]:
+            ids, grads = sparse_optimizer.dedupe_sum(ids, grads, max_unique)
+        if self._sharded():
+            local, owned = embedding_lookup.owned_rows(
+                ids, rows, self._shard())
+            ids = torch.where(owned, local, PAD_ID)
+        return ids, grads, None
 
     # --- Steps --------------------------------------------------------------
 

@@ -34,6 +34,9 @@ class PartialEmbedding(nn.Module):
       device: Where the tables live (default CUDA).
       generator: Optional `torch.Generator` for the initial tables
         (sharded partition first).
+      mesh: Optional `parallel.Mesh`; the sharded partition's tables are
+        row-sharded over its `table_axis`.
+      table_axis: The mesh axis sharding the big tables.
     """
 
     def __init__(
@@ -42,6 +45,8 @@ class PartialEmbedding(nn.Module):
         size_threshold: Optional[int] = 10_000,
         device: device_lib.DeviceLike = "cuda",
         generator: Optional[torch.Generator] = None,
+        mesh=None,
+        table_axis: str = "model",
     ) -> None:
         super().__init__()
         self.size_threshold = size_threshold
@@ -57,7 +62,7 @@ class PartialEmbedding(nn.Module):
         if big:
             self.sharded_embedding = embedding_lib.TpuEmbedding(
                 big, shard_tables=True, device=device,
-                generator=generator)
+                generator=generator, mesh=mesh, table_axis=table_axis)
         if small:
             self.dense_embedding = embedding_lib.TpuEmbedding(
                 small, shard_tables=False, device=device,

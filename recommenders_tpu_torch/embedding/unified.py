@@ -96,10 +96,11 @@ class UnifiedEmbedding(nn.Module):
 
     Args:
       config: The shared-table and hashing configuration.
-      shard_tables: Kept for the JAX signature; on one device every table
-        is whole (`TpuEmbedding`).
+      shard_tables: Row-shard the shared tables over the mesh's table
+        axis (with a `mesh`; `TpuEmbedding`).
       device: Where the tables live (default CUDA).
       generator: Optional `torch.Generator` for the initial tables.
+      mesh: Optional `parallel.Mesh`.
     """
 
     def __init__(
@@ -108,6 +109,7 @@ class UnifiedEmbedding(nn.Module):
         shard_tables: bool = True,
         device: device_lib.DeviceLike = "cuda",
         generator: Optional[torch.Generator] = None,
+        mesh=None,
     ) -> None:
         super().__init__()
         self.config = config
@@ -121,6 +123,7 @@ class UnifiedEmbedding(nn.Module):
             shard_tables=shard_tables,
             device=device,
             generator=generator,
+            mesh=mesh,
         )
 
     def forward(self, features: Mapping[str, Tensor]) -> List[Tensor]:

@@ -38,6 +38,7 @@ import torch.nn.functional as F
 
 from recommenders_tpu_torch.layers import factorized_top_k
 from recommenders_tpu_torch.ops import leaf_scoring
+from recommenders_tpu_torch.ops import sparse_apply
 from recommenders_tpu_torch.ops import quantization
 from recommenders_tpu_torch.ops import scoring
 from recommenders_tpu_torch.ops import topk as topk_ops
@@ -239,12 +240,17 @@ def _kmeans_step_device(
     Empty clusters re-seed from `reseed`. With `balance > 0`, that many
     of the lightest clusters move next to the heaviest (split-reseed
     balancing), offset 5 % toward a reseed row.
+
+    The cluster sums add each cluster's rows in row order
+    (`sparse_apply.fixed_order_index_add_`), so a build is the same run
+    to run; `index_add_`'s atomics on the card would add in arrival
+    order.
     """
     assignments = _assign_device(corpus, centroids, chunk).long()
-    sums = torch.zeros(
+    sums = sparse_apply.fixed_order_index_add_(torch.zeros(
         (num_clusters, corpus.shape[1]), dtype=torch.float32,
         device=corpus.device,
-    ).index_add_(0, assignments, corpus)
+    ), assignments, corpus)
     counts = torch.bincount(assignments, minlength=num_clusters).to(
         torch.float32
     )
@@ -899,15 +905,76 @@ class ScaNN(factorized_top_k.TopK):
             blocks = list(batches)
             factory = lambda: iter(blocks)  # noqa: E731
         identifiers = self._intern_identifiers(identifiers, num_rows)
+        centroids, leaf_of, slot_of, capacity = self._streamed_partition(
+            factory, num_rows)
+        num_leaves = centroids.shape[0]
+        packed4 = self._quantize == "int4"
 
-        def stream():
-            for batch in factory():
-                yield torch.as_tensor(batch, device=self.device).to(
-                    torch.float32)
+        # Pass 3: quantize (or cast) and scatter each batch.
+        d = centroids.shape[1]
+        rows_buf = torch.full((num_leaves, capacity), -1, dtype=torch.int32,
+                              device=self.device)
+        valid_buf = torch.zeros((num_leaves, capacity), dtype=torch.bool,
+                                device=self.device)
+        scales_buf = None
+        if self._quantize:
+            code_cap = capacity // 2 if packed4 else capacity
+            codes_buf = torch.zeros((num_leaves, code_cap, d),
+                                    dtype=torch.int8, device=self.device)
+            scales_buf = torch.zeros((num_leaves, capacity),
+                                     dtype=torch.float32, device=self.device)
+        else:
+            codes_buf = torch.zeros((num_leaves, capacity, d),
+                                    dtype=self._leaf_dtype,
+                                    device=self.device)
+        off = 0
+        for batch in self._stream(factory):
+            b = batch.shape[0]
+            leaf_b, slot_b = leaf_of[off:off + b], slot_of[off:off + b]
+            if self._quantize:
+                _scatter_batch_quantized(
+                    codes_buf, scales_buf, rows_buf, valid_buf, batch,
+                    leaf_b, slot_b, off,
+                    threshold=self._anisotropic_threshold,
+                    bits=4 if packed4 else 8, half=capacity // 2,
+                )
+            else:
+                _scatter_batch(codes_buf, rows_buf, valid_buf, batch,
+                               leaf_b, slot_b, off)
+            off += b
 
+        self._centroids = centroids
+        self._leaf_embs = codes_buf
+        self._leaf_scales = scales_buf
+        self._leaf_rows = rows_buf
+        self._leaf_valid = valid_buf
+        if identifiers is None:
+            # Rows double as ids.
+            self._leaf_ids = rows_buf
+            self._flat_ids = None
+        else:
+            self._leaf_ids = _scatter_leaves(identifiers, leaf_of, slot_of,
+                                             num_leaves, capacity)
+            self._flat_ids = (identifiers if self._scoring_buckets
+                              is not None else None)
+        self._corpus = None
+        self._identifiers = None
+        self._num_candidates = num_rows
+        self._built = True
+        return self
+
+    def _stream(self, factory):
+        for batch in factory():
+            yield torch.as_tensor(batch, device=self.device).to(
+                torch.float32)
+
+    def _streamed_partition(self, factory, num_rows: int):
+        """Passes 1 and 2 of the streamed build: `(centroids, leaf_of,
+        slot_of, capacity)` from a batch factory, on the index's device.
+        """
+        stream = lambda: self._stream(factory)  # noqa: E731
         num_leaves = min(self._num_leaves, num_rows)
         capacity = self._capacity(num_leaves, num_rows)
-        packed4 = self._quantize == "int4"
 
         # Pass 1: stride-sample rows for centroid training.
         sample_target = min(self._kmeans_sample or (1 << 21), num_rows)
@@ -952,59 +1019,7 @@ class ScaNN(factorized_top_k.TopK):
                 "`num_leaves`, or `spill_rounds`."
             )
         del choices
-
-        # Pass 3: quantize (or cast) and scatter each batch.
-        d = centroids.shape[1]
-        rows_buf = torch.full((num_leaves, capacity), -1, dtype=torch.int32,
-                              device=self.device)
-        valid_buf = torch.zeros((num_leaves, capacity), dtype=torch.bool,
-                                device=self.device)
-        scales_buf = None
-        if self._quantize:
-            code_cap = capacity // 2 if packed4 else capacity
-            codes_buf = torch.zeros((num_leaves, code_cap, d),
-                                    dtype=torch.int8, device=self.device)
-            scales_buf = torch.zeros((num_leaves, capacity),
-                                     dtype=torch.float32, device=self.device)
-        else:
-            codes_buf = torch.zeros((num_leaves, capacity, d),
-                                    dtype=self._leaf_dtype,
-                                    device=self.device)
-        off = 0
-        for batch in stream():
-            b = batch.shape[0]
-            leaf_b, slot_b = leaf_of[off:off + b], slot_of[off:off + b]
-            if self._quantize:
-                _scatter_batch_quantized(
-                    codes_buf, scales_buf, rows_buf, valid_buf, batch,
-                    leaf_b, slot_b, off,
-                    threshold=self._anisotropic_threshold,
-                    bits=4 if packed4 else 8, half=capacity // 2,
-                )
-            else:
-                _scatter_batch(codes_buf, rows_buf, valid_buf, batch,
-                               leaf_b, slot_b, off)
-            off += b
-
-        self._centroids = centroids
-        self._leaf_embs = codes_buf
-        self._leaf_scales = scales_buf
-        self._leaf_rows = rows_buf
-        self._leaf_valid = valid_buf
-        if identifiers is None:
-            # Rows double as ids.
-            self._leaf_ids = rows_buf
-            self._flat_ids = None
-        else:
-            self._leaf_ids = _scatter_leaves(identifiers, leaf_of, slot_of,
-                                             num_leaves, capacity)
-            self._flat_ids = (identifiers if self._scoring_buckets
-                              is not None else None)
-        self._corpus = None
-        self._identifiers = None
-        self._num_candidates = num_rows
-        self._built = True
-        return self
+        return centroids, leaf_of, slot_of, capacity
 
     def __call__(self, queries, k: Optional[int] = None
                  ) -> Tuple[Tensor, Tensor]:

@@ -637,28 +637,8 @@ class Bucketed(TopK):
                 raise ValueError(
                     f"Batches supply more than num_rows={num_rows} rows."
                 )
-            if self._quantize:
-                s, codes = quantization.quantize_rows_device(
-                    batch, self._anisotropic_threshold,
-                    bits=4 if packed4 else 8,
-                )
-                scales[off:off + b] = s
-                if packed4:
-                    # Row r lands in packed row r % half: the low nibble
-                    # for r < half, the high one otherwise. A batch that
-                    # straddles `half` splits; each (row, nibble) is
-                    # written once into the zeroed buffer.
-                    cut = min(max(half - off, 0), b)
-                    if cut:
-                        _or_nibble_(buf, codes[:cut], off, high=False)
-                    if b - cut:
-                        _or_nibble_(
-                            buf, codes[cut:], off + cut - half, high=True
-                        )
-                else:
-                    buf[off:off + b] = codes
-            else:
-                buf[off:off + b] = batch.to(buf.dtype)
+            store_rows_(buf, scales, batch, off, stored_n, self._quantize,
+                        self._anisotropic_threshold)
             off += b
         if buf is None:
             raise ValueError("The batches iterable must not be empty.")
@@ -706,6 +686,35 @@ class Bucketed(TopK):
 
     def is_exact(self) -> bool:
         return False
+
+
+def store_rows_(buf: Tensor, scales: Optional[Tensor], block: Tensor,
+                off: int, stored_n: int, quantize: Optional[str],
+                threshold: Optional[float]) -> None:
+    """Casts or quantizes the `[b, D]` rows `block` into rows `off:` of a
+    bucketed index's storage of `stored_n` rows, in place: `buf` holds
+    the rows in its dtype, or int8 codes (`[stored_n / 2, D]` packed
+    nibbles for "int4") with their f32 `scales`."""
+    b = block.shape[0]
+    if not quantize:
+        buf[off:off + b] = block.to(buf.dtype)
+        return
+    packed4 = quantize == "int4"
+    s, codes = quantization.quantize_rows_device(
+        block, threshold, bits=4 if packed4 else 8)
+    scales[off:off + b] = s
+    if not packed4:
+        buf[off:off + b] = codes
+        return
+    # Row r lands in packed row r % half: the low nibble for r < half,
+    # the high one otherwise. A block that straddles `half` splits; each
+    # (row, nibble) is written once into the zeroed buffer.
+    half = stored_n // 2
+    cut = min(max(half - off, 0), b)
+    if cut:
+        _or_nibble_(buf, codes[:cut], off, high=False)
+    if b - cut:
+        _or_nibble_(buf, codes[cut:], off + cut - half, high=True)
 
 
 def _or_nibble_(buf: Tensor, codes: Tensor, off: int, high: bool) -> None:

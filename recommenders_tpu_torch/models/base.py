@@ -1,6 +1,6 @@
 """Base model + training loop: the Keras-fit replacement.
 
-Port of `recommenders_tpu/models/base.py`, unsharded. The reference's
+Port of `recommenders_tpu/models/base.py`. The reference's
 `tfrs.Model` asks for one method, `compute_loss`, and derives the train
 and test steps from it; so does this module:
 
@@ -18,6 +18,20 @@ state in place: `TrainState.params` holds the model's own tensors and
 `opt_state` the optimizer. The per-step rng the JAX step splits into the
 "dropout" and "sampling" streams is the state's `generator`, handed to
 `compute_loss` every step.
+
+`Trainer(mesh=...)` is data parallelism over the mesh's data axis, as
+the JAX trainer's batch sharding: every rank calls the trainer with the
+same global batches and takes its slice (`parallel.shard_batch`). The
+trainer hands the mesh to the model's tasks (`Model.shard_tasks`), after
+which the model's loss is this rank's share of the global batch's:
+`tasks.Retrieval` pools the candidates across the axis and
+`tasks.Ranking` computes its `loss_fn` over the gathered batch. The
+shares and their gradients are summed over the data axis (one
+collective a step) before the optimizer steps, and streaming metric
+states are summed over it when read, so a step equals the global-batch
+step. A model that does not implement `shard_tasks` is refused. A batch
+that does not divide over the axis is replicated: the tasks go back to
+one device and every rank runs it whole.
 """
 
 from __future__ import annotations
@@ -31,6 +45,7 @@ import torch
 from torch import nn
 
 from recommenders_tpu_torch.metrics import base as metrics_base
+from recommenders_tpu_torch.utils import collectives
 from recommenders_tpu_torch.utils.device import to_device, wait_batch
 
 Tensor = torch.Tensor
@@ -68,6 +83,26 @@ class Model(nn.Module):
         """Defines the loss. `generator` drives any sampling or dropout
         of a training step."""
         raise NotImplementedError()
+
+    def shard_tasks(self, mesh, axis: str) -> None:
+        """Hands a data-parallel mesh to the model's tasks (None: back to
+        one device).
+
+        `Trainer(mesh=...)` calls it. Afterwards `compute_loss`, run on
+        this rank's slice of a global batch, must return this rank's
+        share of the global batch's loss: the shares sum over `axis` to
+        it, and so do their gradients. `tasks.Retrieval` and
+        `tasks.Ranking` compute such shares once they have the mesh
+        (`Task.on_mesh`), so a model whose loss is a weighted sum of its
+        tasks' losses implements this method by handing the mesh to each
+        task, as the prebuilt models do. The base class raises: the
+        trainer cannot split a loss it does not know (a mean the model
+        takes itself would come out once per rank)."""
+        raise NotImplementedError(
+            f"{type(self).__name__} does not implement shard_tasks, so "
+            "Trainer(mesh=...) cannot split its loss over the data axis: "
+            "compute the loss with tasks and hand them the mesh there "
+            "(see models.Model.shard_tasks).")
 
     def regularization_loss(self) -> Tensor:
         """Optional additional loss (e.g. L2 on embeddings)."""
@@ -116,26 +151,27 @@ class Trainer:
       model: The model; its parameters' device is where batches go.
       optimizer: A `torch.optim.Optimizer` over the model's parameters,
         or a factory `parameters -> Optimizer` that `init` calls.
-      mesh: Must be None (the sharded trainer comes with the
-        distribution slice).
+      mesh: Optional `parallel.Mesh`: data parallelism over its
+        `data_axis` (see the module docstring). None trains on one
+        device.
       track_stats: Keep streaming loss and metric states in the train
         and eval steps. Off, `fit` reports the last step's loss and
         `evaluate` the mean total loss only.
+      data_axis: The mesh axis the batch is sharded over.
     """
 
     model: Model
     optimizer: OptimizerLike
     mesh: Any = None
     track_stats: bool = True
+    data_axis: str = collectives.DATA_AXIS
 
     def __post_init__(self):
-        if self.mesh is not None:
-            raise NotImplementedError(
-                "The meshed Trainer is not ported yet (ROADMAP.md Queue A "
-                "step 9)."
-            )
+        collectives.check_mesh(self.mesh, "Trainer")
         self._mean = metrics_base.Mean()
         self._optimizer: Optional[torch.optim.Optimizer] = None
+        self._tasks_sharded = False
+        self._place_tasks(self._data_size() > 1)
 
     @property
     def device(self) -> torch.device:
@@ -157,6 +193,7 @@ class Trainer:
         seeded from `generator` (a fixed seed when None).
         """
         if sample_batch is not None:
+            self._place_tasks(False)
             with torch.no_grad():
                 self.model.compute_loss(
                     to_device(sample_batch, self.device)[0], training=True,
@@ -189,8 +226,37 @@ class Trainer:
         loss, aux = out if isinstance(out, tuple) else (out, {})
         return loss, self.model.regularization_loss(), aux
 
-    def _track(self, state: TrainState, batch, loss, reg, total, aux):
-        """(metric states, loss states) after one step's outputs."""
+    # --- Data parallelism -----------------------------------------------------
+
+    def _data_size(self) -> int:
+        return collectives.axis_size(self.mesh, self.data_axis)
+
+    def _local(self, batch: Batch) -> Tuple[Batch, bool]:
+        """(this rank's slice of a global batch, whether it is a slice);
+        a batch that does not divide over the data axis stays whole."""
+        if self._data_size() == 1 or not collectives.batch_shardable(
+                batch, self.mesh, self.data_axis):
+            return batch, False
+        return collectives.shard_batch(batch, self.mesh, self.data_axis), True
+
+    def _place_tasks(self, sharded: bool) -> None:
+        """The model's tasks on the mesh for a step on this rank's slice,
+        on one device for a step every rank runs whole."""
+        if sharded != self._tasks_sharded:
+            self.model.shard_tasks(self.mesh if sharded else None,
+                                   self.data_axis)
+            self._tasks_sharded = sharded
+
+    def _sum_over_data(self, x: Tensor) -> Tensor:
+        return collectives.all_reduce(x, self.mesh, self.data_axis)
+
+    def _track(self, state: TrainState, batch, loss, reg, total, aux,
+               sharded: bool = False):
+        """(metric states, loss states) after one step's outputs. The
+        loss states take the global loss; the metric states this rank's
+        slice (summed over the data axis when read), and a batch every
+        rank ran whole counts on the first rank of the axis only."""
+        own = sharded or collectives.axis_index(self.mesh, self.data_axis) == 0
         with torch.no_grad():
             loss_states = {
                 "loss": self._mean.update(state.loss_states["loss"],
@@ -201,27 +267,42 @@ class Trainer:
                 "total_loss": self._mean.update(
                     state.loss_states["total_loss"], total.detach()),
             }
-            metric_states = self.model.update_metrics(
-                state.metric_states, batch, aux)
+            metric_states = (self.model.update_metrics(
+                state.metric_states, batch, aux) if own
+                else state.metric_states)
         return metric_states, loss_states
 
     def train_step(self, state: TrainState, batch: Batch):
         """Runs one training step (parameters updated in place); returns
-        `(state, total_loss)`."""
+        `(state, total_loss)`. With a mesh, `batch` is the global batch
+        (every rank passes the same one)."""
         if self._optimizer is None:
             raise ValueError("Call `init` before the first step.")
-        batch = to_device(batch, self.device)[0]
+        batch, sharded = self._local(batch)
+        return self._train_step(state, to_device(batch, self.device)[0],
+                                sharded)
+
+    def _train_step(self, state: TrainState, batch: Batch, sharded: bool):
         self.model.train()
         self._optimizer.zero_grad(set_to_none=True)
+        self._place_tasks(sharded)
         loss, reg, aux = self._loss_and_aux(batch, training=True,
                                             generator=state.generator)
-        total = loss + reg
-        total.backward()
+        if sharded:
+            # Every rank adds the replicated regularization; its share
+            # makes the ranks' sum count it once.
+            (loss + reg / self._data_size()).backward()
+            collectives.sum_grads(self.model.parameters(), self.mesh,
+                                  self.data_axis)
+            loss = self._sum_over_data(loss.detach())
+        else:
+            (loss + reg).backward()
         self._optimizer.step()
+        total = loss + reg
         metric_states, loss_states = state.metric_states, state.loss_states
         if self.track_stats:
             metric_states, loss_states = self._track(
-                state, batch, loss, reg, total, aux)
+                state, batch, loss, reg, total, aux, sharded)
         return dataclasses.replace(
             state, step=state.step + 1, metric_states=metric_states,
             loss_states=loss_states,
@@ -229,15 +310,19 @@ class Trainer:
 
     def eval_step(self, state: TrainState, batch: Batch):
         """One evaluation step; returns `(state, total_loss)`."""
+        batch, sharded = self._local(batch)
         batch = to_device(batch, self.device)[0]
         self.model.eval()
+        self._place_tasks(sharded)
         with torch.no_grad():
             loss, reg, aux = self._loss_and_aux(batch, training=False)
+            if sharded:
+                loss = self._sum_over_data(loss)
             total = loss + reg
         if not self.track_stats:
             return state, total
         metric_states, loss_states = self._track(state, batch, loss, reg,
-                                                 total, aux)
+                                                 total, aux, sharded)
         return dataclasses.replace(
             state, metric_states=metric_states, loss_states=loss_states,
         ), total
@@ -258,7 +343,11 @@ class Trainer:
             return {}
         results = {}
         for name, m in self.model.metrics().items():
-            value = m.result(state.metric_states[name])
+            mstate = state.metric_states[name]
+            if self._data_size() > 1:
+                mstate = {k: self._sum_over_data(v.to(self.device))
+                          for k, v in mstate.items()}
+            value = m.result(mstate)
             if isinstance(value, Mapping):
                 results.update({k: float(v) for k, v in value.items()})
             else:
@@ -267,8 +356,9 @@ class Trainer:
             results[name] = float(self._mean.result(state.loss_states[name]))
         return results
 
-    def _prefetched(self, dataset):
-        """Yields device-resident batches, copying one step ahead.
+    def _prefetched_steps(self, dataset):
+        """Yields `(device batch, sharded, global rows)`, copying one step
+        ahead: with a mesh, this rank's slice of each global batch.
 
         Batch i+1's host→device copy is issued (pinned memory,
         `non_blocking`, on a side stream) before batch i is handed out,
@@ -277,15 +367,21 @@ class Trainer:
         device = self.device
         stream = torch.cuda.Stream(device) if device.type == "cuda" else None
         it = _iter_batches(dataset)
+
+        def copy(batch):
+            rows = _batch_size(batch)
+            local, sharded = self._local(batch)
+            return to_device(local, device, stream), sharded, rows
+
         try:
-            pending = to_device(next(it), device, stream)
+            pending = copy(next(it))
         except StopIteration:
             return
         for nxt in it:
-            nxt = to_device(nxt, device, stream)
-            yield wait_batch(*pending)
+            nxt = copy(nxt)
+            yield (wait_batch(*pending[0]),) + pending[1:]
             pending = nxt
-        yield wait_batch(*pending)
+        yield (wait_batch(*pending[0]),) + pending[1:]
 
     def fit(
         self,
@@ -318,9 +414,10 @@ class Trainer:
             start = time.perf_counter()
             num_examples = 0
             loss = None
-            for i, batch in enumerate(self._prefetched(dataset)):
-                state, loss = self.train_step(state, batch)
-                num_examples += _batch_size(batch)
+            for i, (batch, sharded, rows) in enumerate(
+                    self._prefetched_steps(dataset)):
+                state, loss = self._train_step(state, batch, sharded)
+                num_examples += rows
                 if (i + 1) % max_in_flight == 0:
                     loss.item()
             if self.device.type == "cuda":

@@ -92,6 +92,12 @@ class Multitask(models_base.Model):
         return self._rating(self.query_embeddings(batch),
                             self.candidate_embeddings(batch))
 
+    def shard_tasks(self, mesh, axis: str) -> None:
+        """Both tasks on `axis` (see `models.Model.shard_tasks`); the
+        loss is their weighted sum, which the ranks' shares keep."""
+        self.retrieval_task = self.retrieval_task.on_mesh(mesh, axis)
+        self.rating_task = self.rating_task.on_mesh(mesh, axis)
+
     def compute_loss(self, batch: Mapping, training: bool = False,
                      generator: Optional[torch.Generator] = None):
         q = self.query_embeddings(batch)

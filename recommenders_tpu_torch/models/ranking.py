@@ -118,6 +118,8 @@ class Ranking(models_base.Model):
       size_threshold: Vocab threshold for the sharded partition.
       task: The ranking task (BCE by default).
       device: Where the weights live (default CUDA).
+      mesh: Optional `parallel.Mesh`: the big tables are row-sharded over
+        its model axis (train it with `Trainer(mesh=...)`).
       generator: Optional `torch.Generator` for the initial weights
         (tables, then bottom, interaction and top).
     """
@@ -135,6 +137,7 @@ class Ranking(models_base.Model):
         task: Optional[ranking_task.Ranking] = None,
         device: device_lib.DeviceLike = "cuda",
         generator: Optional[torch.Generator] = None,
+        mesh=None,
     ) -> None:
         super().__init__()
         device = device_lib.resolve(device)
@@ -144,7 +147,7 @@ class Ranking(models_base.Model):
         self.task = task or ranking_task.Ranking()
         self.embedding = partial_lib.PartialEmbedding(
             self.feature_configs, size_threshold=size_threshold,
-            device=device, generator=generator)
+            device=device, generator=generator, mesh=mesh)
         self.bottom = bottom_stack(num_dense_features, device, generator)
         with torch.no_grad():
             dense = self.bottom(torch.zeros(1, num_dense_features,
@@ -184,6 +187,11 @@ class Ranking(models_base.Model):
         if self.concat_dense:
             out = torch.cat([dense, out], dim=-1)
         return torch.reshape(self.top(out), (-1,))
+
+    def shard_tasks(self, mesh, axis: str) -> None:
+        """The ranking task computes its loss over the gathered batch
+        (see `models.Model.shard_tasks`)."""
+        self.task = self.task.on_mesh(mesh, axis)
 
     def compute_loss(
         self, batch: Mapping[str, Any], training: bool = False,

@@ -232,6 +232,11 @@ class TwoTowerRetrieval(models_base.Model):
             self._tower_input(batch, self.candidate_key)
         )
 
+    def shard_tasks(self, mesh, axis: str) -> None:
+        """The retrieval task pools candidates across `axis` (see
+        `models.Model.shard_tasks`)."""
+        self.task = self.task.on_mesh(mesh, axis)
+
     def compute_loss(
         self,
         batch: Mapping,

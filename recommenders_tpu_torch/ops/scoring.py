@@ -421,19 +421,32 @@ def bucketed_top_k(
         padded = pad_to_multiple(candidates, chunk)
         if scales is not None:
             scales = F.pad(scales, (0, padded.shape[0] - scales.shape[0]))
+    vals, rows = bucketed_scores_padded(
+        queries, padded, scales, buckets, chunk, query_tile, valid_rows,
+        packed4)
+    k = min(k, int(valid_rows), buckets)
+    top_vals, idx = topk_ops.top_k(vals, k)
+    return top_vals, topk_ops.take_along_rows(rows, idx)
+
+
+def bucketed_scores_padded(
+    queries: Tensor, candidates: Tensor, scales: Optional[Tensor],
+    buckets: int, chunk: int, query_tile: int, valid_rows: int,
+    packed4: bool,
+) -> Tuple[Tensor, Tensor]:
+    """`bucketed_scores` for any number of queries: they are padded to
+    the query tile and the padding's rows cut from the `([Q, B], [Q, B])`
+    result. `candidates` is already on the chunk grid."""
     qn = queries.shape[0]
     tq = min(query_tile, _round_up(qn, 8))
     padded_q = _round_up(qn, tq)
     if padded_q != qn:
         queries = F.pad(queries, (0, 0, 0, padded_q - qn))
     vals, rows = bucketed_scores(
-        queries, padded, scales, buckets=buckets, chunk=chunk,
+        queries, candidates, scales, buckets=buckets, chunk=chunk,
         query_tile=tq, valid_rows=valid_rows, packed4=packed4,
     )
-    vals, rows = vals[:qn], rows[:qn]
-    k = min(k, int(valid_rows), buckets)
-    top_vals, idx = topk_ops.top_k(vals, k)
-    return top_vals, topk_ops.take_along_rows(rows, idx)
+    return vals[:qn], rows[:qn]
 
 
 def bucketed_top_k_reference(

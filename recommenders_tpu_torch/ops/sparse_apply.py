@@ -162,6 +162,24 @@ def sorted_segment_sum(
     return out
 
 
+def fixed_order_index_add_(out: Tensor, rows: Tensor,
+                           values: Tensor) -> Tensor:
+    """`out[rows[i]] += values[i]` in place, each row's values added in
+    the order they appear, `((out + v₀) + v₁) + …`, the same bits run to
+    run and on either device.
+
+    On the CPU that is `index_add_`, which runs serially there
+    (`index_put_` with `accumulate=True` adds with parallel atomics on
+    the CPU). On the card it is `index_put_` with `accumulate=True`,
+    which sorts the rows stably and adds each run in order
+    (`index_add_` adds with atomics there, in arrival order).
+    """
+    values = values.to(out.dtype)
+    if out.device.type == "cpu":
+        return out.index_add_(0, rows, values)
+    return out.index_put_((rows,), values, accumulate=True)
+
+
 def _check_states(states: Sequence[Tensor], d: int) -> None:
     v = states[0].shape[0]
     for i, st in enumerate(states):

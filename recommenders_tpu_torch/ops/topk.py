@@ -1,7 +1,6 @@
 """Top-K primitives: merge, corpus padding, streaming scan, exclusion.
 
-Port of `recommenders_tpu/ops/topk.py:30-180` onto torch tensors.
-`distributed_top_k` comes with the distribution slice.
+Port of `recommenders_tpu/ops/topk.py` onto torch tensors.
 
 Corpora are padded to a row multiple and padding rows are masked to
 `MIN_FLOAT` (not `-inf`) so they can never enter a top-k set.
@@ -14,6 +13,8 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from recommenders_tpu_torch.utils import collectives
 
 Tensor = torch.Tensor
 
@@ -152,3 +153,30 @@ def exclude(
     return take_along_rows(scores, indices), take_along_rows(
         identifiers, indices
     )
+
+
+def distributed_top_k(
+    scores: Tensor,
+    identifiers: Tensor,
+    k: int,
+    mesh: "collectives.Mesh",
+    axis: str,
+) -> Tuple[Tensor, Tensor]:
+    """Global top-k over a corpus sharded across a mesh axis.
+
+    Each rank contributes its local `[q, m]` (scores, ids); every rank
+    gets the global `[q, k]` top-k. The reduction is local top-k →
+    `all_gather` of the k-wide partials along dim 1, in axis order →
+    re-top-k (`recommenders_tpu/ops/topk.py:183-205`). On a one-rank
+    axis it is the local top-k alone.
+    """
+    kk = min(k, scores.shape[1])
+    local_scores, idx = top_k(scores, kk)
+    local_ids = take_along_rows(identifiers, idx)
+    if collectives.axis_size(mesh, axis) == 1:
+        return local_scores, local_ids
+    all_scores = collectives.all_gather(local_scores, mesh, axis, dim=1)
+    all_ids = collectives.all_gather(local_ids, mesh, axis, dim=1)
+    k = min(k, all_scores.shape[1])
+    top_scores, top_idx = top_k(all_scores, k)
+    return top_scores, take_along_rows(all_ids, top_idx)

@@ -6,6 +6,13 @@ per-element loss is averaged over trailing dims, optionally weighted per
 example, then averaged over the batch. The task returns the loss with
 the labels and predictions it read, for the metrics.
 
+With a `mesh`, the task gathers the labels, predictions and weights of
+the data axis's ranks (`utils.collectives.gather`) and computes
+`loss_fn` over the global batch, so any `loss_fn` (a weighted mean, a
+listwise loss) is the global batch's; the rank at coordinate 0 of the
+axis carries it and the others carry zero, and the gather's backward
+brings each rank the gradient of its own predictions.
+
 The BCE on probabilities clips them to `[1e-7, 1 - 1e-7]` and takes
 `log` / `log1p`, as the reference does
 (`recommenders_tpu/tasks/ranking.py:47-49`);
@@ -16,10 +23,11 @@ instead, which gives other values near 0 and 1.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, NamedTuple, Optional
+from typing import Any, Callable, NamedTuple, Optional
 
 import torch
 
+from recommenders_tpu_torch.utils import collectives
 from recommenders_tpu_torch.tasks import base
 
 Tensor = torch.Tensor
@@ -86,9 +94,14 @@ class Ranking(base.Task):
     Attributes:
       loss_fn: `(labels, predictions, sample_weight) -> scalar`; binary
         cross-entropy by default.
+      mesh: Optional `parallel.Mesh`: the loss is this rank's share of
+        the global batch's over `data_axis` (see the module docstring).
+      data_axis: The mesh axis the batch is sharded over.
     """
 
     loss_fn: Callable[..., Tensor] = binary_crossentropy
+    mesh: Any = None
+    data_axis: str = collectives.DATA_AXIS
 
     def __call__(
         self,
@@ -96,6 +109,22 @@ class Ranking(base.Task):
         predictions: Tensor,
         sample_weight: Optional[Tensor] = None,
     ) -> RankingOutput:
-        loss = self.loss_fn(labels, predictions, sample_weight)
+        if collectives.axis_size(self.mesh, self.data_axis) == 1:
+            loss = self.loss_fn(labels, predictions, sample_weight)
+        else:
+            loss = self._global_loss(labels, predictions, sample_weight)
         return RankingOutput(loss=loss, labels=labels,
                              predictions=predictions)
+
+    def _global_loss(self, labels, predictions, sample_weight) -> Tensor:
+        """`loss_fn` over the data axis's gathered batch on coordinate 0,
+        zero (with the gather's gradient path) elsewhere."""
+        def gathered(x):
+            return (None if x is None
+                    else collectives.gather(x, self.mesh, self.data_axis))
+
+        loss = self.loss_fn(gathered(labels), gathered(predictions),
+                            gathered(sample_weight))
+        first = collectives.axis_index(self.mesh, self.data_axis) == 0
+        return torch.where(torch.tensor(first, device=loss.device), loss,
+                           torch.zeros_like(loss))

@@ -19,19 +19,23 @@ scores to bf16.
 
 `Retrieval(fused=True)` computes the same loss with the flash-CE kernel
 K2 (`ops/fused_retrieval.py`) and returns only the loss.
-`cross_replica_concat` comes with the distribution slice.
+With a `mesh`, the candidates (their ids and sampling probabilities) of
+the data axis's ranks are pooled with `cross_replica_concat`, so every
+query scores the global batch's candidates; the loss, summed over this
+rank's queries, is its share of the global batch's.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, NamedTuple, Optional
+from typing import Any, Callable, NamedTuple, Optional
 
 import torch
 
 from recommenders_tpu_torch.layers import loss as loss_layers
 from recommenders_tpu_torch.ops import fused_retrieval
 from recommenders_tpu_torch.ops import scoring
+from recommenders_tpu_torch.utils import collectives
 from recommenders_tpu_torch.tasks import base
 
 Tensor = torch.Tensor
@@ -92,6 +96,10 @@ class Retrieval(base.Task):
         score matrix is never built. Maxsim queries, hard negatives,
         score masks and another `loss_fn` raise. Only `loss` is set in
         the output.
+      mesh: Optional `parallel.Mesh`: pool the candidates across
+        `data_axis` (see the module docstring). Takes the default summed
+        softmax CE only, with no score mask.
+      data_axis: The mesh axis the batch is sharded over.
     """
 
     loss_fn: Callable[..., Tensor] = softmax_cross_entropy
@@ -100,6 +108,8 @@ class Retrieval(base.Task):
     remove_accidental_hits: bool = False
     score_dtype: Optional[torch.dtype] = None
     fused: bool = False
+    mesh: Any = None
+    data_axis: str = collectives.DATA_AXIS
 
     def __call__(
         self,
@@ -124,7 +134,30 @@ class Retrieval(base.Task):
             `remove_accidental_hits`.
           score_mask: Optional `[num_queries, num_candidates]` boolean
             mask; False entries are excluded from the loss.
+
+        With a `mesh` the candidates, their ids and sampling
+        probabilities are pooled across the data axis with
+        `cross_replica_concat`, so every query scores the global batch's
+        candidates and the ranks' losses sum to the global batch's.
         """
+        if collectives.axis_size(self.mesh, self.data_axis) > 1:
+            if score_mask is not None:
+                raise ValueError(
+                    "A score mask covers this rank's candidates only; it "
+                    "cannot be pooled across the data axis.")
+            if self.loss_fn is not softmax_cross_entropy:
+                raise ValueError(
+                    "Retrieval(mesh=...) splits the summed softmax CE "
+                    "over the ranks' queries; another loss_fn need not "
+                    "split, so it is refused.")
+            pool = (self.mesh, self.data_axis)
+            candidate_embeddings = cross_replica_concat(
+                candidate_embeddings, *pool)
+            if candidate_ids is not None:
+                candidate_ids = cross_replica_concat(candidate_ids, *pool)
+            if candidate_sampling_probability is not None:
+                candidate_sampling_probability = cross_replica_concat(
+                    candidate_sampling_probability, *pool)
         if self.fused:
             if (
                 query_embeddings.dim() != 2
@@ -196,3 +229,21 @@ class Retrieval(base.Task):
         return RetrievalOutput(
             loss=loss, logits=logits, labels=out_labels, scores=batch_scores
         )
+
+
+def cross_replica_concat(values: Tensor, mesh: "collectives.Mesh",
+                         axis: str = collectives.DATA_AXIS) -> Tensor:
+    """All-gathers `values` across a mesh axis, own rows first.
+
+    Counterpart of `recommenders_tpu/tasks/retrieval.py:249-263` and of
+    the reference's `_cross_replica_concat`: each rank's `[b, ...]`
+    values are gathered along axis 0 in axis order, then rolled by
+    `axis_index · b` so this rank's contribution comes first. Used to
+    pool in-batch negatives across data-parallel ranks while each rank's
+    own positives stay on the diagonal. Differentiable: gradients come
+    out as JAX's do (the backward sums the cotangents over the axis).
+    """
+    if collectives.axis_size(mesh, axis) == 1:
+        return values
+    shift = collectives.axis_index(mesh, axis) * values.shape[0]
+    return torch.roll(collectives.gather(values, mesh, axis), -shift, dims=0)

@@ -239,13 +239,31 @@ def _on(tree: Any, device: torch.device) -> Any:
     return tree
 
 
+def _meshed(engine) -> bool:
+    return engine is not None and getattr(engine, "mesh", None) is not None
+
+
 def save(path: str, state: Any, engine=None) -> None:
     """Saves `state` to the directory `path` (replacing what is there).
 
     `engine` is the `EmbeddingEngine` of an `EngineState` or
-    `HybridState`; other states need none."""
+    `HybridState`; other states need none. A meshed engine's state is
+    gathered into its logical layout on every rank (a collective), rank
+    0 writes it, and every rank returns once it is written; `restore`
+    then gives each rank its own shard."""
     path = Path(path).absolute()
     payload = _payload(state, engine)
+    if _meshed(engine):
+        import torch.distributed as dist
+
+        if dist.get_rank() == 0:
+            _write(path, payload)
+        dist.barrier()
+        return
+    _write(path, payload)
+
+
+def _write(path: Path, payload: dict) -> None:
     path.parent.mkdir(parents=True, exist_ok=True)
     tag = f"{os.getpid()}-{uuid.uuid4().hex[:8]}"
     tmp = path.with_name(f"{path.name}.tmp-{tag}")
@@ -265,7 +283,8 @@ def save(path: str, state: Any, engine=None) -> None:
 
 def restore(path: str, template: Any, engine=None) -> Any:
     """Restores the checkpoint at `path`, placed and typed like
-    `template` (see the module docstring)."""
+    `template` (see the module docstring); a meshed engine keeps this
+    rank's shard of the logical state."""
     file = Path(path).absolute() / STATE_FILE
     if not file.is_file():
         raise FileNotFoundError(f"No checkpoint at {file.parent}.")

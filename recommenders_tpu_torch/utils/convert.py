@@ -57,6 +57,13 @@ bf16 engine.
 `{name: np.asarray(getattr(index, name)) for name in SCANN_ARRAYS}`)
 into a port `ScaNN` configured the same way, so both packages query the
 same leaves; `scann_state_to_numpy` is the inverse.
+
+Sharded state crosses in its logical (unsharded) form and each rank keeps
+its shard: `engine_state_from_logical` on a meshed engine keeps this
+rank's rows; `sharded_scann_from_numpy` loads one-device ScaNN arrays
+and shards the leaves; `sharded_bucketed_from_numpy` takes a JAX
+`ShardedBucketed`'s stacked `[S, rows, ...]` arrays (`_candidates`,
+`_scales`, `_valid`) and keeps this rank's row of them.
 """
 
 from __future__ import annotations
@@ -436,6 +443,51 @@ def scann_state_from_numpy(index, arrays: Mapping):
         setattr(index, name, tensor)
     index._num_candidates = n
     index._built = True
+    return index
+
+
+def sharded_scann_from_numpy(index, arrays: Mapping):
+    """Loads one-device ScaNN arrays (`scann_state_from_numpy`'s form)
+    into a port `parallel.ShardedScaNN`, which keeps this rank's leaves
+    and reorder rows. Every rank passes the same arrays."""
+    inner = scann_state_from_numpy(index._scann, arrays)
+    index._shard_leaves(
+        inner._centroids, inner._leaf_embs, inner._leaf_scales,
+        inner._leaf_ids, inner._leaf_rows, inner._leaf_valid,
+        inner._flat_ids, inner._corpus, inner._num_candidates)
+    inner._built = False
+    return index
+
+
+def sharded_bucketed_from_numpy(index, arrays: Mapping):
+    """Loads a JAX `ShardedBucketed`'s arrays into a port
+    `parallel.ShardedBucketed` over a mesh axis of the same size: this
+    rank keeps row `axis_index` of the stacked `_candidates` (int8 codes,
+    packed int4 codes, or f32 / bf16 rows; bf16 as uint16 bits),
+    `_scales` and `_valid`. `_num_candidates`, `_rows_per_shard` and the
+    optional `_identifiers` are replicated."""
+    from recommenders_tpu_torch.parallel import mesh as mesh_lib
+
+    cands = np.asarray(arrays["_candidates"])
+    s = mesh_lib.axis_size(index._mesh, index._axis)
+    if cands.shape[0] != s:
+        raise ValueError(
+            f"the state has {cands.shape[0]} shards, the index's axis "
+            f"{s}")
+    i = mesh_lib.axis_index(index._mesh, index._axis)
+    block = tensor_from_numpy(cands[i])
+    if cands.dtype == np.uint16:
+        block = block.view(torch.bfloat16)
+    index._candidates = block.to(index.device).contiguous()
+    scales = arrays.get("_scales")
+    index._scales = (None if scales is None else tensor_from_numpy(
+        np.asarray(scales)[i]).to(index.device))
+    ids = arrays.get("_identifiers")
+    index._identifiers = (None if ids is None else tensor_from_numpy(
+        np.asarray(ids)).to(index.device))
+    index._num_candidates = int(arrays["_num_candidates"])
+    index._rows_per_shard = int(arrays["_rows_per_shard"])
+    index._valid_rows = int(np.asarray(arrays["_valid"])[i])
     return index
 
 

@@ -238,20 +238,6 @@ def test_kernel_ab_leaf_modes_time_every_format_on_cpu():
     assert leaf_scoring._K5_BLOCKS_PER_SM == default
 
 
-def test_kernel_ab_k1_times_the_step_and_the_floor_on_cpu():
-    """`kernel_ab.py k1` at a tiny size on the CPU (the twin runs): the
-    step's call and the one-run floor call, each timed both ways."""
-    from recommenders_tpu_torch.tools import kernel_ab
-
-    size = chip_smoke.TrainSize(users=64, items=256, dim=16, batch=64)
-    k1 = kernel_ab.k1(chip_smoke, torch.device("cpu"), size)["k1"]
-    assert sorted(k1) == ["floor", "step"]
-    for reading in k1.values():
-        assert len(reading["graph_ms"]) == len(reading["call_ms"]) == \
-            kernel_ab.READS
-        assert all(t > 0 for t in reading["graph_ms"] + reading["call_ms"])
-
-
 def test_k1_floor_call_is_one_run_of_one_row():
     """The floor call updates exactly one row of every state, as one run
     of `K1_FLOOR_IDS` ids."""

@@ -290,11 +290,14 @@ def test_logical_state_round_trip_bit_equal():
     # Stacking is ported; with the mod permutation it is refused, as in
     # the JAX engine.
     (dict(stack_tables=True, row_sharding="mod"), "stack_tables"),
+    # The meshed engine is ported; it takes a `parallel.Mesh`.
     (dict(mesh=object()), "meshed"),
 ])
 def test_unported_layouts_raise(kwargs, match):
     fcs, spec = _features(config)
-    error = ValueError if "row_sharding" in kwargs else NotImplementedError
+    error = {"row_sharding": ValueError, "mesh": TypeError}.get(
+        next(iter(kwargs)) if len(kwargs) == 1 else "row_sharding",
+        NotImplementedError)
     with pytest.raises(error, match=match):
         engine.EmbeddingEngine(fcs, optimizer=spec, device="cpu", **kwargs)
 

@@ -55,7 +55,10 @@ def test_every_package_file_is_checked():
         "ops/hashing.py", "embedding/unified.py", "data/__init__.py",
         "data/vocab.py", "data/preprocessing.py", "data/movielens.py",
         "data/native_loader.py", "utils/checkpoint.py",
-        "tools/quality_parity.py",
+        "tools/quality_parity.py", "parallel/__init__.py",
+        "parallel/mesh.py", "parallel/launch.py", "parallel/corpus.py",
+        "parallel/embedding_lookup.py", "parallel/retrieval_step.py",
+        "parallel/ann.py", "utils/collectives.py",
     ):
         assert f"recommenders_tpu_torch/{module}" in names
     assert "chip_smoke.py" in names

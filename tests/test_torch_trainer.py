@@ -283,7 +283,8 @@ def test_evaluate_with_corpus_metrics_matches_jax(trained, exclusions):
 
 def test_trainer_contract_errors_and_optimizer_forms():
     model = _port_model()
-    with pytest.raises(NotImplementedError, match="meshed"):
+    # The meshed Trainer is ported; it takes a `parallel.Mesh`.
+    with pytest.raises(TypeError, match="meshed"):
         models.Trainer(model, lambda p: torch.optim.SGD(p, lr=0.1),
                        mesh=object())
     trainer = models.Trainer(model, lambda p: torch.optim.SGD(p, lr=0.1))
@@ -300,11 +301,12 @@ def test_trainer_contract_errors_and_optimizer_forms():
 def test_prefetched_yields_every_batch_in_order_on_the_device():
     _, _, ttrainer, _ = _pair("sgd")
     batches = _batches(10, 4)
-    got = list(ttrainer._prefetched(lambda: iter(batches)))
+    got = list(ttrainer._prefetched_steps(lambda: iter(batches)))
     assert len(got) == 4
-    for want, batch in zip(batches, got):
+    for want, (batch, sharded, rows) in zip(batches, got):
+        assert not sharded and rows == len(want["user_id"])
         for k in want:
             assert isinstance(batch[k], torch.Tensor)
             assert batch[k].device == ttrainer.device
             np.testing.assert_array_equal(batch[k].numpy(), want[k])
-    assert list(ttrainer._prefetched([])) == []
+    assert list(ttrainer._prefetched_steps([])) == []
