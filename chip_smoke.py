@@ -35,12 +35,14 @@ Phases, each fatal when it fails:
 ScaNN probed serving: a clustered corpus of 1,000,000 × 128 rows drawn as
 `benchmarks/serving.py:339-348` draws it (1,024 Gaussian centres at scale
 3.0 plus unit noise, NumPy from `--seed`), 1024-query requests drawn the
-same way, and six `ScaNN` indexes at k=100, built on the device: the main
-path `int8_bucketed` (L=1024, P=256, int8, B=4096, probe tile 64;
+same way, and eight `ScaNN` indexes at k=100, built on the device: the
+main path `int8_bucketed` (L=1024, P=256, int8, B=4096, probe tile 64;
 `benchmarks/serving.py:190-197`), `int8_reorder` (L=2000, P=40, reorder
-400; `benchmarks/serving.py:403-410`), `bf16_gather`,
-`int4_gather_reorder` and `int4_bucketed_reorder` (`benchmarks/ann.py:374-
-388` at L=1024), and `bf16_bucketed`. Phases, each fatal when it fails:
+400; `benchmarks/serving.py:403-410`), `bf16_gather`, `f32_gather` (the
+constructor's default f32 leaves), `int4_gather_reorder` and
+`int4_bucketed_reorder` (`benchmarks/ann.py:374-388` at L=1024),
+`bf16_bucketed`, and `f32_bucketed` (the README's ScaNN: the main path's
+settings with f32 leaves). Phases, each fatal when it fails:
 
  13. build every index; print build seconds and index bytes;
  14. serve `--requests` requests through every index, one more through
@@ -53,17 +55,19 @@ path `int8_bucketed` (L=1024, P=256, int8, B=4096, probe tile 64;
      the corpus, each score against the stored row of its id, the
      exclusions);
  16. hold K4 and K5 against their plain twins at the served shapes, for
-     f32 and bf16 rows, int8 and int4 (f32 by direct calls on the bf16
-     indexes' leaves cast to f32; two launches must agree bit for bit),
+     f32 and bf16 rows, int8 and int4, each on the leaves of an index
+     that serves it (two launches must agree bit for bit),
      and time the kernels (as eager wrapper calls between CUDA events, and
      by CUDA-graph replay of the wrapper, its plan included), the twins
      and the gather +
      matmul formulation (at the full shape, in chunks of at most 4 GB of
      gather, and on the twins' subset); bf16 rows' bound counts three
-     bf16 passes;
+     bf16 passes, f32 rows' six (split precision, as K3's f32 body);
  17. recall@100 of every index against BruteForce, each above its floor
-     (`SCANN_RECALL_FLOORS`), and the kernel path against the twin path
-     (the index copied to the CPU) on 64 queries.
+     (`SCANN_RECALL_FLOORS`), each f32-leaf index within
+     `F32_RECALL_MARGIN` of its bf16 counterpart or above it, and the
+     kernel path against the twin path (the index copied to the CPU) on
+     64 queries.
 
 Serving export and native serving, over the indexes phases 4 and 13
 built (the serving slice's full width, 1024-query requests, k = 100):
@@ -1522,15 +1526,24 @@ PATH_QUERIES = 64
 # their 8 nearest leaves and fill far ones that no probe reaches (phase 17
 # prints that share; tests/test_torch_scann_spill.py finds the JAX build
 # in the same regime). Each of their floors is 0.02 below that first
-# reading.
+# reading. The f32-leaf indexes share their bf16 counterparts' partition
+# and take their floor, set before their first reading.
 SCANN_RECALL_FLOORS = {
     "int8_reorder": 0.92,
     "int8_bucketed": 0.83,
     "bf16_gather": 0.83,
+    "f32_gather": 0.83,
     "int4_gather_reorder": 0.83,
     "int4_bucketed_reorder": 0.83,
     "bf16_bucketed": 0.83,
+    "f32_bucketed": 0.83,
 }
+# Each f32-leaf index against its bf16 counterpart (same partition and
+# probes, rows exact instead of rounded): recall@100 at most this much
+# below it.
+F32_COUNTERPARTS = {"f32_gather": "bf16_gather",
+                    "f32_bucketed": "bf16_bucketed"}
+F32_RECALL_MARGIN = 0.005
 MAIN_INDEX = "int8_bucketed"
 LEAF_SOURCE = "recommenders_tpu_torch/csrc/leaf_scoring.cu"
 LEAF_REPLACES = {
@@ -1574,6 +1587,10 @@ def scann_configs(size: ScannSize) -> dict:
         "bf16_gather": (dict(
             ann, num_leaves=n_leaves, num_leaves_to_search=n_leaves // 8,
             leaf_dtype=torch.bfloat16), "K4", "bf16"),
+        # The constructor's default leaves (f32, `approximate.py:731-732`).
+        "f32_gather": (dict(
+            ann, num_leaves=n_leaves, num_leaves_to_search=n_leaves // 8),
+            "K4", "f32"),
         "int4_gather_reorder": (dict(
             ann, num_leaves=n_leaves, num_leaves_to_search=n_leaves // 8,
             quantize="int4", num_reordering_candidates=4 * K,
@@ -1585,6 +1602,8 @@ def scann_configs(size: ScannSize) -> dict:
             probe_tile=64), "K5", "int4"),
         "bf16_bucketed": (dict(main, quantize=False,
                                leaf_dtype=torch.bfloat16), "K5", "bf16"),
+        # README.md's ScaNN: L = 1024, P = 256, B = 4096, f32 leaves.
+        "f32_bucketed": (dict(main, quantize=False), "K5", "f32"),
     }
 
 
@@ -1704,14 +1723,6 @@ def stored_scores(index, queries: torch.Tensor, ids: torch.Tensor):
     return exact, tol
 
 
-def leaf_inputs(index, fmt: str):
-    """(leaves, scales, packed4) of `index` as the kernel of `fmt` reads
-    them; "f32" is the bf16 index's leaves cast to f32."""
-    if fmt == "f32":
-        return index._leaf_embs.to(torch.float32), None, False
-    return index._leaf_embs, index._leaf_scales, index._quantize == "int4"
-
-
 def gather_matmul(qt, leaves, scales, probes, packed4):
     """The gather + `torch.matmul` formulation of the same scores, for
     query tiles `qt [t, T, D]` and probes `[t, P]` (not one call: a
@@ -1755,22 +1766,26 @@ def leaf_bytes(leaves, scales, cap: int, with_rows: bool) -> int:
 
 def leaf_passes(fmt: str) -> int:
     """bf16 products per product: bf16 rows meet the f32 query as three
-    exact bf16 terms (h + m + l); codes meet it rounded once."""
-    return 3 if fmt == "bf16" else 1
+    exact bf16 terms (h + m + l); f32 rows take six of the nine products
+    of both split into three terms (hh, hm, mh, hl, lh, mm), as K3's f32
+    body does; codes meet the query rounded once."""
+    return {"f32": 6, "bf16": 3}.get(fmt, 1)
 
 
 def leaf_ops_ms(fmt: str, products: float) -> float:
-    """Least time of `products` multiply-adds: f32 rows at the f32 peak
-    (CUDA cores), the others' bf16 passes at the bf16 tensor-core peak."""
-    if fmt == "f32":
-        return 2.0 * products / PEAK_OPS_PER_S["f32"] * 1e3
+    """Least time of `products` multiply-adds: their bf16 passes at the
+    bf16 tensor-core peak."""
     return 2.0 * leaf_passes(fmt) * products / PEAK_OPS_PER_S["bf16"] * 1e3
 
 
 def leaf_bound_terms(fmt: str, bytes_ms: float, ops_ms: float) -> str:
-    passes = ("f32" if fmt == "f32"
-              else f"{leaf_passes(fmt)} bf16 pass(es)")
-    return f"bytes {bytes_ms:.4f} ms, operations {ops_ms:.4f} ms ({passes})"
+    text = (f"bytes {bytes_ms:.4f} ms, operations {ops_ms:.4f} ms "
+            f"({leaf_passes(fmt)} bf16 pass(es))")
+    if fmt == "f32":   # The same products on the f32 CUDA cores.
+        cuda_core = (ops_ms / leaf_passes(fmt) * PEAK_OPS_PER_S["bf16"]
+                     / PEAK_OPS_PER_S["f32"])
+        text += f" (f32 CUDA-core bound {cuda_core:.4g} ms)"
+    return text
 
 
 @dataclasses.dataclass(frozen=True)
@@ -1799,11 +1814,12 @@ class LeafCall:
             query_tile=self.tile, packed4=self.packed4)
 
 
-def leaf_call(index, kernel: str, fmt: str, chunk) -> LeafCall:
-    """`kernel`'s call in format `fmt` on `index`'s leaves for `chunk`
+def leaf_call(index, kernel: str, chunk) -> LeafCall:
+    """`kernel`'s call on `index`'s leaves for `chunk`
     [query_batch, D], its probes taken as the index's search takes them
     (K4: each query's top centroids; K5: `_tile_probes`)."""
-    leaves, scales, packed4 = leaf_inputs(index, fmt)
+    leaves, scales = index._leaf_embs, index._leaf_scales
+    packed4 = index._quantize == "int4"
     rows = index._leaf_rows
     with scoring._full_f32_matmul():
         cscores = chunk @ index._centroids.T
@@ -1823,7 +1839,7 @@ def leaf_call(index, kernel: str, fmt: str, chunk) -> LeafCall:
 def check_k4(index, fmt, chunk, launches, device) -> dict:
     """K4 of format `fmt` against its twin on `index`'s leaves, at the
     served chunk `chunk` [query_batch, D]; times and bound."""
-    kernel = leaf_call(index, "K4", fmt, chunk)
+    kernel = leaf_call(index, "K4", chunk)
     leaves, scales, packed4 = kernel.leaves, kernel.scales, kernel.packed4
     probes = kernel.probes
     cap = index._leaf_rows.shape[1]
@@ -1838,7 +1854,7 @@ def check_k4(index, fmt, chunk, launches, device) -> dict:
                                                     sub_p, packed4=packed4)
 
     want = twin()
-    # |values| of the stored rows (the f32 leaves are the bf16 ones).
+    # |values| of the stored rows.
     abs_rows = leaf_rows_f32(index).abs()
     abs_dot = leaf_scoring.probed_scores_reference(
         scann_scored(index, sub_q).abs(), abs_rows, None, sub_p)
@@ -1878,8 +1894,7 @@ def check_k4(index, fmt, chunk, launches, device) -> dict:
         "bound_by": "bytes" if bytes_ms > ops_ms else "operations",
         # No single PyTorch call computes this function.
         "library_ms": None,
-        # The f32 body runs by a direct call only.
-        "on_main_path": fmt != "f32",
+        "on_main_path": True,
         "graph_ms": replay_ms,
         "gather_matmul_ms": gm_ms,
         "gather_matmul_subset_ms": gm_sub_ms,
@@ -1903,7 +1918,7 @@ def check_k5(index, fmt, chunk, launches, device) -> dict:
     """K5 of format `fmt` against its twin on `index`'s leaves, at the
     served chunk; rows equal wherever the twin's winner beats the
     bucket's best other row by more than twice the score bound."""
-    kernel = leaf_call(index, "K5", fmt, chunk)
+    kernel = leaf_call(index, "K5", chunk)
     leaves, scales, packed4 = kernel.leaves, kernel.scales, kernel.packed4
     rows_tbl, tile, buckets = kernel.rows, kernel.tile, kernel.buckets
     qs, probes = kernel.queries, kernel.probes
@@ -1989,7 +2004,7 @@ def check_k5(index, fmt, chunk, launches, device) -> dict:
         "bound_ms": max(bytes_ms, ops_ms),
         "bound_by": "bytes" if bytes_ms > ops_ms else "operations",
         "library_ms": None,
-        "on_main_path": fmt != "f32",
+        "on_main_path": True,
         "graph_ms": replay_ms,
         "gather_matmul_ms": gm_ms,
         "gather_matmul_subset_ms": gm_sub_ms,
@@ -2111,8 +2126,7 @@ def scann(device: torch.device, size: ScannSize, seed: int,
             check(counts[kernel][fmt] == want,
                   f"{counts[kernel][fmt]} {kernel} {fmt} launches, "
                   f"expected {want}")
-            if fmt != "f32":
-                check(want > 0, f"{kernel} {fmt} is on no served path")
+            check(want > 0, f"{kernel} {fmt} is on no served path")
 
     # 15. The served results.
     started = time.perf_counter()
@@ -2153,12 +2167,10 @@ def scann(device: torch.device, size: ScannSize, seed: int,
     # 16. Each kernel format against its twin, and its times.
     started = time.perf_counter()
     report = []
-    direct = {"K4": "bf16_gather", "K5": "bf16_bucketed"}
     for kernel, check_fn in (("K4", check_k4), ("K5", check_k5)):
         for fmt in ("f32", "bf16", "int8", "int4"):
-            name = direct[kernel] if fmt == "f32" else next(
-                n for n, (_, kn, f) in configs.items()
-                if kn == kernel and f == fmt)
+            name = next(n for n, (_, kn, f) in configs.items()
+                        if kn == kernel and f == fmt)
             qb = configs[name][0]["query_batch"]
             chunk = requests[0][:qb]
             report.append(check_fn(indexes[name], fmt, chunk,
@@ -2172,8 +2184,9 @@ def scann(device: torch.device, size: ScannSize, seed: int,
     exact_ids = factorized_top_k.BruteForce(k=K, device=device).index(
         corpus)(requests[0])[1]
     floors = SCANN_RECALL_FLOORS if full_corpus(size) else {}
+    values = {}
     for name, index in indexes.items():
-        value = recall(results[name][0][1], exact_ids)
+        value = values[name] = recall(results[name][0][1], exact_ids)
         floor = floors.get(name)
         near = near_share(index._leaf_rows, index._centroids, corpus,
                           index._spill_rounds)
@@ -2189,6 +2202,12 @@ def scann(device: torch.device, size: ScannSize, seed: int,
                   f"recall@{K} of {name} is {value:.4f} < {floor}")
         check(bad == 0, f"{name}: {bad} queries differ between the kernel "
               f"path and the twin path")
+    if floors:
+        for name, bf16_name in F32_COUNTERPARTS.items():
+            check(values[name] >= values[bf16_name] - F32_RECALL_MARGIN,
+                  f"recall@{K} of {name} is {values[name]:.4f}, more than "
+                  f"{F32_RECALL_MARGIN} below {bf16_name}'s "
+                  f"{values[bf16_name]:.4f}")
     if keep is not None:
         keep["scann"] = {
             "corpus": corpus, "requests": requests, "exact_ids": exact_ids,

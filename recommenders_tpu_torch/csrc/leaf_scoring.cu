@@ -32,36 +32,57 @@
 // empty bucket reports `mask_value` (MIN_FLOAT) and row -1. A probe
 // outside [0, L) is never read: K4 scores it `mask_value`, K5 skips it.
 //
-// What bounds it on the H100. K4 at the bf16 shape (Q=256 queries, P=128
+// What bounds it on the H100. K4 at the served shape (Q=256 queries, P=128
 // probes of cap=1280 rows, D=128, L=1024) probes almost every leaf about
-// 32 times: read once a (query, probe) pair that is 10.7 GB, read once a
-// leaf 335 MB, and the [Q, P*cap] f32 scores are 168 MB more, so staged
-// once per leaf it is bound by memory (~0.15 ms). K5 shares each leaf
-// among a tile of T queries: at T=64, P=256, cap=1280, D=128, Q=1024 it
-// does 86 GFLOP on 0.2-0.4 GB of distinct leaves, hundreds of FLOP a
-// byte, so it is bound by the products, 0.06 ms at the bf16 tensor-core
-// peak (3x that for bf16 rows, below). On an NVIDIA H100 80GB HBM3 at
-// 700 W (chip_smoke.py) K4 takes 0.23-0.33 ms and K5 0.26-1.12 ms, 2-15x
-// their bounds: each 64 x 64 x 128 stage costs a block barrier, the code
-// decode and the fold, with 12 warps an SM (160-168 registers a thread).
+// 32 times: read once a (query, probe) pair that is 10.7 GB of bf16 rows,
+// read once a leaf 335 MB (671 MB of f32 rows), and the [Q, P*cap] f32
+// scores are 168 MB more, so staged once per leaf it is bound by memory
+// (~0.15 ms for bf16 rows, 0.25 for f32). K5 shares each leaf among a
+// tile of T queries: at T=64, P=256, cap=1280, D=128, Q=1024 it does up to
+// 86 GFLOP on 0.2-0.7 GB of distinct leaves, hundreds of FLOP a byte, so
+// it is bound by the products: 0.06 ms a pass at the bf16 tensor-core
+// peak, three passes for bf16 rows and six for f32 rows (below). On an
+// NVIDIA H100 80GB HBM3 at 700 W (chip_smoke.py) the one-pass bodies take
+// 0.23-0.33 ms (K4) and 0.26-1.05 ms (K5), 2-15x their bounds: each 64 x
+// 64 x 128 stage costs a block barrier, the code decode and the fold,
+// with 12 warps an SM (160-168 registers a thread). The f32 bodies run
+// eight warps an SM (two 109 KB blocks), issue twice the bf16 rows'
+// products and split every B fragment on the ALUs beside them (PERF.md,
+// section 6, has their times).
 //
 // What the design does about it. The TPU ran its grid (query, probe) in
 // order and carried K5's running argmax in VMEM from one probe to the
 // next. Hopper runs blocks in no order.
-//   Tensor cores. The bf16, int8 and int4 bodies multiply a 64-query x
-//   64-slot tile with mma.sync.m16n8k16 (tensor_core.cuh): four warps of
-//   32 x 32, the slot rows coming in stages of 128 feature columns (64
-//   where a block would outgrow shared memory) through a three-stage
-//   cp.async ring with one block barrier a stage, each stage carrying the
-//   tile's slot rows and scales for the epilogue. Codes are decoded to
-//   bf16 (exact) as they are multiplied: a lane reads 4 code bytes of its
-//   slot row a k-step and the query columns are stored permuted to match
-//   (`permuted`). Codes meet the query rounded to bf16. bf16 rows must
-//   meet the unrounded f32 query, so the query is split into three bf16
-//   terms, h = bf16(q), m = bf16(q - h), l = bf16(q - h - m), whose sum is
-//   q exactly (in the normal range); the rows are exact in bf16, so the
-//   three products are exact and only the f32 sums round, as in the f32
-//   twin.
+//   Tensor cores. Every body multiplies a 64-query x 64-slot tile with
+//   mma.sync.m16n8k16 (tensor_core.cuh): four warps of 32 x 32, the slot
+//   rows coming in stages of 128 feature columns (64 for f32 rows, and where
+//   a block would outgrow shared memory) through a three-stage cp.async ring
+//   with one block barrier a stage, each stage carrying the tile's slot rows
+//   and scales for the epilogue. Codes are decoded to bf16 (exact) as they
+//   are multiplied: a lane reads 4 code bytes of its slot row a k-step and
+//   the query columns are stored permuted to match (`permuted`). Codes meet
+//   the query rounded to bf16. Rows meet the unrounded f32 query, so the
+//   query is split once, into three bf16 planes, h = bf16(q),
+//   m = bf16(q - h), l = bf16(q - h - m), whose sum is q exactly (in the
+//   normal range).
+//   bf16 rows are exact in bf16, so the three products are exact and only
+//   the f32 sums round, as in the f32 twin. f32 rows come raw through the
+//   ring ([64][KC + 8] f32 a stage) and each lane splits its B fragment into
+//   h + m + l as it loads it (tc::split3, as K3's f32 body does,
+//   csrc/bucketed_scores.cu); six of the nine term products, hh, hm, mh, hl,
+//   lh and mm, are taken, each exact in f32. The dropped ml, lm and ll are
+//   at most 1.006 * 2^-23 of |q_k||c_k| a product (plus 2^-134 of the
+//   partner for a value below 2^-110, which the split rounds onto bf16's
+//   subnormal grid: ops/scoring.py `split_error_bound`); hh sums in one f32
+//   accumulator and the other five, together 2^-7 as large, in a second,
+//   added once a tile. With the twin's own f32 dot (D * 2^-24 * sum|q||c|)
+//   that is 1.006 + D/2 of the D units of 2^-23 * sum|q||c| the card's
+//   tolerance allows (tests/test_torch_leaf_split.py). The three query
+//   planes and three raw f32 stages of 64 columns take 109 KB at D = 128,
+//   two blocks (8 warps) an SM; past D = 432 the stages are 32 wide in a
+//   ring of two (`with_stages`). The split keeps more registers live
+//   (230-238 a thread for K5, 161-171 for K4, no spills), so these bodies
+//   are held to two blocks' worth (255) instead of three (168).
 //   K4, leaf-major: the wrapper sorts the Q*P (query, probe) pairs by leaf
 //   on the device and cuts each leaf's run into groups of at most 64
 //   pairs (probes outside [0, L) form a run of their own), one block a
@@ -79,9 +100,6 @@
 //   `>`, so the first maximum in fold order still wins (not K3's merge,
 //   which sends ties to the lowest row: here an earlier probe's higher row
 //   must win).
-//   The f32 bodies take the same grids with f32 FMAs on the CUDA cores (a
-//   block owns 64 queries x 64 slots, each thread 4 x 4, the slot rows
-//   staged 32 columns at a time), exact f32 as the twin computes it.
 // Any D <= 512 and any cap are taken: ragged edges are masked, and rows
 // that are not 16-byte aligned are staged by plain loads.
 
@@ -101,17 +119,15 @@ constexpr int kMaxDim = 512;
 constexpr int kTQ = 64;  // query rows of a block: a K4 group, a K5 query block
 constexpr int kNS = 64;  // slots (K5: buckets) of a block's tile
 
-// Tensor-core bodies: stages of KC = 128 feature columns (64 where 128
-// would not fit in shared memory).
+// Stages of KC = 128 feature columns (64 where 128 would not fit in shared
+// memory); f32 rows take 64 (32 in a ring of two past D = 432).
 constexpr int kRing = 3;            // stages of the cp.async ring
 constexpr int kTcThreads = 128;     // 4 warps, each 32 queries x 32 slots
 constexpr size_t kWideSmem = 200 * 1024;  // most bytes a KC = 128 block takes
+// Most dynamic bytes a block takes: 227 KB less room for the static
+// arrays (at most 1.5 KB).
+constexpr size_t kMaxSmem = 232448 - 2048;
 constexpr int kSplitProbes = 256;   // most probes a K5 split walks
-
-// CUDA-core f32 bodies.
-constexpr int kFKC = 32;            // feature columns a stage
-constexpr int kCStride = kNS + 1;   // padded slab row (no bank conflicts)
-constexpr int kF32Threads = 256;    // 16 x 16 threads, 4 x 4 outputs each
 
 __device__ __forceinline__ int low_nibble(int p) {
   return static_cast<int>(static_cast<unsigned>(p) << 28) >> 28;
@@ -162,227 +178,17 @@ __device__ void fill_pairs(float* __restrict__ out,
   }
 }
 
-// ------------------------------------------------- f32 bodies (CUDA cores)
+// ------------------------------------------- tensor-core bodies (every format)
 
-// Loads columns [col, col + 8) of f32 row `row` (columns >= d read as 0);
-// `vec`: d % 8 == 0 and an aligned table, so two float4 loads serve.
-__device__ __forceinline__ void load8(const float* __restrict__ leaves,
-                                      int64_t row, int d, int col, bool vec,
-                                      float out[8]) {
-  const float* p = leaves + row * d + col;
-  if (vec) {
-    const float4 a = __ldg(reinterpret_cast<const float4*>(p));
-    const float4 b = __ldg(reinterpret_cast<const float4*>(p) + 1);
-    out[0] = a.x; out[1] = a.y; out[2] = a.z; out[3] = a.w;
-    out[4] = b.x; out[5] = b.y; out[6] = b.z; out[7] = b.w;
-  } else {
-#pragma unroll
-    for (int j = 0; j < 8; ++j) out[j] = col + j < d ? p[j] : 0.f;
-  }
-}
-
-// acc[i][j] = q_(4ty+i) . row (row0 + tx + 16j) for the f32 rows
-// [row0, row0 + nrows): the block's 64 queries sit transposed in `qs`
-// ([dpad][kTQ]), the rows pass through `cs` 32 columns at a time.
-__device__ __forceinline__ void f32_tile(const float* __restrict__ qs,
-                                         float* __restrict__ cs,
-                                         const float* __restrict__ leaves,
-                                         int64_t row0, int nrows, int d,
-                                         int dpad, bool vec,
-                                         float acc[4][4]) {
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
-  const int load_slot = tid / 4;       // row of the tile this thread stages
-  const int load_col = (tid % 4) * 8;  // and its 8 columns of each stage
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-  }
-  for (int k0 = 0; k0 < dpad; k0 += kFKC) {
-    float v[8];
-    if (load_slot < nrows && k0 + load_col < d) {
-      load8(leaves, row0 + load_slot, d, k0 + load_col, vec, v);
-    } else {
-#pragma unroll
-      for (int j = 0; j < 8; ++j) v[j] = 0.f;
-    }
-    __syncthreads();  // The previous stage is consumed; qs is written.
-#pragma unroll
-    for (int j = 0; j < 8; ++j) cs[(load_col + j) * kCStride + load_slot] = v[j];
-    __syncthreads();
-#pragma unroll 8
-    for (int kk = 0; kk < kFKC; ++kk) {
-      const float4 qv =
-          *reinterpret_cast<const float4*>(&qs[(k0 + kk) * kTQ + 4 * ty]);
-      const float qa[4] = {qv.x, qv.y, qv.z, qv.w};
-      float cv[4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) cv[j] = cs[kk * kCStride + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(qa[i], cv[j], acc[i][j]);
-      }
-    }
-  }
-}
-
-// Shared floats of the f32 bodies: the query block, transposed, and a stage.
-size_t f32_smem(int d) {
-  const int dpad = (d + kFKC - 1) / kFKC * kFKC;
-  return sizeof(float) * (static_cast<size_t>(dpad) * kTQ + kFKC * kCStride);
-}
-
-// K4, f32 rows: the group of block blockIdx.x (`group_of`).
-__global__ void __launch_bounds__(kF32Threads)
-probed_leaf_f32_kernel(const float* __restrict__ q,
-                       const float* __restrict__ leaves,
-                       const int* __restrict__ order,
-                       const int* __restrict__ bounds,
-                       const int* __restrict__ last,
-                       const int* __restrict__ block_leaf,
-                       float* __restrict__ out, int num_probes,
-                       int num_leaves, int cap, int d, int vec,
-                       float mask_value) {
-  extern __shared__ __align__(16) float smem[];
-  __shared__ int pair[kTQ];
-  int start, count;
-  const int leaf = group_of(bounds, last, block_leaf, num_leaves, &start,
-                            &count);
-  if (count == 0) return;  // past the live groups
-  if (leaf >= num_leaves) {
-    fill_pairs(out, order, start, count, cap, mask_value);
-    return;
-  }
-  const int dpad = (d + kFKC - 1) / kFKC * kFKC;
-  float* qs = smem;                                    // [dpad][kTQ]
-  float* cs = smem + static_cast<size_t>(dpad) * kTQ;  // [kFKC][kCStride]
-  const int tid = threadIdx.x;
-  if (tid < kTQ) pair[tid] = tid < count ? order[start + tid] : -1;
-  __syncthreads();
-  for (int idx = tid; idx < kTQ * dpad; idx += kF32Threads) {
-    const int r = idx / dpad;
-    const int k = idx - r * dpad;
-    const int qp = pair[r];
-    qs[k * kTQ + r] =
-        qp >= 0 && k < d ? q[static_cast<int64_t>(qp / num_probes) * d + k]
-                         : 0.f;
-  }
-  const int tx = tid % 16, ty = tid / 16;
-  for (int s0 = 0; s0 < cap; s0 += kNS) {
-    float acc[4][4];
-    f32_tile(qs, cs, leaves, static_cast<int64_t>(leaf) * cap + s0,
-             min(kNS, cap - s0), d, dpad, vec != 0, acc);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = 4 * ty + i;
-      if (r >= count) continue;
-      float* o = out + static_cast<int64_t>(pair[r]) * cap + s0;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        if (s0 + tx + 16 * j < cap) o[tx + 16 * j] = acc[i][j];
-      }
-    }
-  }
-}
-
-// K5, f32 rows: a 64-query x 64-bucket block of one query tile over the
-// probes of split blockIdx.z; writes plane blockIdx.z of vals / rows.
-__global__ void __launch_bounds__(kF32Threads)
-probed_bucketed_f32_kernel(const float* __restrict__ q,
-                           const float* __restrict__ leaves,
-                           const int* __restrict__ leaf_rows,
-                           const int* __restrict__ probes,
-                           float* __restrict__ vals, int* __restrict__ rows_out,
-                           int query_tile, int num_probes, int num_leaves,
-                           int cap, int d, int buckets, int vec,
-                           float mask_value) {
-  extern __shared__ __align__(16) float smem[];
-  const int dpad = (d + kFKC - 1) / kFKC * kFKC;
-  float* qs = smem;                                    // [dpad][kTQ]
-  float* cs = smem + static_cast<size_t>(dpad) * kTQ;  // [kFKC][kCStride]
-
-  const int tid = threadIdx.x;
-  const int tx = tid % 16;  // buckets b0 + tx + 16*j
-  const int ty = tid / 16;  // tile members t0 + 4*ty + i
-  const int qblocks = (query_tile + kTQ - 1) / kTQ;
-  const int tile = blockIdx.y / qblocks;
-  const int t0 = (blockIdx.y % qblocks) * kTQ;
-  const int b0 = blockIdx.x * kNS;
-  const int64_t q0 = static_cast<int64_t>(tile) * query_tile;
-  const int p_begin =
-      static_cast<int>(static_cast<int64_t>(num_probes) * blockIdx.z / gridDim.z);
-  const int p_end = static_cast<int>(static_cast<int64_t>(num_probes) *
-                                     (blockIdx.z + 1) / gridDim.z);
-
-  for (int idx = tid; idx < kTQ * dpad; idx += kF32Threads) {
-    const int qi = idx / dpad;
-    const int k = idx - qi * dpad;
-    qs[k * kTQ + qi] =
-        t0 + qi < query_tile && k < d ? q[(q0 + t0 + qi) * d + k] : 0.f;
-  }
-
-  float best[4][4];
-  int best_row[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      best[i][j] = mask_value;
-      best_row[i][j] = -1;
-    }
-  }
-  const int groups = (cap - b0 + buckets - 1) / buckets;  // b0 < B <= cap
-  for (int p = p_begin; p < p_end; ++p) {
-    const int leaf = probes[static_cast<int64_t>(tile) * num_probes + p];
-    if (leaf < 0 || leaf >= num_leaves) continue;  // uniform in the block
-    for (int g = 0; g < groups; ++g) {
-      const int s0 = g * buckets + b0;
-      float acc[4][4];
-      f32_tile(qs, cs, leaves, static_cast<int64_t>(leaf) * cap + s0,
-               min(min(kNS, buckets - b0), cap - s0), d, dpad, vec != 0, acc);
-      // Fold group g of probe p into the running per-bucket max/argmax.
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int b = b0 + tx + 16 * j;
-        const int s = g * buckets + b;
-        if (b >= buckets || s >= cap) continue;
-        const int r = __ldg(leaf_rows + static_cast<int64_t>(leaf) * cap + s);
-        if (r < 0) continue;  // padding scores MIN_FLOAT: never replaces
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          if (acc[i][j] > best[i][j]) {
-            best[i][j] = acc[i][j];
-            best_row[i][j] = r;
-          }
-        }
-      }
-    }
-  }
-
-  const int64_t plane = static_cast<int64_t>(blockIdx.z) *
-                        (gridDim.y / qblocks) * query_tile * buckets;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int t = t0 + 4 * ty + i;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int b = b0 + tx + 16 * j;
-      if (t < query_tile && b < buckets) {
-        const int64_t o = plane + (q0 + t) * buckets + b;
-        vals[o] = best[i][j];
-        rows_out[o] = best_row[i][j];
-      }
-    }
-  }
-}
-
-// --------------------------------------- tensor-core bodies (bf16, codes)
-
-// bf16 terms a query value is split into: 3 for bf16 rows, 1 for codes.
+// bf16 terms a query value is split into: 3 for f32 and bf16 rows, 1
+// for codes.
 __host__ __device__ constexpr int terms(int fmt) {
-  return fmt == kBF16 ? 3 : 1;
+  return fmt == kF32 || fmt == kBF16 ? 3 : 1;
+}
+
+// Codes (int8, int4): a scale a slot, and the query rounded once.
+__host__ __device__ constexpr bool is_code(int fmt) {
+  return fmt == kInt8 || fmt == kInt4;
 }
 
 // The NT bf16 terms of one query value: NT = 1 rounds it (codes); NT = 3
@@ -396,14 +202,15 @@ __device__ __forceinline__ void query_terms(float v, bf16 out[NT]) {
   }
 }
 
-// Shared memory of a tensor-core block, in order: NT query planes
-// [kTQ][dp + 8] bf16, then a ring of kRing stages, each the tile's slot
-// rows for KC feature columns (bf16 rows: [kNS][KC + 8] bf16; codes: raw
-// [kNS][KC + 16] bytes, decoded as they are multiplied) and its slot rows
-// and scales (2 x kNS x 4 bytes).
-template <int KC>
+// Shared memory of a block, in order: NT query planes [kTQ][dp + 8] bf16,
+// then a ring of RING stages, each the tile's slot rows for KC feature
+// columns (f32 rows: raw [kNS][KC + 8] f32, split as they are multiplied;
+// bf16 rows: [kNS][KC + 8] bf16; codes: raw [kNS][KC + 16] bytes, decoded
+// as they are multiplied) and its slot rows and scales (2 x kNS x 4
+// bytes).
+template <int KC, int RING = kRing>
 struct TcLayout {
-  static constexpr int kSlab = KC + 8;  // bf16 stride of a staged slot row
+  static constexpr int kSlab = KC + 8;  // element stride of a f32 / bf16 row
   static constexpr int kRaw = KC + 16;  // byte stride of a staged code row
   int qstride, q_elems, stage_bytes;
   __host__ __device__ TcLayout(int fmt, int d)
@@ -411,11 +218,11 @@ struct TcLayout {
         q_elems(terms(fmt) * kTQ * qstride),
         stage_bytes(kNS * row_bytes(fmt) + 2 * kNS * 4) {}
   __host__ __device__ static constexpr int row_bytes(int fmt) {
-    return fmt == kBF16 ? kSlab * 2 : kRaw;
+    return fmt == kF32 ? kSlab * 4 : fmt == kBF16 ? kSlab * 2 : kRaw;
   }
   __host__ __device__ size_t bytes() const {
     return 2 * static_cast<size_t>(q_elems) +
-           static_cast<size_t>(kRing) * stage_bytes;
+           static_cast<size_t>(RING) * stage_bytes;
   }
 };
 
@@ -450,8 +257,8 @@ __device__ __forceinline__ void stage_queries(bf16* qs, int qstride,
 }
 
 // Stages columns [col0, col0 + KC) of slot rows s0 + i, i < nrows, of
-// `leaf` into one ring stage (bf16 rows or raw codes, TcLayout), by
-// cp.async when `vec` (16-byte aligned rows), else by plain loads; rows
+// `leaf` into one ring stage (f32 or bf16 rows, or raw codes, TcLayout),
+// by cp.async when `vec` (16-byte aligned rows), else by plain loads; rows
 // i >= nrows and columns >= d are zeros. With `fold_rows` / `fold_scales`
 // it also copies the tile's slot rows / scales into the stage's fold
 // block.
@@ -460,7 +267,8 @@ __device__ __forceinline__ void stage_tile(
     unsigned char* stage, const void* __restrict__ leaves,
     const int* __restrict__ fold_rows, const float* __restrict__ fold_scales,
     int64_t leaf, int s0, int nrows, int cap, int d, int col0, bool vec) {
-  constexpr int kBytes = FMT == kBF16 ? 2 : 1;    // stored bytes an element
+  // Stored bytes an element.
+  constexpr int kBytes = FMT == kF32 ? 4 : FMT == kBF16 ? 2 : 1;
   constexpr int kRow = TcLayout<KC>::row_bytes(FMT);
   const int tid = threadIdx.x;
   const char* src = static_cast<const char*>(leaves);
@@ -483,7 +291,10 @@ __device__ __forceinline__ void stage_tile(
       const bool ok = i < nrows && col0 + c < d;
       const int64_t e = ok ? stored_row<FMT>(leaf, s0 + i, cap) * d + col0 + c
                            : 0;
-      if constexpr (FMT == kBF16) {
+      if constexpr (FMT == kF32) {
+        reinterpret_cast<float*>(stage + i * kRow)[c] =
+            ok ? static_cast<const float*>(leaves)[e] : 0.f;
+      } else if constexpr (FMT == kBF16) {
         reinterpret_cast<bf16*>(stage + i * kRow)[c] =
             ok ? static_cast<const bf16*>(leaves)[e] : __float2bfloat16(0.f);
       } else {
@@ -515,13 +326,20 @@ __device__ __forceinline__ void k_steps(int width, Step step) {
 }
 
 // acc += the warp's 32 queries x 32 slots over query columns [k0, k0 +
-// width) and stage columns [0, width). bf16 rows: B fragments by ldmatrix
-// from the slab, meeting the NT query terms in turn. Codes: each lane
-// reads 4 code bytes of its slot row a k-step and decodes them to two
-// bf16 pairs (exact; int4 slots in the leaf's second half take the high
-// nibbles), against the permuted query columns.
+// width) and stage columns [0, width). f32 rows: each lane reads its B
+// fragment's four f32 values (two 8-byte loads; a row stride of KC + 8
+// floats keeps them off each other's banks) and splits them into h, m and
+// l (tc::split3); the six term products hh, hm, mh, hl, lh and mm are
+// exact, hh sums into acc and the other five, 2^-7 as large together,
+// into `small` (the caller adds it once a tile, as K3's f32 body does).
+// bf16 rows: B fragments by ldmatrix from the slab, meeting the NT query
+// terms in turn. Codes: each lane reads 4 code bytes of its slot row a
+// k-step and decodes them to two bf16 pairs (exact; int4 slots in the
+// leaf's second half take the high nibbles), against the permuted query
+// columns.
 template <int FMT, int KC>
-__device__ __forceinline__ void mma_tile(float acc[2][4][4], const bf16* qs,
+__device__ __forceinline__ void mma_tile(float acc[2][4][4],
+                                         float small[2][4][4], const bf16* qs,
                                          int qstride,
                                          const unsigned char* stage, int k0,
                                          int width, int s0, int cap, int wm,
@@ -529,7 +347,43 @@ __device__ __forceinline__ void mma_tile(float acc[2][4][4], const bf16* qs,
   constexpr int NT = terms(FMT);
   const int plane = kTQ * qstride;
   const bf16* qa = qs + (wm * 32) * qstride + k0;
-  if constexpr (FMT == kBF16) {
+  if constexpr (FMT == kF32) {
+    constexpr int kSlab = TcLayout<KC>::kSlab;
+    // Lane (g, t) reads slot row wn*32 + nb*8 + g, columns kk + 2t, 2t+1
+    // (b0) and kk + 2t+8, 2t+9 (b1).
+    const float* rows = reinterpret_cast<const float*>(stage) +
+                        (wn * 32 + (lane >> 2)) * kSlab + 2 * (lane & 3);
+    auto step = [&](int kk) {
+      uint32_t a[3][2][4];  // [query term h, m, l][m-block]
+#pragma unroll
+      for (int t = 0; t < 3; ++t) {
+#pragma unroll
+        for (int mb = 0; mb < 2; ++mb) {
+          tc::load_a(a[t][mb], qa + t * plane + mb * 16 * qstride, qstride,
+                     kk, lane);
+        }
+      }
+#pragma unroll
+      for (int nb = 0; nb < 4; ++nb) {
+        const float* src = rows + nb * 8 * kSlab + kk;
+        const float2 lo = *reinterpret_cast<const float2*>(src);
+        const float2 hi = *reinterpret_cast<const float2*>(src + 8);
+        uint32_t bh[2], bm[2], bl[2];
+        tc::split3(lo.x, lo.y, bh[0], bm[0], bl[0]);
+        tc::split3(hi.x, hi.y, bh[1], bm[1], bl[1]);
+#pragma unroll
+        for (int mb = 0; mb < 2; ++mb) {
+          tc::mma_bf16(acc[mb][nb], a[0][mb], bh[0], bh[1]);    // hh
+          tc::mma_bf16(small[mb][nb], a[1][mb], bm[0], bm[1]);  // mm
+          tc::mma_bf16(small[mb][nb], a[2][mb], bh[0], bh[1]);  // lh
+          tc::mma_bf16(small[mb][nb], a[0][mb], bl[0], bl[1]);  // hl
+          tc::mma_bf16(small[mb][nb], a[1][mb], bh[0], bh[1]);  // mh
+          tc::mma_bf16(small[mb][nb], a[0][mb], bm[0], bm[1]);  // hm
+        }
+      }
+    };
+    k_steps<KC>(width, step);
+  } else if constexpr (FMT == kBF16) {
     constexpr int kSlab = TcLayout<KC>::kSlab;
     const bf16* slab = reinterpret_cast<const bf16*>(stage);
     auto step = [&](int kk) {
@@ -609,20 +463,21 @@ struct Tile {
 };
 
 // The block's walk over `tiles` slot tiles, tile_of(i) giving tile i: each
-// tile comes in ceil(dp / KC) column stages through a ring of kRing
-// stages, kRing - 1 of them in flight while one is multiplied, one block
+// tile comes in ceil(dp / KC) column stages through a ring of RING
+// stages, RING - 1 of them in flight while one is multiplied, one block
 // barrier a stage; after a tile's last stage, epilogue(tile, acc, wm, wn,
 // lane, rows, scales) with the warp's accumulators (c-index 2h + e of
-// [m-block][n-block] is query row g + 8h, slot column 2t + e) and the
-// tile's staged slot rows and scales (in shared memory; with null
-// `fold_*`, not staged). The query planes must be written before the call.
-template <int FMT, int KC, class TileOf, class Epilogue>
+// [m-block][n-block] is query row g + 8h, slot column 2t + e; for f32
+// rows hh plus the five smaller term products) and the tile's staged slot
+// rows and scales (in shared memory; with null `fold_*`, not staged). The
+// query planes must be written before the call.
+template <int FMT, int KC, int RING, class TileOf, class Epilogue>
 __device__ __forceinline__ void tc_walk(
     const bf16* qs, int qstride, unsigned char* ring, int stage_bytes,
     const void* __restrict__ leaves, const int* __restrict__ fold_rows,
     const float* __restrict__ fold_scales, int cap, int d, bool vec,
     int tiles, TileOf tile_of, Epilogue epilogue) {
-  constexpr int kRow = TcLayout<KC>::row_bytes(FMT);
+  constexpr int kRow = TcLayout<KC, RING>::row_bytes(FMT);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int wm = warp >> 1, wn = warp & 1;
   const int dp = qstride - 8;
@@ -642,22 +497,23 @@ __device__ __forceinline__ void tc_walk(
       in_kc = 0;
       ++in_tile;
     }
-    if (++in_slot == kRing) in_slot = 0;
+    if (++in_slot == RING) in_slot = 0;
   };
 #pragma unroll
-  for (int s = 0; s < kRing - 1; ++s) {
+  for (int s = 0; s < RING - 1; ++s) {
     if (s < stages) copy_next();
     tc::cp_async_commit();
   }
   int tile = 0, kc = 0, slot = 0;
   Tile t = tile_of(0);
   float acc[2][4][4];
+  float small[2][4][4];  // f32 rows: the five smaller term products
   for (int s = 0; s < stages; ++s) {
-    tc::cp_async_wait<kRing - 2>();
+    tc::cp_async_wait<RING - 2>();
     // Stage s has landed for every thread, and every warp is done with
     // stage s - 1, whose ring slot the next copy refills.
     __syncthreads();
-    if (s + kRing - 1 < stages) copy_next();
+    if (s + RING - 1 < stages) copy_next();
     tc::cp_async_commit();
     const unsigned char* st = ring + slot * stage_bytes;
     if (kc == 0) {
@@ -666,14 +522,27 @@ __device__ __forceinline__ void tc_walk(
 #pragma unroll
         for (int nb = 0; nb < 4; ++nb) {
 #pragma unroll
-          for (int i = 0; i < 4; ++i) acc[mb][nb][i] = 0.f;
+          for (int i = 0; i < 4; ++i) {
+            acc[mb][nb][i] = 0.f;
+            small[mb][nb][i] = 0.f;
+          }
         }
       }
     }
     if (t.live) {
-      mma_tile<FMT, KC>(acc, qs, qstride, st, kc * KC, min(KC, dp - kc * KC),
-                        t.s0, cap, wm, wn, lane);
+      mma_tile<FMT, KC>(acc, small, qs, qstride, st, kc * KC,
+                        min(KC, dp - kc * KC), t.s0, cap, wm, wn, lane);
       if (kc == kchunks - 1) {
+        if constexpr (FMT == kF32) {
+#pragma unroll
+          for (int mb = 0; mb < 2; ++mb) {
+#pragma unroll
+            for (int nb = 0; nb < 4; ++nb) {
+#pragma unroll
+              for (int i = 0; i < 4; ++i) acc[mb][nb][i] += small[mb][nb][i];
+            }
+          }
+        }
         const int* rows = reinterpret_cast<const int*>(st + kNS * kRow);
         epilogue(t, acc, wm, wn, lane, rows,
                  reinterpret_cast<const float*>(rows + kNS));
@@ -683,17 +552,17 @@ __device__ __forceinline__ void tc_walk(
       kc = 0;
       if (++tile < tiles) t = tile_of(tile);
     }
-    if (++slot == kRing) slot = 0;
+    if (++slot == RING) slot = 0;
   }
 }
 
-// K4, bf16 rows and codes. Block b takes group j of leaf block_leaf[b]:
+// K4, every format. Block b takes group j of leaf block_leaf[b]:
 // pairs [bounds[l] + 64 j, ...) of `order` (at most 64), where the leaf's
 // groups are the last ceil(pairs / 64) before last[l]; leaf L holds the
 // pairs of probes outside [0, L), and blocks past the live groups (leaf
 // L + 1) exit. The group's queries against every slot of its leaf.
-template <int FMT, int KC>
-__global__ void __launch_bounds__(kTcThreads, 3)
+template <int FMT, int KC, int RING>
+__global__ void __launch_bounds__(kTcThreads, FMT == kF32 ? 2 : 3)
 probed_leaf_tc_kernel(const float* __restrict__ q,
                       const void* __restrict__ leaves,
                       const float* __restrict__ scales,
@@ -716,7 +585,7 @@ probed_leaf_tc_kernel(const float* __restrict__ q,
     fill_pairs(out, order, start, count, cap, mask_value);
     return;
   }
-  const TcLayout<KC> lay(FMT, d);
+  const TcLayout<KC, RING> lay(FMT, d);
   bf16* qs = reinterpret_cast<bf16*>(smem_tc);
   unsigned char* ring = smem_tc + 2 * lay.q_elems;
   if (threadIdx.x < kTQ) {
@@ -726,11 +595,11 @@ probed_leaf_tc_kernel(const float* __restrict__ q,
     qrow[i] = qp >= 0 ? qp / num_probes : -1;
   }
   __syncthreads();
-  stage_queries<NT, FMT != kBF16>(qs, lay.qstride, q, qrow, d);
+  stage_queries<NT, is_code(FMT)>(qs, lay.qstride, q, qrow, d);
   const bool even = (cap & 1) == 0;
-  tc_walk<FMT, KC>(
+  tc_walk<FMT, KC, RING>(
       qs, lay.qstride, ring, lay.stage_bytes, leaves, nullptr,
-      FMT == kBF16 ? nullptr : scales, cap, d, vec != 0,
+      is_code(FMT) ? scales : nullptr, cap, d, vec != 0,
       (cap + kNS - 1) / kNS,
       [&](int i) {
         const int s0 = i * kNS;
@@ -750,7 +619,7 @@ probed_leaf_tc_kernel(const float* __restrict__ q,
               const int c = wn * 32 + nb * 8 + 2 * (lane & 3);
               const int s = t.s0 + c;
               float v0 = acc[mb][nb][2 * h], v1 = acc[mb][nb][2 * h + 1];
-              if constexpr (FMT != kBF16) {
+              if constexpr (is_code(FMT)) {
                 v0 *= sc[c];
                 v1 *= sc[c + 1];
               }
@@ -766,10 +635,10 @@ probed_leaf_tc_kernel(const float* __restrict__ q,
       });
 }
 
-// K5, bf16 rows and codes: a 64-query x 64-bucket block of one query tile
-// over the probes of split blockIdx.z; writes plane blockIdx.z.
-template <int FMT, int KC>
-__global__ void __launch_bounds__(kTcThreads, 3)
+// K5, every format: a 64-query x 64-bucket block of one query tile over
+// the probes of split blockIdx.z; writes plane blockIdx.z.
+template <int FMT, int KC, int RING>
+__global__ void __launch_bounds__(kTcThreads, FMT == kF32 ? 2 : 3)
 probed_bucketed_tc_kernel(const float* __restrict__ q,
                           const void* __restrict__ leaves,
                           const float* __restrict__ scales,
@@ -792,7 +661,7 @@ probed_bucketed_tc_kernel(const float* __restrict__ q,
       static_cast<int>(static_cast<int64_t>(num_probes) * blockIdx.z / gridDim.z);
   const int p_end = static_cast<int>(static_cast<int64_t>(num_probes) *
                                      (blockIdx.z + 1) / gridDim.z);
-  const TcLayout<KC> lay(FMT, d);
+  const TcLayout<KC, RING> lay(FMT, d);
   bf16* qs = reinterpret_cast<bf16*>(smem_tc);
   unsigned char* ring = smem_tc + 2 * lay.q_elems;
   if (threadIdx.x < kTQ) {
@@ -804,7 +673,7 @@ probed_bucketed_tc_kernel(const float* __restrict__ q,
     probe_ids[i] = tile_probes[p_begin + i];
   }
   __syncthreads();
-  stage_queries<NT, FMT != kBF16>(qs, lay.qstride, q, qrow, d);
+  stage_queries<NT, is_code(FMT)>(qs, lay.qstride, q, qrow, d);
 
   // Running best of the fragment positions, in the accumulator layout.
   float best[2][4][4];
@@ -822,9 +691,9 @@ probed_bucketed_tc_kernel(const float* __restrict__ q,
   }
   const int groups = (cap - b0 + buckets - 1) / buckets;  // b0 < B <= cap
   const int width = min(kNS, buckets - b0);
-  tc_walk<FMT, KC>(
+  tc_walk<FMT, KC, RING>(
       qs, lay.qstride, ring, lay.stage_bytes, leaves, leaf_rows,
-      FMT == kBF16 ? nullptr : scales, cap, d, vec != 0,
+      is_code(FMT) ? scales : nullptr, cap, d, vec != 0,
       (p_end - p_begin) * groups,
       [&](int i) {
         const int p = i / groups;
@@ -844,13 +713,13 @@ probed_bucketed_tc_kernel(const float* __restrict__ q,
             if (c >= t.nrows) continue;  // past the buckets or the leaf
             const int r = slot_rows[c];
             if (r < 0) continue;  // padding scores MIN_FLOAT: never replaces
-            const float scale = FMT == kBF16 ? 1.f : sc[c];
+            const float scale = is_code(FMT) ? sc[c] : 1.f;
 #pragma unroll
             for (int mb = 0; mb < 2; ++mb) {
 #pragma unroll
               for (int h = 0; h < 2; ++h) {
                 float v = acc[mb][nb][2 * h + e];
-                if constexpr (FMT != kBF16) v *= scale;
+                if constexpr (is_code(FMT)) v *= scale;
                 if (v > best[mb][nb][2 * h + e]) {
                   best[mb][nb][2 * h + e] = v;
                   best_row[mb][nb][2 * h + e] = r;
@@ -917,15 +786,42 @@ cudaError_t set_smem(Kernel kernel, size_t smem) {
                               static_cast<int>(smem));
 }
 
-template <int FMT, int KC>
+// A body's stage width KC (feature columns) and ring depth RING.
+template <int KC, int RING>
+struct Stages {
+  static constexpr int kc = KC;
+  static constexpr int ring = RING;
+};
+
+// Returns launch(Stages<KC, RING>{}) for the block's stages. f32 rows:
+// KC = 64, 109 KB at D = 128, two blocks an SM (KC = 128 takes 158 KB,
+// one block an SM, and was 23 % slower on the H100: PERF.md, section 6),
+// or, where that passes kMaxSmem (D > 432: three query planes of 64 x
+// (D + 8) bf16), KC = 32 in a ring of two. The others: KC = 128 within
+// kWideSmem, else 64.
+template <int FMT, class Launch>
+cudaError_t with_stages(int d, Launch launch) {
+  if constexpr (FMT == kF32) {
+    if (TcLayout<64>(FMT, d).bytes() > kMaxSmem) {
+      return launch(Stages<32, 2>{});
+    }
+  } else {
+    if (TcLayout<128>(FMT, d).bytes() <= kWideSmem) {
+      return launch(Stages<128, kRing>{});
+    }
+  }
+  return launch(Stages<64, kRing>{});
+}
+
+template <int FMT, int KC, int RING>
 cudaError_t launch_leaf_tc(const float* q, const void* leaves,
                            const float* scales, const int* order,
                            const int* bounds, const int* last,
                            const int* block_leaf, int blocks, float* out,
                            int num_probes, int num_leaves, int cap, int d,
                            int vec, float mask_value, cudaStream_t stream) {
-  auto kernel = probed_leaf_tc_kernel<FMT, KC>;
-  const size_t smem = TcLayout<KC>(FMT, d).bytes();
+  auto kernel = probed_leaf_tc_kernel<FMT, KC, RING>;
+  const size_t smem = TcLayout<KC, RING>(FMT, d).bytes();
   cudaError_t err = set_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   kernel<<<blocks, kTcThreads, smem, stream>>>(
@@ -942,18 +838,15 @@ cudaError_t launch_leaf_format(const float* q, const void* leaves,
                                int num_probes, int num_leaves, int cap, int d,
                                int vec, float mask_value,
                                cudaStream_t stream) {
-  if (TcLayout<128>(FMT, d).bytes() <= kWideSmem) {
-    return launch_leaf_tc<FMT, 128>(q, leaves, scales, order, bounds, last,
-                                    block_leaf, blocks, out, num_probes,
-                                    num_leaves, cap, d, vec, mask_value,
-                                    stream);
-  }
-  return launch_leaf_tc<FMT, 64>(q, leaves, scales, order, bounds, last,
-                                 block_leaf, blocks, out, num_probes,
-                                 num_leaves, cap, d, vec, mask_value, stream);
+  return with_stages<FMT>(d, [&](auto st) {
+    using S = decltype(st);
+    return launch_leaf_tc<FMT, S::kc, S::ring>(
+        q, leaves, scales, order, bounds, last, block_leaf, blocks, out,
+        num_probes, num_leaves, cap, d, vec, mask_value, stream);
+  });
 }
 
-template <int FMT, int KC>
+template <int FMT, int KC, int RING>
 cudaError_t launch_bucketed_tc(const float* q, const void* leaves,
                                const float* scales, const int* leaf_rows,
                                const int* probes, float* vals, int* rows,
@@ -961,8 +854,8 @@ cudaError_t launch_bucketed_tc(const float* q, const void* leaves,
                                int num_leaves, int cap, int d, int buckets,
                                int vec, float mask_value,
                                cudaStream_t stream) {
-  auto kernel = probed_bucketed_tc_kernel<FMT, KC>;
-  const size_t smem = TcLayout<KC>(FMT, d).bytes();
+  auto kernel = probed_bucketed_tc_kernel<FMT, KC, RING>;
+  const size_t smem = TcLayout<KC, RING>(FMT, d).bytes();
   cudaError_t err = set_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   kernel<<<grid, kTcThreads, smem, stream>>>(
@@ -979,16 +872,12 @@ cudaError_t launch_bucketed_format(const float* q, const void* leaves,
                                    int num_leaves, int cap, int d,
                                    int buckets, int vec, float mask_value,
                                    cudaStream_t stream) {
-  if (TcLayout<128>(FMT, d).bytes() <= kWideSmem) {
-    return launch_bucketed_tc<FMT, 128>(q, leaves, scales, leaf_rows, probes,
-                                        vals, rows, grid, query_tile,
-                                        num_probes, num_leaves, cap, d,
-                                        buckets, vec, mask_value, stream);
-  }
-  return launch_bucketed_tc<FMT, 64>(q, leaves, scales, leaf_rows, probes,
-                                     vals, rows, grid, query_tile,
-                                     num_probes, num_leaves, cap, d, buckets,
-                                     vec, mask_value, stream);
+  return with_stages<FMT>(d, [&](auto st) {
+    using S = decltype(st);
+    return launch_bucketed_tc<FMT, S::kc, S::ring>(
+        q, leaves, scales, leaf_rows, probes, vals, rows, grid, query_tile,
+        num_probes, num_leaves, cap, d, buckets, vec, mask_value, stream);
+  });
 }
 
 }  // namespace
@@ -1014,19 +903,11 @@ int probed_leaf_scores_launch(int format, const float* q, const void* leaves,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   switch (format) {
-    case kF32: {
-      const size_t smem = f32_smem(d);
-      cudaError_t err = set_smem(probed_leaf_f32_kernel, smem);
-      if (err != cudaSuccess) return err;
-      probed_leaf_f32_kernel<<<blocks, kF32Threads, smem, s>>>(
-          q, static_cast<const float*>(leaves), order, bounds, last,
-          block_leaf, out, num_probes, num_leaves, cap, d, vec, mask_value);
-      return cudaGetLastError();
-    }
 #define RTPU_LAUNCH_LEAF(F)                                                  \
   launch_leaf_format<F>(q, leaves, scales, order, bounds, last, block_leaf,  \
                         blocks, out, num_probes, num_leaves, cap, d, vec,    \
                         mask_value, s)
+    case kF32: return RTPU_LAUNCH_LEAF(kF32);
     case kBF16: return RTPU_LAUNCH_LEAF(kBF16);
     case kInt8: return RTPU_LAUNCH_LEAF(kInt8);
     case kInt4: return RTPU_LAUNCH_LEAF(kInt4);
@@ -1063,21 +944,11 @@ int probed_bucketed_scores_launch(int format, const float* q,
   int* r = splits > 1 ? split_rows : rows;
   cudaError_t err;
   switch (format) {
-    case kF32: {
-      const size_t smem = f32_smem(d);
-      err = set_smem(probed_bucketed_f32_kernel, smem);
-      if (err != cudaSuccess) return err;
-      probed_bucketed_f32_kernel<<<grid, kF32Threads, smem, s>>>(
-          q, static_cast<const float*>(leaves), leaf_rows, probes, v, r,
-          query_tile, num_probes, num_leaves, cap, d, buckets, vec,
-          mask_value);
-      err = cudaGetLastError();
-      break;
-    }
 #define RTPU_LAUNCH_BUCKETED(F)                                              \
   launch_bucketed_format<F>(q, leaves, scales, leaf_rows, probes, v, r,     \
                             grid, query_tile, num_probes, num_leaves, cap,  \
                             d, buckets, vec, mask_value, s)
+    case kF32: err = RTPU_LAUNCH_BUCKETED(kF32); break;
     case kBF16: err = RTPU_LAUNCH_BUCKETED(kBF16); break;
     case kInt8: err = RTPU_LAUNCH_BUCKETED(kInt8); break;
     case kInt4: err = RTPU_LAUNCH_BUCKETED(kInt4); break;

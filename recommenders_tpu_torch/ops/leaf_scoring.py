@@ -19,7 +19,9 @@ Two ops score them in place, without the `[Q, P, cap, D]` gather:
 Numerics are the JAX kernels': f32 sums; f32 or bf16 rows are scored
 against the f32 query (bf16 promotes to f32); for int8 and int4 the query
 rounds to bf16, where the codes are exact, and the per-row scale
-multiplies after the dot.
+multiplies after the dot. On the card f32 rows are multiplied in split
+precision, as K3's f32 body does (`scoring.split_scores`: six exact bf16
+term products, within `scoring.split_error_bound` of the f32 dot).
 
 Each wrapper runs its plain PyTorch twin (`probed_scores_reference`,
 `probed_bucketed_reference`) for tensors on the CPU and launches its CUDA

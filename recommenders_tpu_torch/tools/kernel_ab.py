@@ -46,9 +46,10 @@ replays) and as eager wrapper calls (the mean of 50 between CUDA events),
 
 `leaf`: K4 and K5 (`csrc/leaf_scoring.cu`), each format, at
 `chip_smoke.py`'s ScaNN shapes: its clustered 1M x 128 corpus and first
-request from the seed, its six indexes built on the device, each kernel
-called on the served chunk by `chip_smoke.leaf_call`, as phase 16 calls
-it (the f32 bodies on the bf16 indexes' leaves cast to f32); the mean of
+request from the seed, its eight indexes built on the device, each
+kernel called on the served chunk by `chip_smoke.leaf_call`, as phase 16
+calls it (each format on the leaves of the index that serves it: the f32
+bodies on `f32_gather`'s and `f32_bucketed`'s own f32 rows); the mean of
 10 wrapper calls between CUDA events, 3 times a format, and the device
 time of one call by CUDA-graph replay (10 calls captured, 3 replays).
 
@@ -226,8 +227,7 @@ def leaf_calls(cs, device: torch.device, size=None):
         index = cs.approximate.ScaNN(k=cs.K, device=device,
                                      **settings).index(corpus)
         chunk = request[:settings["query_batch"]]
-        for f in (fmt, "f32") if fmt == "bf16" else (fmt,):
-            yield kernel, f, name, cs.leaf_call(index, kernel, f, chunk)
+        yield kernel, fmt, name, cs.leaf_call(index, kernel, chunk)
         del index
 
 

@@ -145,19 +145,26 @@ def test_kernel_ties_go_to_the_lowest_row(device, fmt, q, n, buckets):
 def _adversarial_f32(kind, shape, g, device):
     """f32 values whose split terms are all busy: `residues` (m and l as
     large as rounding to nearest lets them be, one sign), `ones` (all 24
-    significant bits set) or `spread` (exponents from 2⁻³⁰ to 2³⁰)."""
+    significant bits set), `spread` (exponents from 2⁻³⁰ to 2³⁰) or
+    `subnormal` (half the values below 2⁻¹¹⁰, many of them f32
+    subnormals, where the split rounds onto bf16's subnormal grid)."""
     exps = lambda lo, hi: torch.exp2(torch.randint(
         lo, hi + 1, shape, device=device, generator=g).double())
     sign = torch.randint(0, 2, shape, device=device, generator=g) * 2.0 - 1
+    mantissa = 1 + torch.rand(shape, device=device, generator=g,
+                              dtype=torch.float64)
     if kind == "residues":
         h = 1 + torch.randint(0, 32, shape, device=device,
                               generator=g).double() * 2.0**-7
         x = (h + (2.0**-8 - 2.0**-16) + (2.0**-17 - 2.0**-23)) * exps(-4, 4)
     elif kind == "ones":
         x = sign * (2 - 2.0**-23) * exps(-4, 4)
+    elif kind == "spread":
+        x = sign * mantissa * exps(-30, 30)
     else:
-        x = sign * (1 + torch.rand(shape, device=device, generator=g,
-                                   dtype=torch.float64)) * exps(-30, 30)
+        tiny = torch.rand(shape, device=device, generator=g) < 0.5
+        x = sign * mantissa * torch.where(tiny, exps(-149, -111),
+                                          exps(-4, 4))
     return x.float()
 
 
@@ -709,6 +716,86 @@ def test_probed_bucketed_first_maximum_wins_across_splits(device, monkeypatch,
     assert ((vals - ref_v).abs() <= tol).all()
 
 
+def _leaf_rows(num_leaves, cap, device, g):
+    """A `[L, cap]` int32 table of distinct global rows, padding at the
+    end of every leaf."""
+    rows = torch.randperm(num_leaves * cap, device=device, generator=g)
+    rows = rows.view(num_leaves, cap).to(torch.int32)
+    rows[:, -3:] = -1
+    return rows
+
+
+def _probed_f32_against_twins(queries, leaves, g, p, tile, buckets):
+    """K4 and K5 with f32 rows, two launches each (bit-identical, counted
+    as f32): K4's scores within D·2⁻²³·Σ|q||c| + 2ε|want| of the twin and
+    of a float64 dot, K5's as `_check_bucketed` holds them."""
+    from recommenders_tpu_torch.ops import leaf_scoring
+
+    device = queries.device
+    num_leaves, cap, d = leaves.shape
+    q = queries.shape[0]
+    probes = torch.randint(0, num_leaves, (q, p), device=device, generator=g)
+    before = (leaf_scoring.probed_leaf_scores.launches_by_format["f32"],
+              leaf_scoring.probed_bucketed_scores.launches_by_format["f32"])
+    got = leaf_scoring.probed_leaf_scores(queries, leaves, None, probes)
+    assert torch.equal(got, leaf_scoring.probed_leaf_scores(
+        queries, leaves, None, probes))
+    want = leaf_scoring.probed_scores_reference(queries, leaves, None,
+                                                probes)
+    picked = leaves[probes.long()].double()                 # [Q, P, cap, D]
+    exact = torch.einsum("qd,qpcd->qpc", queries.double(), picked)
+    abs_dot = torch.einsum("qd,qpcd->qpc", queries.double().abs(),
+                           picked.abs())
+    tol = (d * F32_EPS * abs_dot.reshape(q, -1) + 2 * F32_EPS * want.abs()
+           + 1e-30)
+    assert bool(torch.isfinite(got).all())
+    assert ((got - want).abs() <= tol).all()
+    assert ((got.double() - exact.reshape(q, -1)).abs() <= tol).all()
+
+    rows = _leaf_rows(num_leaves, cap, device, g)
+    tiles = q // tile
+    tile_probes = torch.sort(probes[:tiles], dim=1).values.to(torch.int32)
+    vals, got_rows = leaf_scoring.probed_bucketed_scores(
+        queries, leaves, None, rows, tile_probes, buckets, query_tile=tile)
+    again = leaf_scoring.probed_bucketed_scores(
+        queries, leaves, None, rows, tile_probes, buckets, query_tile=tile)
+    torch.cuda.synchronize()
+    assert torch.equal(vals, again[0]) and torch.equal(got_rows, again[1])
+    after = (leaf_scoring.probed_leaf_scores.launches_by_format["f32"],
+             leaf_scoring.probed_bucketed_scores.launches_by_format["f32"])
+    assert after == (before[0] + 2, before[1] + 2)
+    _check_bucketed(queries, leaves, None, False, leaves, rows, tile_probes,
+                    buckets, tile, vals, got_rows)
+
+
+@pytest.mark.parametrize("kind", ["ones", "residues", "spread", "subnormal"])
+@pytest.mark.parametrize("d", [128, 512])
+def test_probed_f32_kernels_on_adversarial_values(device, kind, d):
+    """K4's and K5's split-precision f32 bodies on values that keep all
+    three bf16 terms of every operand busy (at D = 128: 128-column stages;
+    at D = 512: 32-column stages in a ring of two)."""
+    g = torch.Generator(device=device).manual_seed(11)
+    leaves = _adversarial_f32(kind, (6, 200, d), g, device)
+    queries = _adversarial_f32(kind, (128, d), g, device)
+    _probed_f32_against_twins(queries, leaves, g, p=3, tile=64, buckets=64)
+
+
+@pytest.mark.parametrize("d,offset", [(37, 0), (64, 1), (300, 1)])
+def test_probed_f32_kernels_take_unaligned_rows(device, d, offset):
+    """f32 leaves whose rows are not 16-byte aligned (D % 8 != 0, or a
+    table that starts 4 bytes past an aligned address) are staged by plain
+    loads: the same tolerance as aligned rows."""
+    g = torch.Generator(device=device).manual_seed(12)
+    num_leaves, cap = 5, 130
+    base = torch.randn(num_leaves * cap * d + offset, device=device,
+                       generator=g)
+    leaves = base[offset:].view(num_leaves, cap, d)
+    assert leaves.is_contiguous()
+    assert leaves.data_ptr() % 16 != 0 or d % 8
+    queries = torch.randn(70, d, device=device, generator=g)
+    _probed_f32_against_twins(queries, leaves, g, p=4, tile=35, buckets=40)
+
+
 def test_probed_kernels_refuse_bad_inputs(device):
     from recommenders_tpu_torch.ops import leaf_scoring
 
@@ -732,6 +819,8 @@ def test_probed_kernels_refuse_bad_inputs(device):
 @pytest.mark.parametrize("settings", [
     dict(quantize="int8", num_reordering_candidates=40),
     dict(leaf_dtype=torch.bfloat16),
+    dict(),                                     # f32 leaves (K4 f32)
+    dict(scoring_buckets=256, probe_tile=8),    # f32 leaves (K5 f32)
     dict(quantize="int4", scoring_buckets=256, probe_tile=8,
          num_leaves_to_search=12),
 ])
