@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Runs the PyTorch port's retrieval serving, ScaNN serving, serving
 export, product quantization, training, trainer, ranking, data and
-distribution slices on one NVIDIA GPU and checks them.
+distribution slices and its user examples on one NVIDIA GPU and checks
+them.
 
     python3 chip_smoke.py [--seed 0] [--requests 3]
 
@@ -283,12 +284,31 @@ Distribution (`recommenders_tpu_torch/parallel/`), at the widths above:
      device. Each rank prints its request and step times, its time in
      collectives and its launches, labelled as four ranks on one card.
 
+The user examples (`recommenders_tpu_torch/examples/`, the ports of
+`examples/*.py`):
+ 37. each example's entry point in this process on the card, at its own
+     defaults, as its `__main__` runs it (efficient_serving at
+     `RTPU_FULL=1`'s 200,000 x 128; the distributed ones' per-rank `run`
+     on a one-rank NCCL group), its launches counted around it alone:
+     efficient_serving must launch K3 f32 and K4 int8, sharded_ann_serving
+     K3 int8 and K5 int8 on its rank, hybrid_dlrm and tpu_embedding K1
+     once a table a step, and none K2. Those kernels are then held
+     against their twins at the examples' shapes (phases 7, 16, 34's
+     checks; K1 within 2 ulps). Every returned or printed number must be
+     finite; Bucketed recall@10 at least 1 − (k−1)/2B − 0.01, ScaNN's
+     within 0.02 of the JAX example's own reading, sharded_ann_serving's
+     own asserts, prebuilt_dlrm's AUC above 0.6, unified_embedding's
+     within 0.02 of the JAX example's. Then `python3 -m
+     recommenders_tpu_torch.tools.run_examples quickstart` runs as a
+     subprocess and must exit 0. Each example's seconds, headline
+     numbers and launches are printed.
+
 The phases run in the order serving, ScaNN, export (35), product
 quantization (36), training, trainer slice, ranking slice, data slice,
-distribution. Each kernel's row in the `{"kernels": [...]}` line carries
+distribution, examples (37). Each kernel's row in the `{"kernels": [...]}` line carries
 `path_launches`, its launches on the later slices' paths (phases 18,
-20, 23, 26, 27, 29, 31, 33, 34, and 35's exported programs and host
-runs, from the op library's counts). It prints the card's
+20, 23, 26, 27, 29, 31, 33, 34, 35's exported programs and host runs,
+from the op library's counts, and 37's examples). It prints the card's
 name and power limit, one `{"kernels": [...]}` line
 and, last, `{"ok": true, "device": {...}}`. Without CUDA, or run outside
 a checkout of the repository, it exits non-zero and prints no result.
@@ -300,6 +320,8 @@ import argparse
 import contextlib
 import copy
 import dataclasses
+import importlib
+import io
 import json
 import os
 import shutil
@@ -307,6 +329,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 from pathlib import Path
 from typing import Optional
 
@@ -4648,34 +4671,39 @@ def four_rank_worker(device: torch.device, size: ParallelSize,
     return out
 
 
-def shard_against_twin(index, queries: torch.Tensor, fmt: str) -> dict:
+def shard_against_twin(index, queries: torch.Tensor, fmt: str,
+                       valid_rows: Optional[int] = None,
+                       label: str = "phase 34: shard") -> dict:
     """This rank's K3 launch over its own shard, with the shard's
     `valid_rows` (below the shard's rows on the last rank), against
     `bucketed_scores_reference` at the same `valid_rows`: scores within
     `score_tolerance`, ids equal where the twin's bucket winner is clear
     of its runner-up, and no padding row where the twin found a real
-    one. Returns the rank's valid rows and the max |err|."""
+    one. Returns the rank's valid rows and the max |err|. A one-device
+    `Bucketed` index takes its corpus rows as `valid_rows`."""
+    if valid_rows is None:
+        valid_rows = index._valid_rows
     q = (queries if index._quantize
          else queries.to(index._candidates.dtype))[:TWIN_QUERIES]
     packed4 = fmt == "int4"
     vals, rows = scoring.bucketed_scores_padded(
         q, index._candidates, index._scales, index._buckets, index._chunk,
-        index._query_tile, index._valid_rows, packed4)
+        index._query_tile, valid_rows, packed4)
     twin_vals, twin_rows = scoring.bucketed_scores_reference(
         q, index._candidates, index._scales, buckets=index._buckets,
-        valid_rows=index._valid_rows, packed4=packed4)
+        valid_rows=valid_rows, packed4=packed4)
     err = (vals - twin_vals).abs()
     tol = score_tolerance(index, q, twin_rows, twin_vals)
-    check(bool((err <= tol).all()), f"phase 34: shard K3 {fmt} scores off "
+    check(bool((err <= tol).all()), f"{label} K3 {fmt} scores off "
           f"the twin by {float(err.max())}")
     real = twin_vals > scoring.MIN_FLOAT / 2
-    check(bool((rows[real] < index._valid_rows).all()),
-          f"phase 34: shard K3 {fmt} returned a padding row")
+    check(bool((rows[real] < valid_rows).all()),
+          f"{label} K3 {fmt} returned a padding row")
     stored = index._candidates
     if packed4:
         stored = quantization.unpack_nibbles(stored)
     table = scoring.reference_scores(
-        q, stored, index._scales, index._valid_rows).view(
+        q, stored, index._scales, valid_rows).view(
             q.shape[0], -1, index._buckets)
     if table.shape[1] > 1:
         top2 = table.topk(2, dim=1).values
@@ -4683,10 +4711,10 @@ def shard_against_twin(index, queries: torch.Tensor, fmt: str) -> dict:
     else:   # one row a bucket: its winner has no runner-up
         separated = torch.ones_like(real)
     check(torch.equal(rows[separated], twin_rows[separated]),
-          f"phase 34: shard K3 {fmt} ids differ from the twin's in a "
+          f"{label} K3 {fmt} ids differ from the twin's in a "
           "separated bucket")
-    return {"valid_rows": index._valid_rows,
-            "rows": index._rows_per_shard,
+    return {"valid_rows": valid_rows,
+            "rows": getattr(index, "_rows_per_shard", valid_rows),
             "max_abs_err": float(err.max())}
 
 
@@ -5149,6 +5177,335 @@ def product_quantization(device: torch.device, kept: dict,
 
 
 
+# --- The user examples (phase 37) --------------------------------------------
+
+# What each port example's `__main__` runs, kernel bearers first:
+# (module under `recommenders_tpu_torch/examples/`, label, keyword
+# arguments of its entry point). The distributed examples run their
+# per-rank body (`run`) in this process on a one-rank group (NCCL on the
+# card), so their launches are counted here.
+EXAMPLE_RUNS = (
+    ("efficient_serving", "efficient_serving", {"full": True}),
+    ("sharded_ann_serving", "sharded_ann_serving", {}),
+    ("hybrid_dlrm", "hybrid_dlrm", {}),
+    ("tpu_embedding", "tpu_embedding", {}),
+    ("distributed_retrieval", "distributed_retrieval", {}),
+    ("quickstart", "quickstart", {}),
+    ("full_pipeline", "full_pipeline", {}),
+    ("basic_ranking", "basic_ranking", {}),
+    ("deep_ranking_dcn", "deep_ranking_dcn", {}),
+    ("deep_ranking_dcn", "deep_ranking_dcn low-rank", {"projection_dim": 16}),
+    ("deep_recommenders", "deep_recommenders", {}),
+    ("context_features", "context_features", {}),
+    ("featurization", "featurization", {}),
+    ("sequential_retrieval", "sequential_retrieval", {}),
+    ("listwise_ranking", "listwise_ranking", {}),
+    ("multitask", "multitask", {}),
+    ("prebuilt_dlrm", "prebuilt_dlrm", {}),
+    ("prebuilt_dlrm", "prebuilt_dlrm clippy", {"optimizer":
+                                               "clippy_composite"}),
+    ("unified_embedding", "unified_embedding", {}),
+)
+DISTRIBUTED_EXAMPLES = ("sharded_ann_serving", "tpu_embedding",
+                        "distributed_retrieval")
+# The kernels each kernel-bearing example must launch (report rows; K1
+# once a table a step, tallied under the K1 DLRM row: f32 adagrad, and
+# tpu_embedding's f32 adam).
+EXAMPLE_KERNELS = {
+    "efficient_serving": ("bucketed_scores[f32]",
+                          "probed_leaf_scores[int8]"),
+    "sharded_ann_serving": ("bucketed_scores[int8]",
+                            "probed_bucketed_scores[int8]"),
+    "hybrid_dlrm": (K1_DLRM_ROW,),
+    "tpu_embedding": (K1_DLRM_ROW,),
+}
+# K1 at each engine example's shapes: (rule, rows, dim, ids a step, lr)
+# of each table (examples/hybrid_dlrm.py:57-80, examples/tpu_embedding.py:
+# 21-34; tpu_embedding's 512 x 10 watch history).
+EXAMPLE_K1 = {
+    "hybrid_dlrm": (("adagrad", 500_000, 16, 4096, 0.1),
+                    ("adagrad", 10_000, 16, 4096, 0.1)),
+    "tpu_embedding": (("adam", 100_000, 32, 512, 0.01),
+                      ("adagrad", 1_000_000, 32, 5120, 0.1)),
+}
+# `examples/efficient_serving.py`'s ScaNN recall@10 at `RTPU_FULL=1`
+# (200,000 x 128, 200 leaves, 20 searched), read once from the JAX
+# example on the CPU (PERF.md, PR 14); the port's must be within 0.02.
+JAX_FULL_SCANN_RECALL = 0.907
+SCANN_EXAMPLE_MARGIN = 0.02
+# Bucketed recall@k must clear 1 − (k−1)/2B (one bucket's collisions,
+# the index's docstring) by this margin.
+BUCKETED_EXAMPLE_MARGIN = 0.01
+# `examples/unified_embedding.py` is near chance at its defaults (JAX on
+# the CPU reads these AUCs: PERF.md, PR 14), so the AUC floor cannot
+# apply there; the port must read within the margin of them.
+UNIFIED_JAX_AUC = {"collisionless": 0.4968, "unified": 0.5041}
+UNIFIED_AUC_MARGIN = 0.02
+# Runs the AUC floor holds for (at their full size).
+AUC_EXAMPLES = ("prebuilt_dlrm",)
+
+
+class _Tee(io.StringIO):
+    """Keeps what is printed and passes it on."""
+
+    def __init__(self, out):
+        super().__init__()
+        self._out = out
+
+    def write(self, text):
+        self._out.write(text)
+        return super().write(text)
+
+
+def example_numbers(value, prefix: str = "") -> dict:
+    """The numbers an example returned, by dotted key (a `history` by its
+    last epoch; arrays, tensors and states are left out)."""
+    if isinstance(value, dict):
+        if "epochs" in value and isinstance(value["epochs"], list):
+            return example_numbers(value["epochs"][-1], prefix)
+        out = {}
+        for k, v in value.items():
+            out.update(example_numbers(v, f"{prefix}{k}."))
+        return out
+    if isinstance(value, (list, tuple)):
+        return example_numbers(value[-1], prefix) if value else {}
+    if isinstance(value, (int, float)) and not isinstance(value, bool):
+        return {prefix[:-1]: float(value)}
+    return {}
+
+
+def printed_numbers(text: str) -> dict:
+    """`name: value` lines an example printed (quickstart's metrics)."""
+    out = {}
+    for line in text.splitlines():
+        name, _, value = line.rpartition(": ")
+        try:
+            out[name.strip()] = float(value)
+        except ValueError:
+            continue
+    return out
+
+
+HEADLINE_KEYS = ("recall", "auc", "rmse", "top_10_", "top_100_", "ndcg",
+                 "losses", "final_loss", "engine_steps", "_ms")
+
+
+def headline(numbers: dict) -> str:
+    keep = {k: v for k, v in numbers.items()
+            if any(key in k.rsplit(".", 1)[-1] for key in HEADLINE_KEYS)}
+    return ", ".join(f"{k} {v:.4g}" for k, v in keep.items())
+
+
+def reset_example_counts(device: torch.device) -> None:
+    reset_all_counts()
+    if device.type == "cuda":
+        cuda_build.reset_op_launches()
+
+
+def example_counts(device: torch.device) -> dict:
+    """Launches by report row since `reset_example_counts`: K3-K5 from the
+    op library's own counts on the card, K1 (tallied under the K1 DLRM
+    row) and K2 from their wrappers'."""
+    counts = kernel_counts()
+    k1 = counts.pop("sorted_block_apply[adagrad bf16+SR]")
+    if device.type == "cuda":
+        for op, by in cuda_build.op_launches().items():
+            for fmt, n in by.items():
+                counts[f"{op}[{fmt}]"] = n
+    counts[K1_DLRM_ROW] = k1
+    return counts
+
+
+def check_example_launches(name: str, counts: dict, out) -> None:
+    """On the card: every kernel of the example's path launched (K1 once
+    a table a step: `engine_steps` x `tables` of what it returned), and
+    no example launched K2 (none sets `fused=True`)."""
+    for row in EXAMPLE_KERNELS.get(name, ()):
+        if row == K1_DLRM_ROW:
+            want = out["engine_steps"] * out["tables"]
+            check(counts.get(row, 0) == want,
+                  f"phase 37: {name}: K1 launched {counts.get(row, 0)} "
+                  f"times in {out['engine_steps']} steps of "
+                  f"{out['tables']} tables, expected one a table a step")
+        else:
+            check(counts.get(row, 0) > 0,
+                  f"phase 37: {name}: {row} never launched")
+    k2 = {r: n for r, n in counts.items()
+          if r.startswith("fused_retrieval") and n}
+    check(not k2, f"phase 37: {name}: launched K2 {k2}")
+
+
+def check_example_numbers(name: str, label: str, out, numbers: dict,
+                          floors: bool) -> None:
+    """Every number finite; at the examples' own sizes (`floors`), the
+    serving recalls, the DLRM AUC and the unified-embedding AUCs."""
+    bad = {k: v for k, v in numbers.items() if not np.isfinite(v)}
+    check(numbers and not bad, f"phase 37: {label}: numbers {bad or 'none'}")
+    if not floors:
+        return
+    if name == "efficient_serving":
+        floor = (1 - (out["k"] - 1) / (2 * out["buckets"])
+                 - BUCKETED_EXAMPLE_MARGIN)
+        check(out["bucketed_recall"] >= floor,
+              f"phase 37: Bucketed recall {out['bucketed_recall']} < "
+              f"{floor}")
+        check(abs(out["scann_recall"] - JAX_FULL_SCANN_RECALL)
+              <= SCANN_EXAMPLE_MARGIN,
+              f"phase 37: ScaNN recall {out['scann_recall']} vs the JAX "
+              f"example's {JAX_FULL_SCANN_RECALL}")
+    if name in AUC_EXAMPLES:
+        auc = out["epochs"][-1]["auc"]
+        check(auc > AUC_FLOOR, f"phase 37: {label}: AUC {auc} <= "
+              f"{AUC_FLOOR}")
+    if name == "unified_embedding":
+        for kind, want in UNIFIED_JAX_AUC.items():
+            check(abs(out[kind]["auc"] - want) <= UNIFIED_AUC_MARGIN,
+                  f"phase 37: {kind} AUC {out[kind]['auc']} vs the JAX "
+                  f"example's {want}")
+
+
+def example_k1(name: str, device: torch.device, seed: int) -> float:
+    """K1 against its twin at each table's shape of the example (f32
+    states, fresh draws): 2 ulps at most, as phase 9's f32 rules.
+    Returns the max |err|."""
+    worst = 0.0
+    for kind, v, d, n, lr in EXAMPLE_K1[name]:
+        spec = emb_config.OptimizerSpec(kind=kind, learning_rate=lr)
+        _, scalars, rule, _ = sparse_optimizer._kernel_rule(spec, 3)
+        states, ids, grads = k1_problem(kind, torch.float32, v, d, n,
+                                        device, seed)
+        got = [s.clone() for s in states]
+        want = [s.clone() for s in states]
+        sparse_apply.sorted_block_apply(got, ids, grads, rule,
+                                        scalars=scalars)
+        sparse_apply.sorted_block_apply_reference(want, ids, grads, rule,
+                                                  scalars=scalars)
+        sync(device)
+        for g, w, b in zip(got, want, states):
+            err, ulps, _ = ulp_report(g, w, b)
+            check(ulps <= 2, f"phase 37: {name}: K1 {kind} V={v} D={d} "
+                  f"n={n} {ulps} ulps from its twin")
+            worst = max(worst, err)
+    return worst
+
+
+def example_kernels(name: str, keep: dict, device: torch.device,
+                    seed: int) -> dict:
+    """Each kernel of the example's path at the example's own shapes
+    against its plain twin; returns max |err| by kernel."""
+    if name in EXAMPLE_K1:
+        return {"K1": example_k1(name, device, seed)}
+    indexes, queries = keep["indexes"], keep["queries"]
+    if name == "efficient_serving":
+        bucketed, scann_index = indexes["bucketed"], indexes["scann"]
+        k3 = shard_against_twin(bucketed, queries, "f32",
+                                valid_rows=bucketed._num_candidates,
+                                label="phase 37: efficient_serving")
+        k4 = check_k4(scann_index, "int8", queries[:scann_index._query_batch],
+                      0, device)
+        return {"K3 f32": k3["max_abs_err"], "K4 int8": k4["max_abs_err"]}
+    # sharded_ann_serving: this rank's shard of each index.
+    k3 = shard_against_twin(indexes["bucketed"], queries, "int8",
+                            label="phase 37: sharded_ann_serving")
+    sharded = indexes["scann"]
+    inner = sharded._scann
+    shard = types.SimpleNamespace(
+        _leaf_embs=sharded._leaf_embs, _leaf_scales=sharded._leaf_scales,
+        _leaf_rows=sharded._leaf_rows, _centroids=sharded._centroids,
+        _quantize=inner._quantize, _probe_tile=inner._probe_tile,
+        _num_probes=min(inner._num_probes, sharded._num_leaves),
+        _scoring_buckets=inner._scoring_buckets)
+    k5 = check_k5(shard, "int8", queries[:inner._query_batch], 0, device)
+    return {"K3 int8": k3["max_abs_err"], "K5 int8": k5["max_abs_err"]}
+
+
+@contextlib.contextmanager
+def example_group(device: torch.device, name: str):
+    """A one-rank default group (NCCL on the card) around a distributed
+    example, whose per-rank body then runs in this process."""
+    if name not in DISTRIBUTED_EXAMPLES:
+        yield
+        return
+    import torch.distributed as dist
+
+    root = tempfile.mkdtemp(prefix="example_")
+    parallel_group(device, root)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def run_example(device: torch.device, name: str, kwargs: dict, keep: dict):
+    """The example's entry point on `device` (a distributed example's
+    per-rank body `run`, inside `example_group`); returns (what it
+    returned, what it printed). The serving examples leave their indexes
+    and queries in `keep`."""
+    module = importlib.import_module(f"recommenders_tpu_torch.examples.{name}")
+    if name in ("efficient_serving", "sharded_ann_serving"):
+        kwargs = {**kwargs, "keep": keep}
+    tee = _Tee(sys.stdout)
+    with contextlib.redirect_stdout(tee):
+        if name in DISTRIBUTED_EXAMPLES:
+            out = module.run(device, **kwargs)
+        else:
+            out = module.main(device=device, **kwargs)
+    return out, tee.getvalue()
+
+
+def examples_phase(device: torch.device, seed: int, runs=EXAMPLE_RUNS,
+                   floors: bool = True) -> dict:
+    """Phase 37: every user example's entry point on `device`, its
+    launches counted around it alone; the kernels of the kernel-bearing
+    examples held against their twins at the examples' shapes; the
+    runner's subprocess. Returns the launches by report row and path."""
+    # 37. The examples, each on its own counts.
+    started = time.perf_counter()
+    paths, seconds = {}, {}
+    for name, label, kwargs in runs:
+        keep, errs = {}, None
+        with example_group(device, name):
+            sync(device)
+            reset_example_counts(device)
+            t = time.perf_counter()
+            out, printed = run_example(device, name, kwargs, keep)
+            sync(device)
+            seconds[label] = time.perf_counter() - t
+            counts = example_counts(device)
+            numbers = example_numbers(out)
+            if name == "quickstart":
+                numbers.update(printed_numbers(printed))
+            check_example_numbers(name, label, out, numbers, floors)
+            if device.type == "cuda":
+                check_example_launches(name, counts, out)
+            if name in EXAMPLE_KERNELS:
+                errs = example_kernels(name, keep, device, seed)
+        launched = {row: n for row, n in counts.items() if n}
+        for row, n in launched.items():
+            paths.setdefault(row, {})[f"examples: {label}"] = n
+        print(f"  example {label}: {seconds[label]:.2f} s; "
+              f"{headline(numbers)}; launches {launched}"
+              + (f"; kernels vs twins max |err| {errs}" if errs else ""),
+              flush=True)
+    t = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "recommenders_tpu_torch.tools.run_examples",
+         "quickstart", "--device", device.type],
+        cwd=Path(__file__).resolve().parent, capture_output=True,
+        text=True, timeout=900)
+    tail = (proc.stdout + proc.stderr).strip().splitlines()[-4:]
+    print(f"  runner: `python3 -m recommenders_tpu_torch.tools.run_examples "
+          f"quickstart --device {device.type}` exit {proc.returncode} in "
+          f"{time.perf_counter() - t:.1f} s: " + " | ".join(tail),
+          flush=True)
+    check(proc.returncode == 0, f"phase 37: the runner exited "
+          f"{proc.returncode}")
+    phase("37 examples", started, f"{len(runs)} runs in "
+          f"{sum(seconds.values()):.1f} s, runner exit 0")
+    return paths
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -5193,11 +5550,13 @@ def main() -> int:
         device, PipelineSize(), FeaturizationSize(),
         quality_parity.parse_args(["--device", str(device)]), args.seed)
     counts_by_phase.append(distribution(device, ParallelSize(), args.seed))
+    counts_by_phase.append(examples_phase(device, args.seed))
     for counts in counts_by_phase + [k2_f32]:
         for row, by_path in counts.items():
             paths.setdefault(row, {}).update(by_path)
     for row in report:
         row["path_launches"] = paths.get(row["name"], {})
+    k1_dlrm["path_launches"].update(paths.get(K1_DLRM_ROW, {}))
     report += stacked + [k1_dlrm]
     print(f"total {time.perf_counter() - started:.1f} s")
     print(json.dumps({"kernels": report}))

@@ -39,6 +39,13 @@ inverse. The names map as (kernels `[in, out]` transposed to
         {query,key,value}/bias [heads, head_dim] ↔ ....bias
         out/kernel [heads, head_dim, d] ↔ encoder.attention.out.weight
       Dense_i                      ↔ encoder.dense_i
+    <key> of a module's `flax_names` ↔ its child named there
+                                     (`{child: key}`: how the examples'
+                                     own flax modules name their parts,
+                                     `setup` attributes or compact
+                                     `Embed_i` / `Dense_i`)
+    <Embed>/embedding              ↔ <nn.Embedding>.weight
+    <nn.Sequential>/layers_i       ↔ <nn.Sequential>.i
 
 Any missing or extra key raises, as does a shape that does not match.
 
@@ -125,7 +132,7 @@ def _linear(path: Path, name: str, bias: bool = True) -> Iterator[_Leaf]:
 
 
 def _prefix(name: str) -> str:
-    return f"{name}." if name else ""
+    return f"{name}." if name and not name.endswith(".") else name
 
 
 def _mlp(mlp, path: Path, name: str) -> Iterator[_Leaf]:
@@ -241,6 +248,24 @@ def _leaves(model: nn.Module, path: Path = (),
         return
     if isinstance(model, blocks.MLP):
         yield from _mlp(model, path, name)
+        return
+    flax_names = getattr(model, "flax_names", None)
+    if flax_names is not None:
+        for child, key in flax_names.items():
+            yield from _leaves(getattr(model, child), path + (key,),
+                               f"{_prefix(name)}{child}")
+        return
+    if isinstance(model, nn.Embedding):
+        yield _Leaf(path + ("embedding",), f"{_prefix(name)}weight")
+        return
+    if isinstance(model, nn.Linear):
+        yield from _linear(path, _prefix(name)[:-1], model.bias is not None)
+        return
+    if isinstance(model, nn.Sequential):
+        for i, layer in enumerate(model):
+            if next(layer.parameters(), None) is not None:
+                yield from _leaves(layer, path + (f"layers_{i}",),
+                                   f"{_prefix(name)}{i}")
         return
     if not isinstance(model, (retrieval.EmbeddingTower,
                               retrieval.SequenceTower)):

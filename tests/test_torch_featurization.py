@@ -12,6 +12,12 @@ against CPU over its three steps; all five to 1e-3 (two f32
 implementations whose rounding the growing loss amplifies step by step).
 The printed gaps are what `PERF.md` cites beside the card-vs-CPU gaps of
 `chip_smoke.py --featurization-drift`.
+
+The port's own example (`recommenders_tpu_torch/examples/featurization.
+py`) takes the flax weights through `utils.convert.load_flax_params` (its
+towers name their flax counterparts' compact layers): its first loss and
+its query and candidate embeddings to rtol 1e-5, and one Adagrad step's
+change within `STEP_GAP` of JAX's (`tests/torch_examples_common.py`).
 """
 
 import importlib.util
@@ -29,6 +35,9 @@ from recommenders_tpu import models as jax_models
 from recommenders_tpu.data import preprocessing as jax_pp
 
 import chip_smoke
+from recommenders_tpu_torch.examples import featurization as port_example
+from recommenders_tpu_torch.utils import convert
+from torch_examples_common import STEP_GAP, step_gap, to_torch
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -43,9 +52,11 @@ def _example():
     return module
 
 
-def _jax_run(prep, size, seed):
+def _jax_run(prep, size, seed, keep=None):
     """The example's model and Adagrad on `prep`'s batches; returns (its
-    initial params as NumPy, per-step losses)."""
+    initial params as NumPy, per-step losses). With a `keep` dict, the
+    model, its params after the steps and the per-step losses land
+    there too."""
     example = _example()
     train = prep["train"]
     np.testing.assert_array_equal(
@@ -73,6 +84,9 @@ def _jax_run(prep, size, seed):
     for batch in prep["steps"]:
         state, loss = trainer.train_step(state, batch)
         losses.append(float(loss))
+    if keep is not None:
+        keep.update(model=model, params=jax.tree.map(
+            np.array, fnn.meta.unbox(state.params)))
     return params, losses
 
 
@@ -118,3 +132,30 @@ def test_port_tracks_the_jax_example_as_its_loss_grows(seed, capsys):
     assert gaps[0] <= 1e-5, gaps
     assert max(gaps[:3]) <= 1e-4, gaps
     np.testing.assert_allclose(losses, jax_losses, rtol=1e-3)
+
+
+def test_the_port_example_carries_the_flax_towers():
+    size = chip_smoke.FeaturizationSize(steps=1)
+    prep = chip_smoke.featurization_data(size, 0)
+    kept = {}
+    start, jax_losses = _jax_run(prep, size, 0, kept)
+    port = port_example.build_model(prep, torch.device("cpu"))
+    convert.load_flax_params(port, start)
+    batch = prep["steps"][0]
+    # As JAX arrays, as the JAX trainer hands them to the towers: the
+    # Discretizer takes NumPy input through a float64 path, and the
+    # example's 9-digit timestamps can tie a boundary in float32.
+    jax_batch = jax.tree.map(jax.numpy.asarray, batch)
+    with torch.no_grad():
+        for method in ("query_embeddings", "candidate_embeddings"):
+            want = kept["model"].apply({"params": start}, jax_batch,
+                                       method=method)
+            got = getattr(port, method)(to_torch(batch))
+            np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                       rtol=1e-5, atol=1e-6)
+    _, losses = chip_smoke.trainer_steps(
+        port, port_example.adagrad(chip_smoke.FEATURIZATION_LR),
+        prep["steps"])
+    np.testing.assert_allclose(losses[0], jax_losses[0], rtol=1e-5)
+    gap = step_gap(start, convert.to_flax_params(port), kept["params"])
+    assert gap <= STEP_GAP["adagrad"], gap

@@ -62,6 +62,7 @@ def test_every_package_file_is_checked():
         "parallel/embedding_lookup.py", "parallel/retrieval_step.py",
         "parallel/ann.py", "utils/collectives.py", "utils/export.py",
         "utils/native_serving.py", "ops/product_quantization.py",
+        "examples/__init__.py", "tools/run_examples.py",
     ):
         assert f"recommenders_tpu_torch/{module}" in names
     assert "chip_smoke.py" in names
@@ -84,6 +85,20 @@ def test_every_jax_module_has_a_counterpart():
                for p in sorted(jax_root.rglob("*.py"))
                if not (port_root / p.relative_to(jax_root)).is_file()]
     assert not missing, missing
+
+
+@pytest.mark.parametrize(
+    "jax_file",
+    sorted((ROOT / "examples").glob("*.py")) + [ROOT / "tools" /
+                                                "run_examples.py"],
+    ids=lambda p: str(p.relative_to(ROOT)))
+def test_every_example_and_the_runner_have_a_counterpart(jax_file):
+    """Each user example and the example runner have a file of the same
+    name in the port (`examples/` and `tools/`), which the import check
+    above covers."""
+    port = ROOT / "recommenders_tpu_torch" / jax_file.relative_to(ROOT)
+    assert port.is_file(), port
+    assert port in FILES
 
 
 def test_the_serving_ops_library_includes_no_python_headers():

@@ -591,3 +591,16 @@ def meshed_checkpoint(device, shape, fcs_spec, dense_dim, batches, seed,
     out["resumed_params"] = _logical(model, mesh)
     out["metrics"] = trainer.metric_results(state)
     return out
+
+
+# --- the port's distributed examples ------------------------------------------
+
+def example_runs(device, runs):
+    """Runs each `(example module name, keyword arguments)`'s per-rank
+    body (`recommenders_tpu_torch.examples.<name>.run`) in turn in this
+    process group; returns their results."""
+    import importlib
+
+    return [importlib.import_module(
+        f"recommenders_tpu_torch.examples.{name}").run(device, **kwargs)
+        for name, kwargs in runs]
