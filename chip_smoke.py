@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Runs the PyTorch port's retrieval serving, ScaNN serving, serving
 export, product quantization, training, trainer, ranking, data and
-distribution slices and its user examples on one NVIDIA GPU and checks
-them.
+distribution slices, its user examples and a streamed 100M-row catalog
+on one NVIDIA GPU and checks them.
 
     python3 chip_smoke.py [--seed 0] [--requests 3]
 
@@ -303,15 +303,42 @@ The user examples (`recommenders_tpu_torch/examples/`, the ports of
      subprocess and must exit 0. Each example's seconds, headline
      numbers and launches are printed.
 
+The 100M × 128 catalog (`benchmarks/ann.py:46-76,437-537`), on one card
+after every earlier phase's device state is freed (`mem_get_info`
+printed first): 256 Gaussian centres (N(0, 1), NumPy from `--seed`) plus
+0.6 × N(0, 1) noise, 1e8 rows in 50 batches of 2M, each batch drawn on
+the card from its own generator seeded by (`--seed`, batch index), so
+every pass regenerates the same rows; 256 fixed queries and 256-query
+timed requests drawn with salts of their own.
+ 38. the exact top-100 of the fixed queries over the regenerated batches
+     (full f32 `torch.matmul`, a running top-100); then ScaNN int8
+     through `index_streamed` at the round-5 command of `docs/PARITY.md:
+     313-318` (L = 8,192, P = 1,536, T = 32, B = 8,192, cap 12,928 =
+     1.05 × the mean leaf, 16 balanced Lloyd iterations over a 2²¹-row
+     sample, 8 spill rounds), served through K5 int8; then Bucketed int8
+     (B = 4,096, chunk 4,096, query tile 128) through `index_streamed`,
+     served through K3 int8. For each: build seconds (ScaNN's by pass),
+     peak device memory (below the f32 corpus's 47.68 GiB), index GiB by
+     array (within 2 % of the JAX records' 13.4 / 12.3), no row unplaced,
+     the served results checked as in phase 6, recall@100 against the
+     exact scan (at least the JAX readings 0.9741 / 0.977 less 0.01),
+     queries/s over 10 warm requests, and one launch a request from the
+     op library's counts (zeroed before, read after). Every query tile of
+     one K5 launch is held against `probed_bucketed_reference` over the
+     tile's probed leaves (phase 16's rule), and K3 over all 100,003,840
+     stored rows against `chunked_bucketed_twin` (phase 7's rule); both
+     get a row of the `{"kernels": [...]}` line (`...[int8, 100M]`).
+
 The phases run in the order serving, ScaNN, export (35), product
 quantization (36), training, trainer slice, ranking slice, data slice,
-distribution, examples (37). Each kernel's row in the `{"kernels": [...]}` line carries
-`path_launches`, its launches on the later slices' paths (phases 18,
-20, 23, 26, 27, 29, 31, 33, 34, 35's exported programs and host runs,
-from the op library's counts, and 37's examples). It prints the card's
-name and power limit, one `{"kernels": [...]}` line
-and, last, `{"ok": true, "device": {...}}`. Without CUDA, or run outside
-a checkout of the repository, it exits non-zero and prints no result.
+distribution, examples (37), the 100M catalog (38). Each kernel's row
+in the `{"kernels": [...]}` line carries `path_launches`, its launches on
+the later slices' paths (phases 18, 20, 23, 26, 27, 29, 31, 33, 34, 35's
+exported programs and host runs, from the op library's counts, and 37's
+examples); phase 38's two rows carry their own launches. It prints the
+card's name and power limit, one `{"kernels": [...]}` line and, last,
+`{"ok": true, "device": {...}}`. Without CUDA, or run outside a checkout
+of the repository, it exits non-zero and prints no result.
 """
 
 from __future__ import annotations
@@ -320,6 +347,7 @@ import argparse
 import contextlib
 import copy
 import dataclasses
+import gc
 import importlib
 import io
 import json
@@ -1937,10 +1965,73 @@ def check_k4(index, fmt, chunk, launches, device) -> dict:
     return row
 
 
+def k5_against_twin(call: LeafCall, got_v: torch.Tensor,
+                    got_r: torch.Tensor, abs_leaves: torch.Tensor,
+                    abs_scales: Optional[torch.Tensor],
+                    scored: torch.Tensor, label: str) -> tuple:
+    """K5's results `got_v, got_r` for `call`'s query tiles against
+    `probed_bucketed_reference` on the same inputs (phase 16's rule):
+    empty buckets MIN_FLOAT / -1, scores within D·ε·Σ|q||c|·|s| +
+    2ε|v| of the twin's, and rows equal in every bucket whose winner
+    beats its runner-up by more than twice that, at least 0.9 of the
+    non-empty buckets so separated. `abs_leaves` / `abs_scales` are the
+    leaves' absolute values (and scales', for codes), `scored` the
+    queries as the leaves score them. Returns (max |err|, separated
+    share)."""
+    q, p = call.queries, call.probes
+    leaves, scales, rows_tbl = call.leaves, call.scales, call.rows
+    buckets, tile, packed4 = call.buckets, call.tile, call.packed4
+    want_v, want_r = leaf_scoring.probed_bucketed_reference(
+        q, leaves, scales, rows_tbl, p, buckets, query_tile=tile,
+        packed4=packed4)
+    cand, cand_rows = leaf_scoring.probed_bucket_candidates(
+        q, leaves, scales, rows_tbl, p, buckets, tile, packed4)
+    abs_cand, _ = leaf_scoring.probed_bucket_candidates(
+        scored.abs(), abs_leaves, abs_scales, rows_tbl, p, buckets, tile)
+    best = cand.argmax(dim=1, keepdim=True)
+    abs_dot = torch.gather(abs_cand, 1, best).squeeze(1).clamp(min=0)
+    del abs_cand
+    tol = DIM * F32_EPS * abs_dot + 2 * F32_EPS * want_v.abs()
+    runner_up = cand.masked_fill(cand_rows == torch.gather(cand_rows, 1, best),
+                                 leaf_scoring.MIN_FLOAT).amax(dim=1)
+    del cand, cand_rows
+    empty = want_v <= leaf_scoring.MIN_FLOAT
+    err = (got_v - want_v).abs().masked_fill(empty, 0)
+    check(bool((got_v[empty] == leaf_scoring.MIN_FLOAT).all()
+               and (got_r[empty] == -1).all()),
+          f"{label}: an empty bucket is not MIN_FLOAT / -1")
+    check(bool((err <= tol).all()),
+          f"{label}: scores off the twin by {float(err.max())}")
+    separated = (want_v - runner_up > 2 * tol) & ~empty
+    share = float(separated.sum()) / max(1, int((~empty).sum()))
+    check(share >= 0.9, f"{label}: only {share:.4f} of buckets separated")
+    check(torch.equal(got_r[separated], want_r[separated]),
+          f"{label}: rows differ from the twin's in a separated bucket")
+    return float(err.max()), share
+
+
+def k5_bound(call: LeafCall, out_bytes: int) -> tuple:
+    """(bytes ms, operations ms, distinct tile-leaf pairs, distinct leaves)
+    of K5's least work for `call`: each distinct probed leaf read once
+    (codes or rows, scales, slot rows), the queries and probes read and
+    `out_bytes` written; each tile scores each distinct probed leaf
+    once."""
+    probes, cap = call.probes, call.rows.shape[1]
+    sp = torch.sort(probes.long(), dim=1).values
+    pairs = int(probes.shape[0] + (sp[:, 1:] != sp[:, :-1]).sum())
+    unique = int(torch.unique(probes).numel())
+    fmt = leaf_scoring._format(call.leaves, call.scales, call.packed4)
+    in_bytes = (unique * leaf_bytes(call.leaves, call.scales, cap, True)
+                + call.queries.numel() * 4 + probes.numel() * 4)
+    bytes_ms = (in_bytes + out_bytes) / HBM_BYTES_PER_S * 1e3
+    ops_ms = leaf_ops_ms(fmt, call.tile * pairs * cap * DIM)
+    return bytes_ms, ops_ms, pairs, unique
+
+
 def check_k5(index, fmt, chunk, launches, device) -> dict:
     """K5 of format `fmt` against its twin on `index`'s leaves, at the
-    served chunk; rows equal wherever the twin's winner beats the
-    bucket's best other row by more than twice the score bound."""
+    served chunk (`k5_against_twin` on its first tiles); times and
+    bound."""
     kernel = leaf_call(index, "K5", chunk)
     leaves, scales, packed4 = kernel.leaves, kernel.scales, kernel.packed4
     rows_tbl, tile, buckets = kernel.rows, kernel.tile, kernel.buckets
@@ -1960,33 +2051,12 @@ def check_k5(index, fmt, chunk, launches, device) -> dict:
             sub_q, leaves, scales, rows_tbl, sub_p, buckets, query_tile=tile,
             packed4=packed4)
 
-    want_v, want_r = twin()
-    cand, cand_rows = leaf_scoring.probed_bucket_candidates(
-        sub_q, leaves, scales, rows_tbl, sub_p, buckets, tile, packed4)
     abs_rows = leaf_rows_f32(index).abs()
-    abs_cand, _ = leaf_scoring.probed_bucket_candidates(
-        scann_scored(index, sub_q).abs(), abs_rows, None, rows_tbl, sub_p,
-        buckets, tile)
+    max_err, share = k5_against_twin(
+        dataclasses.replace(kernel, queries=sub_q, probes=sub_p),
+        vals[:nt * tile], rows[:nt * tile], abs_rows, None,
+        scann_scored(index, sub_q), f"K5 {fmt}")
     del abs_rows
-    best = cand.argmax(dim=1, keepdim=True)
-    abs_dot = torch.gather(abs_cand, 1, best).squeeze(1).clamp(min=0)
-    tol = DIM * F32_EPS * abs_dot + 2 * F32_EPS * want_v.abs()
-    runner_up = cand.masked_fill(cand_rows == torch.gather(cand_rows, 1, best),
-                                 leaf_scoring.MIN_FLOAT).amax(dim=1)
-    del cand, cand_rows, abs_cand
-    got_v, got_r = vals[:nt * tile], rows[:nt * tile]
-    empty = want_v <= leaf_scoring.MIN_FLOAT
-    err = (got_v - want_v).abs().masked_fill(empty, 0)
-    check(bool((got_v[empty] == leaf_scoring.MIN_FLOAT).all()
-               and (got_r[empty] == -1).all()),
-          f"K5 {fmt}: an empty bucket is not MIN_FLOAT / -1")
-    check(bool((err <= tol).all()),
-          f"K5 {fmt}: scores off the twin by {float(err.max())}")
-    separated = (want_v - runner_up > 2 * tol) & ~empty
-    share = float(separated.sum()) / max(1, int((~empty).sum()))
-    check(share >= 0.9, f"K5 {fmt}: only {share:.4f} of buckets separated")
-    check(torch.equal(got_r[separated], want_r[separated]),
-          f"K5 {fmt}: rows differ from the twin's in a separated bucket")
     qn = qs.shape[0]
     ms = device_ms(kernel, device, iters=10)
     replay_ms = graph_ms(kernel, device, launches=10, replays=3)
@@ -1998,14 +2068,7 @@ def check_k5(index, fmt, chunk, launches, device) -> dict:
     gm_ms = device_ms(gather_matmul_chunks(
         qs.view(-1, tile, DIM), leaves, scales, probes, packed4),
         device, iters=2)
-    # Least work: each tile scores each distinct probed leaf once.
-    sp = torch.sort(probes.long(), dim=1).values
-    pairs = int(probes.shape[0] + (sp[:, 1:] != sp[:, :-1]).sum())
-    unique = int(torch.unique(probes).numel())
-    in_bytes = (unique * leaf_bytes(leaves, scales, cap, True)
-                + qs.numel() * 4 + probes.numel() * 4)
-    bytes_ms = (in_bytes + vals.nbytes + rows.nbytes) / HBM_BYTES_PER_S * 1e3
-    ops_ms = leaf_ops_ms(fmt, tile * pairs * cap * DIM)
+    bytes_ms, ops_ms, pairs, _ = k5_bound(kernel, vals.nbytes + rows.nbytes)
     tiles, p = probes.shape
     splits = leaf_scoring.bucketed_splits(
         tiles, tile, buckets, p,
@@ -2021,7 +2084,7 @@ def check_k5(index, fmt, chunk, launches, device) -> dict:
         "source": LEAF_SOURCE,
         "replaces": LEAF_REPLACES[("K5", fmt)],
         "launches": launches,
-        "max_abs_err": float(err.max()),
+        "max_abs_err": max_err,
         "ms": ms,
         "plain_ms": plain_ms,
         "bound_ms": max(bytes_ms, ops_ms),
@@ -2037,7 +2100,7 @@ def check_k5(index, fmt, chunk, launches, device) -> dict:
                  f"gather+matmul at full shape and on {nt} tiles; twin and "
                  f"subset on {nt} tiles",
     }
-    print(f"  K5 {fmt}: max |err| {float(err.max()):.3g}, rows equal in "
+    print(f"  K5 {fmt}: max |err| {max_err:.3g}, rows equal in "
           f"every separated bucket ({share:.4f} of all), two launches "
           f"bit-identical; kernel {ms:.3f} ms a wrapper call at Q={qn} "
           f"({replay_ms:.3f} by graph replay; {splits} splits), "
@@ -5506,6 +5569,544 @@ def examples_phase(device: torch.device, seed: int, runs=EXAMPLE_RUNS,
     return paths
 
 
+# --- The 100M x 128 streamed catalog (phase 38) ----------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class ScaleSize:
+    """`benchmarks/ann.py`'s streamed catalog (`:46-76,437-466`) and its
+    two indexes there: the round-5 ScaNN command (`docs/PARITY.md:
+    313-318`) and Bucketed int8 (`ann.py:533-537`)."""
+    rows: int = 100_000_000
+    batch: int = 2_000_000           # ann.py --build-batch
+    centers: int = 256               # ann.py:42
+    queries: int = 256               # ann.py --queries; ScaNN's query_batch
+    requests: int = 10               # timed requests of `queries` each
+    leaves: int = 8192
+    probes: int = 1536
+    probe_tile: int = 32
+    scoring_buckets: int = 8192
+    capacity_factor: float = 1.05
+    spill_rounds: int = 8
+    iterations: int = 16
+    balance: float = 0.0625
+    kmeans_sample: int = 2**21       # ann.py:510
+    buckets: int = 4096              # Bucketed
+    chunk: int = 4096
+    query_tile: int = 128
+
+
+SCALE_NOISE = 0.6                    # ann.py:43
+# Generator salts of the fixed queries and of the timed requests; batch i
+# of the corpus takes salt i.
+SCALE_QUERY_SALT = 1 << 30
+SCALE_REQUEST_SALT = 1 << 31
+# Corpus rows of a slice of the chunked K3 twin (a multiple of B): its
+# [256, 2²¹] f32 scores take 2 GiB.
+SCALE_TWIN_SLICE = 2**21
+# Recall@100 floors: the JAX package's readings at this configuration
+# (`docs/PARITY.md:298-299`, ScaNN 0.9741, Bucketed 0.977) less 0.01.
+SCALE_RECALL_FLOORS = {"scann": 0.9641, "bucketed": 0.967}
+# The JAX records' index sizes (GiB, `docs/PARITY.md:298-299`), which
+# the port's must meet within SCALE_SIZE_SHARE.
+SCALE_INDEX_GIB = {"scann": 13.4, "bucketed": 12.3}
+SCALE_SIZE_SHARE = 0.02
+
+
+def full_scale(size: ScaleSize) -> bool:
+    """Whether `size` is the catalog the floors and sizes hold for (the
+    request count does not matter)."""
+    return dataclasses.replace(size, requests=ScaleSize.requests) == \
+        ScaleSize()
+
+
+def scale_capacity(size: ScaleSize) -> int:
+    """`capacity_factor` times the mean leaf on the 128-row grid
+    (`ann.py:500-503`)."""
+    return int(np.ceil(size.capacity_factor * size.rows / size.leaves
+                       / 128)) * 128
+
+
+def scale_scann_settings(size: ScaleSize) -> dict:
+    return dict(
+        num_leaves=size.leaves, num_leaves_to_search=size.probes,
+        quantize="int8", leaf_capacity=scale_capacity(size),
+        scoring_buckets=size.scoring_buckets, probe_tile=size.probe_tile,
+        query_batch=size.queries, kmeans_sample_size=size.kmeans_sample,
+        kmeans_balance_fraction=size.balance,
+        training_iterations=size.iterations, spill_rounds=size.spill_rounds)
+
+
+def scale_stream(size: ScaleSize, seed: int, device: torch.device):
+    """(batches, draw): `draw(n, salt)` gives n rows, each one of the
+    Gaussian centres (N(0, 1), NumPy `RandomState(seed)`) plus 0.6 ×
+    N(0, 1) noise, from a generator on `device` seeded by (`seed`,
+    `salt`); `batches()` iterates the corpus, batch i drawn with salt i,
+    so every pass regenerates the same rows."""
+    centers = torch.from_numpy(np.random.RandomState(seed).normal(
+        size=(size.centers, DIM)).astype(np.float32)).to(device)
+
+    def draw(n: int, salt: int) -> torch.Tensor:
+        gen = torch.Generator(device=device)
+        gen.manual_seed((seed << 32) + salt)
+        pick = torch.randint(0, size.centers, (n,), generator=gen,
+                             device=device)
+        noise = torch.randn((n, DIM), generator=gen, device=device)
+        return centers[pick].add_(noise, alpha=SCALE_NOISE)
+
+    def batches():
+        for i, start in enumerate(range(0, size.rows, size.batch)):
+            yield draw(min(size.batch, size.rows - start), i)
+
+    return batches, draw
+
+
+def streamed_truth(queries: torch.Tensor, batches, k: int):
+    """Exact top-k of `queries` over the streamed corpus: each batch's
+    f32 scores merged into a running top-k (`ann.py:461-491`). Returns
+    ([Q, k] scores, [Q, k] int64 global rows)."""
+    qn = queries.shape[0]
+    best = torch.full((qn, k), -float("inf"), device=queries.device)
+    rows = torch.zeros((qn, k), dtype=torch.long, device=queries.device)
+    off = 0
+    for batch in batches():
+        with scoring._full_f32_matmul():
+            scores = queries @ batch.T
+        best, at = torch.topk(torch.cat([best, scores], dim=1), k, dim=1)
+        rows = torch.where(at < k, torch.gather(rows, 1, at.clamp(max=k - 1)),
+                           at - k + off)
+        off += batch.shape[0]
+    return best, rows
+
+
+def _slices(n: int, slice_rows: int, buckets: int) -> list:
+    if slice_rows % buckets:
+        raise ValueError(f"twin slices of {slice_rows} rows are not a "
+                         f"multiple of B = {buckets}")
+    return [slice(s, min(s + slice_rows, n)) for s in range(0, n, slice_rows)]
+
+
+def chunked_bucketed_twin(queries, candidates, scales, buckets: int,
+                          valid_rows: int, slice_rows: int):
+    """`scoring.bucketed_scores_reference` folded over corpus slices of
+    `slice_rows` rows (a multiple of `buckets`), so its [Q, N] scores
+    never exist whole: a later slice's bucket winner replaces only where
+    strictly greater, so the first maximum in row order wins, as over the
+    whole corpus. Returns ([Q, B] scores, [Q, B] int32 rows)."""
+    vals = rows = None
+    for part in _slices(candidates.shape[0], slice_rows, buckets):
+        v, r = scoring.bucketed_scores_reference(
+            queries, candidates[part],
+            None if scales is None else scales[part], buckets=buckets,
+            valid_rows=min(max(valid_rows - part.start, 0), slice_rows))
+        r = r + part.start
+        if vals is None:
+            vals, rows = v, r
+        else:
+            better = v > vals
+            vals, rows = (torch.where(better, v, vals),
+                          torch.where(better, r, rows))
+    return vals, rows
+
+
+def chunked_runner_up(queries, candidates, scales, buckets: int,
+                      valid_rows: int, slice_rows: int) -> torch.Tensor:
+    """[Q, B] second-best score of each bucket over the whole corpus
+    (masked rows at MIN_FLOAT), in the same slices."""
+    first = second = None
+    for part in _slices(candidates.shape[0], slice_rows, buckets):
+        table = scoring.reference_scores(
+            queries, candidates[part],
+            None if scales is None else scales[part],
+            min(max(valid_rows - part.start, 0), slice_rows))
+        pad = (-table.shape[1]) % buckets
+        if pad:
+            table = F.pad(table, (0, pad), value=scoring.MIN_FLOAT)
+        table = table.view(table.shape[0], -1, buckets)
+        top = table.topk(min(2, table.shape[1]), dim=1).values
+        a = top[:, 0]
+        b = (top[:, 1] if top.shape[1] > 1
+             else torch.full_like(a, scoring.MIN_FLOAT))
+        if first is None:
+            first, second = a, b
+        else:
+            second = torch.maximum(torch.minimum(first, a),
+                                   torch.maximum(second, b))
+            first = torch.maximum(first, a)
+    return second
+
+
+class PassClock:
+    """A batch factory that notes when each pass over it starts, after a
+    synchronize, so each pass's seconds hold its device work."""
+
+    def __init__(self, batches, device: torch.device):
+        self.batches, self.device, self.starts = batches, device, []
+
+    def __call__(self):
+        sync(self.device)
+        self.starts.append(time.perf_counter())
+        return self.batches()
+
+    def seconds(self, end: float) -> list:
+        marks = self.starts + [end]
+        return [b - a for a, b in zip(marks, marks[1:])]
+
+
+def distinct_gib(index, names) -> dict:
+    """GiB of each named array of `index`, an array that another named
+    array aliases counted once (a streamed ScaNN's `_leaf_ids` are its
+    `_leaf_rows`)."""
+    out, seen = {}, set()
+    for name in names:
+        t = getattr(index, name, None)
+        if t is None or t.data_ptr() in seen:
+            continue
+        seen.add(t.data_ptr())
+        out[name.lstrip("_")] = t.nbytes / 2**30
+    return out
+
+
+def serve_timed(index, queries: torch.Tensor, requests: list,
+                device: torch.device) -> tuple:
+    """The fixed queries' result, then one warm request and the timed
+    ones, each between the host clock and a synchronize. Returns (result,
+    request ms)."""
+    result = index(queries)
+    index(requests[0])
+    sync(device)
+    ms = []
+    for r in requests[1:]:
+        t = time.perf_counter()
+        index(r)
+        sync(device)
+        ms.append((time.perf_counter() - t) * 1e3)
+    return result, ms
+
+
+def check_results(label: str, scores, ids, rows: int, exact, tol) -> None:
+    """Phase 6's checks of a served result: finite descending scores, ids
+    in the corpus and distinct, each score the stored row's score."""
+    check(bool(torch.isfinite(scores).all()), f"{label}: non-finite scores")
+    check(bool(((ids >= 0) & (ids < rows)).all()),
+          f"{label}: ids outside the corpus")
+    check(bool((scores[:, :-1] >= scores[:, 1:]).all()),
+          f"{label}: scores not descending")
+    sorted_ids = ids.sort(dim=1).values
+    check(bool((sorted_ids[:, 1:] != sorted_ids[:, :-1]).all()),
+          f"{label}: an id repeats within a row")
+    check(bool(((scores - exact).abs() <= tol).all()),
+          f"{label}: returned scores are not the stored rows' scores of "
+          "the returned ids")
+
+
+def leaf_subset(call: LeafCall, tile: int) -> LeafCall:
+    """`call` for query tile `tile` alone, over only the leaves its probes
+    reach (renumbered in probe order), so a twin's gather holds at most P
+    leaves, not the index."""
+    t = call.tile
+    used, at = torch.unique(call.probes[tile].long(), return_inverse=True)
+    return dataclasses.replace(
+        call, leaves=call.leaves[used],
+        scales=None if call.scales is None else call.scales[used],
+        rows=call.rows[used], queries=call.queries[tile * t:(tile + 1) * t],
+        probes=at[None].to(torch.int32))
+
+
+def check_k5_scale(index, queries, launches: int, device) -> dict:
+    """K5 int8 at the catalog's request: every query tile of the launch
+    held against its twin (`k5_against_twin`, over the tile's own probed
+    leaves); times and bound."""
+    kernel = leaf_call(index, "K5", queries)
+    vals, rows = kernel()
+    again = kernel()
+    check(torch.equal(vals, again[0]) and torch.equal(rows, again[1]),
+          "phase 38: K5 int8: two launches differ")
+    del again
+    tile, tiles = kernel.tile, kernel.probes.shape[0]
+    errs, shares = [], []
+    for i in range(tiles):
+        sub = leaf_subset(kernel, i)
+        part = slice(i * tile, (i + 1) * tile)
+        err, share = k5_against_twin(
+            sub, vals[part], rows[part], sub.leaves.abs(), sub.scales.abs(),
+            scann_scored(index, sub.queries), f"phase 38: K5 int8 tile {i}")
+        errs.append(err)
+        shares.append(share)
+        del sub
+    ms = device_ms(kernel, device, iters=10)
+    replay_ms = graph_ms(kernel, device, launches=10, replays=3)
+    plain_ms = device_ms(lambda: leaf_scoring.probed_bucketed_reference(
+        kernel.queries, kernel.leaves, kernel.scales, kernel.rows,
+        kernel.probes, kernel.buckets, query_tile=tile), device, iters=1)
+    bytes_ms, ops_ms, pairs, unique = k5_bound(kernel,
+                                               vals.nbytes + rows.nbytes)
+    cap, p = kernel.rows.shape[1], kernel.probes.shape[1]
+    row = {
+        "name": "probed_bucketed_scores[int8, 100M]",
+        "route": "cuda",
+        "source": LEAF_SOURCE,
+        "replaces": LEAF_REPLACES[("K5", "int8")],
+        "launches": launches,
+        "max_abs_err": max(errs),
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": max(bytes_ms, ops_ms),
+        "bound_by": "bytes" if bytes_ms > ops_ms else "operations",
+        "library_ms": None,
+        "on_main_path": True,
+        "graph_ms": replay_ms,
+        "shape": f"Q={kernel.queries.shape[0]} T={tile} P={p} cap={cap} "
+                 f"B={kernel.buckets} D={DIM} L={kernel.leaves.shape[0]} "
+                 f"({unique} leaves probed, {pairs} distinct tile-leaf "
+                 f"pairs); twin over every tile",
+        "path_launches": {},
+    }
+    print(f"  K5 int8 at 100M: max |err| {max(errs):.3g} over {tiles} "
+          f"tiles, rows equal in every separated bucket ({min(shares):.4f}"
+          f"-{max(shares):.4f} of them a tile), two launches bit-identical;"
+          f" kernel {ms:.3f} ms a wrapper call ({replay_ms:.3f} by graph "
+          f"replay), twin {plain_ms:.1f} ms; bound {row['bound_ms']:.4f} ms "
+          f"({leaf_bound_terms('int8', bytes_ms, ops_ms)}; {unique} leaves)",
+          flush=True)
+    return row
+
+
+def check_k3_scale(index, queries, launches: int, device) -> dict:
+    """K3 int8 over all of the catalog's stored rows for one request,
+    against `chunked_bucketed_twin` under phase 7's rule; times and
+    bound."""
+    valid = index._num_candidates
+    codes, scales = index._candidates, index._scales
+
+    def kernel():
+        return scoring.bucketed_scores(
+            queries, codes, scales, buckets=index._buckets,
+            chunk=index._chunk, query_tile=index._query_tile,
+            valid_rows=valid)
+
+    def twin():
+        return chunked_bucketed_twin(queries, codes, scales, index._buckets,
+                                     valid, SCALE_TWIN_SLICE)
+
+    vals, rows = kernel()
+    again = kernel()
+    check(torch.equal(vals, again[0]) and torch.equal(rows, again[1]),
+          "phase 38: K3 int8: two launches differ")
+    del again
+    want_v, want_r = twin()
+    err = (vals - want_v).abs()
+    tol = score_tolerance(index, queries, want_r, want_v)
+    check(bool((err <= tol).all()),
+          f"phase 38: K3 int8 scores off the twin by {float(err.max())}")
+    real = want_v > scoring.MIN_FLOAT / 2
+    check(bool((rows[real] < valid).all()),
+          "phase 38: K3 int8 returned a padding row")
+    second = chunked_runner_up(queries, codes, scales, index._buckets, valid,
+                               SCALE_TWIN_SLICE)
+    separated = (want_v - second) > 2 * tol
+    share = float(separated.float().mean())
+    check(share >= 0.9,
+          f"phase 38: K3 int8: only {share:.4f} of buckets separated")
+    check(torch.equal(rows[separated], want_r[separated]),
+          "phase 38: K3 int8 ids differ from the twin's in a separated "
+          "bucket")
+    ms = device_ms(kernel, device, iters=10)
+    replay_ms = graph_ms(kernel, device, launches=10, replays=3)
+    plain_ms = device_ms(twin, device, iters=1)
+    n = codes.shape[0]
+    in_bytes = queries.numel() * 2 + stored_bytes(index)
+    bytes_ms = (in_bytes + vals.nbytes + rows.nbytes) / HBM_BYTES_PER_S * 1e3
+    ops_ms = (K3_PASSES["int8"] * 2.0 * queries.shape[0] * n * DIM
+              / PEAK_OPS_PER_S["bf16"] * 1e3)
+    row = {
+        "name": "bucketed_scores[int8, 100M]",
+        "route": "cuda",
+        "source": SOURCE,
+        "replaces": REPLACES["int8"],
+        "launches": launches,
+        "max_abs_err": float(err.max()),
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": max(bytes_ms, ops_ms),
+        "bound_by": "bytes" if bytes_ms > ops_ms else "operations",
+        # The one call that serves it exactly forms [Q, N] f32 scores,
+        # 102 GB here: more than the card holds.
+        "library_ms": None,
+        "on_main_path": True,
+        "graph_ms": replay_ms,
+        "shape": f"Q={queries.shape[0]} N={n} D={DIM} B={index._buckets}; "
+                 f"twin over all rows in slices of {SCALE_TWIN_SLICE}",
+        "path_launches": {},
+    }
+    print(f"  K3 int8 at 100M: max |err| {float(err.max()):.3g}, ids equal "
+          f"in every separated bucket ({share:.4f} of all buckets), two "
+          f"launches bit-identical; kernel {ms:.3f} ms ({replay_ms:.3f} by "
+          f"graph replay), twin {plain_ms:.1f} ms, bound "
+          f"{row['bound_ms']:.3f} ms (bytes {bytes_ms:.3f}, operations "
+          f"{ops_ms:.3f} at one bf16 pass); no library call (its [Q, N] "
+          f"scores would take {queries.shape[0] * n * 4 / 1e9:.0f} GB)",
+          flush=True)
+    return row
+
+
+def scale_gib_check(label: str, arrays: dict, size: ScaleSize) -> None:
+    total = sum(arrays.values())
+    want = SCALE_INDEX_GIB[label]
+    print(f"  {label} index {total:.3f} GiB: " + ", ".join(
+        f"{name} {gib:.3f}" for name, gib in arrays.items()), flush=True)
+    if full_scale(size):
+        check(abs(total - want) <= SCALE_SIZE_SHARE * want,
+              f"phase 38: {label} index {total:.3f} GiB, not within "
+              f"{SCALE_SIZE_SHARE:.0%} of {want}")
+
+
+def scale_recall(label: str, got, truth, size: ScaleSize) -> None:
+    value = recall(got.long(), truth)
+    floor = SCALE_RECALL_FLOORS[label] if full_scale(size) else None
+    print(f"  {label} recall@{K} against the streamed exact scan: "
+          f"{value:.4f}" + (f" (floor {floor})" if floor else ""),
+          flush=True)
+    if floor is not None:
+        check(value >= floor, f"phase 38: {label} recall@{K} {value:.4f} "
+              f"< {floor}")
+
+
+def scale_build_check(label: str, build_s: float, size: ScaleSize,
+                      device) -> None:
+    peak = (torch.cuda.max_memory_allocated(device) / 2**30
+            if device.type == "cuda" else 0.0)
+    corpus_gib = size.rows * DIM * 4 / 2**30
+    print(f"  {label} build {build_s:.1f} s, peak device memory "
+          f"{peak:.2f} GiB (the f32 corpus: {corpus_gib:.2f} GiB)",
+          flush=True)
+    if device.type == "cuda":
+        check(peak < corpus_gib, f"phase 38: {label} build peaked at "
+              f"{peak:.2f} GiB, not below the f32 corpus's "
+              f"{corpus_gib:.2f}")
+
+
+def release(device: torch.device) -> None:
+    gc.collect()
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(device)
+
+
+def serve_rate(label: str, kernel: str, ms: list, launches: int,
+               served: int, size: ScaleSize) -> None:
+    print(f"  {label}: {size.queries * len(ms) / (sum(ms) / 1e3):.0f} q/s "
+          f"over {len(ms)} warm requests of {size.queries} (ms "
+          f"{[round(x, 2) for x in ms]}); {kernel} launches {launches} for "
+          f"{served} requests", flush=True)
+
+
+def scale_ann(device: torch.device, size: ScaleSize, seed: int) -> list:
+    """Phase 38: the 100M × 128 catalog streamed through ScaNN int8 (K5)
+    and Bucketed int8 (K3) on one card; returns their kernel rows."""
+    # 38. The streamed catalog.
+    started = time.perf_counter()
+    release(device)
+    if device.type == "cuda":
+        free, total = torch.cuda.mem_get_info(device)
+        print(f"  device memory before phase 38: {free / 2**30:.2f} GiB free "
+              f"of {total / 2**30:.2f}, "
+              f"{torch.cuda.memory_allocated(device) / 2**30:.3f} GiB "
+              "allocated", flush=True)
+    batches, draw = scale_stream(size, seed, device)
+    queries = draw(size.queries, SCALE_QUERY_SALT)
+    requests = [draw(size.queries, SCALE_REQUEST_SALT + j)
+                for j in range(size.requests + 1)]
+    served = size.requests + 2     # the fixed queries, a warm-up, the timed
+    t = time.perf_counter()
+    _, truth = streamed_truth(queries, batches, K)
+    sync(device)
+    print(f"  ground truth: exact top-{K} of {size.queries} queries over "
+          f"{size.rows} x {DIM} rows in {-(-size.rows // size.batch)} "
+          f"regenerated batches, {time.perf_counter() - t:.1f} s",
+          flush=True)
+    report = []
+
+    # ScaNN int8 through index_streamed, served through K5.
+    clock = PassClock(batches, device)
+    release(device)
+    t = time.perf_counter()
+    index = approximate.ScaNN(k=K, device=device,
+                              **scale_scann_settings(size))
+    index.index_streamed(clock, num_rows=size.rows)
+    sync(device)
+    end = time.perf_counter()
+    scale_build_check("scann", end - t, size, device)
+    passes = clock.seconds(end)
+    check(len(passes) == 3, f"phase 38: the ScaNN build made {len(passes)} "
+          "passes, not 3")
+    print("  scann passes: " + ", ".join(
+        f"{name} {s:.1f} s" for name, s in zip(
+            ("sample + k-means", "assignment + packing", "scatter"),
+            passes)), flush=True)
+    flat = index._leaf_rows.reshape(-1)
+    placed = flat[flat >= 0].long()
+    seen = torch.zeros(size.rows, dtype=torch.bool, device=device)
+    seen[placed] = True
+    unplaced = size.rows - int(seen.sum())
+    check(unplaced == 0 and placed.numel() == size.rows,
+          f"phase 38: ScaNN stores {placed.numel()} slots, {unplaced} rows "
+          "unplaced")
+    del flat, placed, seen
+    scale_gib_check("scann", distinct_gib(index, (
+        "_leaf_embs", "_leaf_scales", "_leaf_rows", "_leaf_ids",
+        "_leaf_valid", "_centroids", "_flat_ids")), size)
+    cap = index._leaf_rows.shape[1]
+    print(f"  scann: 0 rows unplaced; cap {cap}, B "
+          f"{min(size.scoring_buckets, cap)}", flush=True)
+    reset_example_counts(device)
+    (scores, ids), ms = serve_timed(index, queries, requests, device)
+    launches = example_counts(device)["probed_bucketed_scores[int8]"]
+    if device.type == "cuda":
+        check(launches == served, f"phase 38: {launches} K5 launches for "
+              f"{served} requests")
+    exact, tol = stored_scores(index, queries, ids)
+    check_results("phase 38: ScaNN", scores, ids, size.rows, exact, tol)
+    scale_recall("scann", ids, truth, size)
+    serve_rate("scann", "K5", ms, launches, served, size)
+    report.append(check_k5_scale(index, queries, launches, device))
+    del index, scores, ids, exact, tol
+    release(device)
+
+    # Bucketed int8 through index_streamed, served through K3.
+    t = time.perf_counter()
+    index = factorized_top_k.Bucketed(
+        k=K, buckets=size.buckets, chunk=size.chunk,
+        query_tile=size.query_tile, quantize="int8",
+        device=device).index_streamed(batches, num_rows=size.rows)
+    sync(device)
+    scale_build_check("bucketed", time.perf_counter() - t, size, device)
+    unplaced = size.rows - int((index._scales[:size.rows] > 0).sum())
+    check(unplaced == 0 and not bool((index._scales[size.rows:] != 0).any()),
+          f"phase 38: Bucketed left {unplaced} rows unwritten")
+    scale_gib_check("bucketed", distinct_gib(
+        index, ("_candidates", "_scales")), size)
+    reset_example_counts(device)
+    (scores, ids), ms = serve_timed(index, queries, requests, device)
+    launches = example_counts(device)["bucketed_scores[int8]"]
+    if device.type == "cuda":
+        check(launches == served, f"phase 38: {launches} K3 launches for "
+              f"{served} requests")
+    codes, scales = stored_rows(index, ids)
+    exact = (scored_query(index, queries)[:, None, :] * codes).sum(-1) * scales
+    check_results("phase 38: Bucketed", scores, ids, size.rows, exact,
+                  score_tolerance(index, queries, ids, exact))
+    del codes, scales
+    scale_recall("bucketed", ids, truth, size)
+    serve_rate("bucketed", "K3", ms, launches, served, size)
+    report.append(check_k3_scale(index, queries, launches, device))
+    del index
+    release(device)
+    phase("38 100M catalog", started, f"{size.rows} x {DIM} streamed: "
+          "ScaNN int8 (K5) and Bucketed int8 (K3)")
+    return report
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -5558,6 +6159,7 @@ def main() -> int:
         row["path_launches"] = paths.get(row["name"], {})
     k1_dlrm["path_launches"].update(paths.get(K1_DLRM_ROW, {}))
     report += stacked + [k1_dlrm]
+    report += scale_ann(device, ScaleSize(), args.seed)
     print(f"total {time.perf_counter() - started:.1f} s")
     print(json.dumps({"kernels": report}))
     print(json.dumps({"ok": True, "device": {

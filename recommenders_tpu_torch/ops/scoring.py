@@ -405,7 +405,9 @@ def bucketed_top_k(
         if valid_rows is None:
             valid_rows = candidates.shape[0]
         padded = pad_to_multiple(candidates, chunk)
-        if scales is not None:
+        # `F.pad` copies even when it adds nothing: an index already on
+        # the chunk grid (every `Bucketed`) passes its scales as they are.
+        if scales is not None and scales.shape[0] != padded.shape[0]:
             scales = F.pad(scales, (0, padded.shape[0] - scales.shape[0]))
     vals, rows = bucketed_scores_padded(
         queries, padded, scales, buckets, chunk, query_tile, valid_rows,
