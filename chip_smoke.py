@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Runs the PyTorch port's retrieval serving, ScaNN serving, serving
 export, product quantization, training, trainer, ranking, data and
-distribution slices, its user examples and a streamed 100M-row catalog
-on one NVIDIA GPU and checks them.
+distribution slices, its user examples, a streamed 100M-row catalog and
+the streaming-copy probe on one NVIDIA GPU and checks them.
 
     python3 chip_smoke.py [--seed 0] [--requests 3]
 
@@ -250,6 +250,11 @@ The data slice (the README's user journey, `examples/full_pipeline.py:
      top-100 within 0.003 of the JAX package's recorded 0.8589 and
      top-10 / top-50 within 0.01 of 0.1926 / 0.6650; the rating model's
      RMSE within 0.003 of 0.8662 (`docs/PARITY_HEAD_TO_HEAD.md:7-11`);
+     and `tools/reference_parity_ctr.py`'s prebuilt DLRM (`models.Ranking`
+     over three 16-wide tables, glorot-uniform MLPs (256, 64, 16) and
+     (512, 256, 1), Adam 0.01) at the recorded run's size (200,000
+     examples, 8 epochs), its test AUC within 0.015 of the JAX package's
+     0.6625 (`docs/PARITY_HEAD_TO_HEAD.md:16,22`);
  32. unified embedding: the tool's three-way study at the recorded
      run's size (200,000 examples, 8 epochs, batch 8,192, Adam 0.01):
      each AUC within 0.015 of the JAX means (collisionless 0.7279,
@@ -329,16 +334,39 @@ timed requests drawn with salts of their own.
      stored rows against `chunked_bucketed_twin` (phase 7's rule); both
      get a row of the `{"kernels": [...]}` line (`...[int8, 100M]`).
 
+The probe's copy step (`csrc/copy_chain.cu`, the port of
+`benchmarks/_alias_probe.py`'s Pallas kernel), last:
+ 39. the copy step held bit for bit (`torch.equal`) against its twin
+     `copy_step_reference`, for f32 and bf16 tables, at the probe's
+     shape (131,072 × 64) and a ragged one (131,071 × 63), in place, out
+     of place and out of place into buffers that do not start on 16
+     bytes, one launch a call; then the probe's entry point
+     (`recommenders_tpu_torch/tools/alias_probe.py`'s `measurements`)
+     for both table types, the copy step's and K1's counts zeroed just
+     before each and read just after, held to the wrapper calls the
+     probe's chains make (`alias_probe.wrapper_calls`): copy/alias,
+     copy/noalias, kernel/alias (K1 Adagrad over 4,096 sorted ids) and
+     kernel/noalias, each by CUDA-graph replay of a 20-step chain
+     (`graph_ms`, the least of 3 readings), in µs a step and × the bytes
+     floor at 3.35 TB/s; the copy step's achieved TB/s in place and
+     that of `torch.add` twice (its `library_ms`); and the copy step in
+     place on phase 18's stacked storage (4,538,240 × 32, f32 table and
+     accumulator, 2,323,578,880 B a step), well past the 50 MB L2: the
+     card's HBM copy rate, in TB/s and as a share of 3.35 TB/s. Each
+     table type gets a row of the `{"kernels": [...]}` line
+     (`copy_step[f32 table]`, `copy_step[bf16 table]`).
+
 The phases run in the order serving, ScaNN, export (35), product
 quantization (36), training, trainer slice, ranking slice, data slice,
-distribution, examples (37), the 100M catalog (38). Each kernel's row
-in the `{"kernels": [...]}` line carries `path_launches`, its launches on
-the later slices' paths (phases 18, 20, 23, 26, 27, 29, 31, 33, 34, 35's
-exported programs and host runs, from the op library's counts, and 37's
-examples); phase 38's two rows carry their own launches. It prints the
-card's name and power limit, one `{"kernels": [...]}` line and, last,
-`{"ok": true, "device": {...}}`. Without CUDA, or run outside a checkout
-of the repository, it exits non-zero and prints no result.
+distribution, examples (37), the 100M catalog (38), the probe (39). Each
+kernel's row in the `{"kernels": [...]}` line carries `path_launches`,
+its launches on the later slices' paths (phases 18, 20, 23, 26, 27, 29,
+31, 33, 34, 35's exported programs and host runs, from the op library's
+counts, and 37's examples); phases 38's and 39's rows carry their own
+launches. It prints the card's name and power limit, one
+`{"kernels": [...]}` line and, last, `{"ok": true, "device": {...}}`.
+Without CUDA, or run outside a checkout of the repository, it exits
+non-zero and prints no result.
 """
 
 from __future__ import annotations
@@ -387,6 +415,7 @@ from recommenders_tpu_torch.layers.feature_interaction import (  # noqa: E402
 )
 from recommenders_tpu_torch.models import ranking  # noqa: E402
 from recommenders_tpu_torch.models import retrieval  # noqa: E402
+from recommenders_tpu_torch.ops import copy_chain  # noqa: E402
 from recommenders_tpu_torch.ops import cuda_build  # noqa: E402
 from recommenders_tpu_torch.ops import fused_retrieval  # noqa: E402
 from recommenders_tpu_torch.ops import hashing  # noqa: E402
@@ -398,6 +427,7 @@ from recommenders_tpu_torch.parallel import ann as ann_lib  # noqa: E402
 from recommenders_tpu_torch.parallel import corpus as corpus_lib  # noqa: E402
 from recommenders_tpu_torch.parallel import mesh as parallel_mesh  # noqa: E402
 from recommenders_tpu_torch.tasks import listwise  # noqa: E402
+from recommenders_tpu_torch.tools import alias_probe  # noqa: E402
 from recommenders_tpu_torch.tools import quality_parity  # noqa: E402
 from recommenders_tpu_torch.utils import checkpoint  # noqa: E402
 from recommenders_tpu_torch.utils import convert  # noqa: E402
@@ -4139,10 +4169,11 @@ FUSED_TOPK_MARGIN = 0.001
 
 
 def quality(device: torch.device, args) -> dict:
-    """Phases 31 and 32: `tools/quality_parity.py` at its defaults, held
-    to the JAX package's recorded means; the fused retrieval run also
-    held to the unfused one, and K2 to its twin on the run's own
-    embeddings. Returns K2 f32's launches on the fused retrieval run."""
+    """Phases 31 and 32: `tools/quality_parity.py` at its defaults (the
+    prebuilt DLRM's AUC among them), held to the JAX package's recorded
+    means; the fused retrieval run also held to the unfused one, and K2
+    to its twin on the run's own embeddings. Returns K2 f32's launches
+    on the fused retrieval run."""
     # 31. Retrieval unfused and fused (K2, f32 scores), and the rating
     # model.
     started = time.perf_counter()
@@ -4181,6 +4212,8 @@ def quality(device: torch.device, args) -> dict:
     loss, tloss, loss_err, errs = k2_against_twin(
         q, cand, {"score_dtype": None}, "quality K2 f32")
     results["ranking"] = quality_parity.run_ours_ranking(train, test, args)
+    results["dlrm"] = quality_parity.run_ours_dlrm(
+        *quality_parity.make_ctr(args), args)
     for run, values in results.items():
         check(all(np.isfinite(v) and v > 0 for k, v in values.items()
                   if k in quality_parity.RECORDED),
@@ -4201,7 +4234,8 @@ def quality(device: torch.device, args) -> dict:
     check(not failures or not full_quality(args), "; ".join(failures))
     phase("quality parity", started, f"{args.interactions} interactions, "
           f"{args.epochs} epochs of {args.batch}; retrieval unfused and "
-          "fused, ranking")
+          f"fused, ranking; prebuilt DLRM, {args.examples} examples, "
+          f"{args.dlrm_epochs} epochs")
 
     # 32. The unified-embedding three-way study.
     started = time.perf_counter()
@@ -6107,6 +6141,176 @@ def scale_ann(device: torch.device, size: ScaleSize, seed: int) -> list:
     return report
 
 
+# --- The probe's copy step (phase 39) ----------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class ProbeSize:
+    """`benchmarks/_alias_probe.py`'s shape (`alias_probe.Shape`), a
+    ragged one (V·D odd), and a pair well past the 50 MB L2: the stacked
+    engine's storage of phase 18 (4,538,240 × 32), f32 table and f32
+    accumulator."""
+    shape: alias_probe.Shape = alias_probe.Shape()
+    ragged: tuple = (131_071, 63)
+    past_l2: tuple = (4_538_240, 32)
+    past_l2_steps: int = 5
+
+
+COPY_SOURCE = "recommenders_tpu_torch/csrc/copy_chain.cu"
+COPY_REPLACES = "benchmarks/_alias_probe.py:111"
+COPY_DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
+
+
+def copy_pair(rows: int, dim: int, dtype, device, seed: int):
+    """A table and accumulator at scales from 1e-9 to 1, so that adding
+    1e-7 moves their bits, drawn on the device."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def draw():
+        scale = 10.0 ** torch.randint(-9, 1, (rows, dim), device=device,
+                                      generator=gen)
+        return torch.randn(rows, dim, device=device, generator=gen) * scale
+
+    return draw().to(dtype), draw()
+
+
+def check_copy(rows: int, dim: int, dtype, device, seed: int) -> float:
+    """The copy step against its twin, bit for bit, in place, out of
+    place, and out of place into buffers that do not start on 16 bytes
+    (the kernel's value-by-value path); one launch a call. Returns the
+    largest |copy step - twin| over the cases and both arrays, in f32."""
+    table, accum = copy_pair(rows, dim, dtype, device, seed)
+    want = copy_chain.copy_step_reference(table, accum,
+                                          out=(torch.empty_like(table),
+                                               torch.empty_like(accum)))
+    check(not torch.equal(want[1], accum), "phase 39: eps moved no bits")
+    shifted = [torch.empty(table.numel() + 1, dtype=x.dtype, device=device)
+               [1:].view(rows, dim) for x in (table, accum)]
+    cases = {"in place": None,
+             "out of place": (torch.empty_like(table),
+                              torch.empty_like(accum)),
+             "out of place, unaligned": tuple(shifted)}
+    err = 0.0
+    for label, out in cases.items():
+        src = [table.clone(), accum.clone()]
+        before = copy_chain.copy_step.launches
+        got = copy_chain.copy_step(*src, out=out)
+        sync(device)
+        launched = copy_chain.copy_step.launches - before
+        if device.type == "cuda":
+            check(launched == 1, f"phase 39: copy step {label}: {launched} "
+                  "launches for one call")
+        name = f"{rows} x {dim} {str(dtype).removeprefix('torch.')} {label}"
+        err = max([err] + [(g.float() - w.float()).abs().max().item()
+                           for g, w in zip(got, want)])
+        check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+              f"phase 39: copy step {name} differs from its twin")
+        if out is not None:
+            check(torch.equal(src[0], table) and torch.equal(src[1], accum),
+                  f"phase 39: copy step {name} wrote its input")
+    print(f"  copy step {rows} x {dim} {str(dtype).removeprefix('torch.')} "
+          "table: bit-equal to its twin in place, out of place and "
+          "unaligned, " + ("one launch a call" if device.type == "cuda"
+                           else "(the twin: CPU)"), flush=True)
+    return err
+
+
+def copy_rate(rows: int, dim: int, dtype, us: float) -> str:
+    tb_s = alias_probe.traffic_bytes(rows, dim, dtype) / (us * 1e-6) / 1e12
+    return (f"{tb_s:.3f} TB/s, {tb_s * 1e12 / HBM_BYTES_PER_S:.3f} of "
+            f"{HBM_BYTES_PER_S / 1e12} TB/s")
+
+
+def alias_probe_phase(device: torch.device, size: ProbeSize,
+                      seed: int) -> list:
+    """Phase 39: the probe's copy step (`csrc/copy_chain.cu`) held bit for
+    bit against its twin, the probe's four measurements
+    (`tools/alias_probe.py`) for both table types, the copy rate past
+    the L2; returns the copy step's kernel rows."""
+    # 39. The probe.
+    started = time.perf_counter()
+    release(device)
+    shape = size.shape
+    errs = {}
+    for fmt, dtype in COPY_DTYPES.items():
+        errs[fmt] = check_copy(shape.rows, shape.dim, dtype, device, seed)
+        check_copy(*size.ragged, dtype, device, seed)
+    readings, launches = {}, {}
+    for fmt, dtype in COPY_DTYPES.items():
+        copy_chain.copy_step.launches = 0
+        sparse_apply.sorted_block_apply.launches = 0
+        readings[fmt] = alias_probe.measurements(device, dtype, shape, seed)
+        launches[fmt] = (copy_chain.copy_step.launches,
+                         sparse_apply.sorted_block_apply.launches)
+        if device.type == "cuda":
+            want = alias_probe.wrapper_calls(shape)
+            check(launches[fmt] == want, f"phase 39: the {fmt} probe "
+                  f"launched the copy step and K1 {launches[fmt]} times, "
+                  f"not {want}")
+    print(f"  {nvidia_smi() if device.type == 'cuda' else 'cpu'}: the probe "
+          f"at V={shape.rows} D={shape.dim} N={shape.ids}, chains of "
+          f"{shape.steps} steps by graph replay (launches of the copy step "
+          f"and K1: {launches})", flush=True)
+    report = []
+    for fmt, dtype in COPY_DTYPES.items():
+        floor = alias_probe.floor_us(shape.rows, shape.dim, dtype)
+        for name, us in readings[fmt].items():
+            check(np.isfinite(us) and us > 0, f"phase 39: {fmt} {name} {us}")
+            print(f"    {fmt} table {name}: {us:.1f} us/step "
+                  f"({us / floor:.2f}x floor of {floor:.1f} us)", flush=True)
+        table, accum = alias_probe.state(shape, dtype, device, seed)
+        eps = torch.tensor(copy_chain.EPS, dtype=dtype, device=device)
+
+        def library():
+            torch.add(table, eps, out=table)
+            torch.add(accum, copy_chain.EPS, out=accum)
+
+        us = readings[fmt]["copy/alias"]
+        library_us = alias_probe.step_us(library, device, shape.steps)
+        plain_ms = device_ms(lambda: copy_chain.copy_step_reference(
+            table, accum), device, iters=10)
+        rate = copy_rate(shape.rows, shape.dim, dtype, us)
+        print(f"    {fmt} table copy step in place: {rate}; library "
+              f"(torch.add twice) {library_us:.1f} us, twin "
+              f"{plain_ms * 1e3:.1f} us", flush=True)
+        report.append({
+            "name": f"copy_step[{fmt} table]",
+            "route": "cuda",
+            "source": COPY_SOURCE,
+            "replaces": COPY_REPLACES,
+            "launches": launches[fmt][0],
+            "max_abs_err": errs[fmt],
+            "ms": us / 1e3,
+            "plain_ms": plain_ms,
+            "bound_ms": floor / 1e3,
+            "bound_by": "bytes",
+            "library_ms": library_us / 1e3,
+            "on_main_path": True,
+            "shape": f"V={shape.rows} D={shape.dim} {fmt} table + f32 "
+                     f"accumulator, in place, chained (graph replay); "
+                     f"bit-equal to the twin; launches: the wrapper's "
+                     f"calls in the probe's run (warm-up and capture; "
+                     f"replays rerun the captured launches)",
+            "path_launches": {},
+        })
+        del table, accum
+    rows, dim = size.past_l2
+    table, accum = copy_pair(rows, dim, torch.float32, device, seed)
+    us = alias_probe.step_us(lambda: copy_chain.copy_step(table, accum),
+                             device, size.past_l2_steps)
+    moved = alias_probe.traffic_bytes(rows, dim, torch.float32)
+    print(f"  past the L2: copy step in place on {rows} x {dim} f32 + f32 "
+          f"({moved} B a step, bound "
+          f"{alias_probe.floor_us(rows, dim, torch.float32):.1f} us): "
+          f"{us:.1f} us, {copy_rate(rows, dim, torch.float32, us)}",
+          flush=True)
+    del table, accum
+    release(device)
+    phase("39 alias probe", started, "the copy step against its twin, the "
+          "probe's four measurements, the rate past the L2")
+    return report
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -6160,6 +6364,7 @@ def main() -> int:
     k1_dlrm["path_launches"].update(paths.get(K1_DLRM_ROW, {}))
     report += stacked + [k1_dlrm]
     report += scale_ann(device, ScaleSize(), args.seed)
+    report += alias_probe_phase(device, ProbeSize(), args.seed)
     print(f"total {time.perf_counter() - started:.1f} s")
     print(json.dumps({"kernels": report}))
     print(json.dumps({"ok": True, "device": {

@@ -5,7 +5,8 @@ into `build/recommenders_tpu_torch/lib<name>-<digest>.so` under the
 checkout's root, where `<digest>` hashes the source, every shared header
 `csrc/*.cuh` (which any source may include) and the flags, so an edited
 source or header rebuilds and an unchanged one is reused. K1 and K2
-(training) load through ctypes (`library`).
+(training) and the probe's copy step (`copy_chain`) load through ctypes
+(`library`).
 
 K3, K4 and K5 (serving) are dispatcher ops: `csrc/torch_ops.cpp`
 registers them (`TORCH_LIBRARY(recommenders_tpu_torch, ...)`) and links
@@ -40,7 +41,7 @@ BUILD_DIR = _PACKAGE.parent / "build" / "recommenders_tpu_torch"
 
 # Every CUDA source of the port, by name (`csrc/<name>.cu`).
 SOURCES = ("bucketed_scores", "sparse_apply", "fused_retrieval",
-           "leaf_scoring")
+           "leaf_scoring", "copy_chain")
 
 # The serving kernels' libraries, which the op library links.
 SERVING_SOURCES = ("bucketed_scores", "leaf_scoring")

@@ -443,7 +443,8 @@ def test_data_phases_pass_on_cpu_at_a_tiny_size(capsys):
 
     args = quality_parity.parse_args([
         "--device", "cpu", "--interactions", "10000", "--epochs", "1",
-        "--batch", "1024", "--examples", "8000", "--uet-epochs", "1"])
+        "--batch", "1024", "--examples", "8000", "--uet-epochs", "1",
+        "--dlrm-epochs", "1"])
     assert not chip_smoke.full_quality(args)
     assert chip_smoke.full_quality(quality_parity.parse_args([
         "--device", "cuda:0"]))
@@ -484,6 +485,8 @@ def test_data_phases_pass_on_cpu_at_a_tiny_size(capsys):
                          rf"\S+ \(JAX 0.665\), top_100 \S+ \(JAX 0.8589\)",
                          out)
     assert re.search(r"ranking: rmse 0\.\d+ \(JAX 0.8662\)", out)
+    assert re.search(r"dlrm: dlrm_auc 0\.\d+ \(JAX 0.6625\); epoch losses "
+                     r"\[\S+\], fit \S+ s", out)
     # The fused run against the unfused one, and K2 (here its twin) on
     # the fused run's own embeddings at the path's shapes.
     assert re.search(r"quality fused retrieval: K2 launches .*; against "
@@ -531,3 +534,62 @@ def test_padded_bucketed_scores_as_bruteforce_on_narrow_embeddings():
     want_scores, want_ids = torch.topk(queries @ corpus.T, 5)
     torch.testing.assert_close(scores, want_scores, rtol=1e-6, atol=1e-5)
     assert torch.equal(ids.sort(1).values, want_ids.sort(1).values)
+
+
+def test_alias_probe_phase_passes_on_cpu_at_a_tiny_size(capsys):
+    """Phase 39 at a tiny size: the copy step against its twin (in place,
+    out of place, into unaligned buffers) at the probe's and a ragged
+    shape for both table types, the probe's four measurements, the rate
+    past the L2, a kernel row per table type. Off the card the twin runs
+    and nothing launches."""
+    from recommenders_tpu_torch.tools import alias_probe
+
+    size = chip_smoke.ProbeSize(
+        shape=alias_probe.Shape(rows=512, dim=16, ids=64, steps=2),
+        ragged=(131, 7), past_l2=(1000, 8), past_l2_steps=2)
+    report = chip_smoke.alias_probe_phase(torch.device("cpu"), size, 0)
+    assert [r["name"] for r in report] == [
+        "copy_step[f32 table]", "copy_step[bf16 table]"]
+    for row, dtype in zip(report, (torch.float32, torch.bfloat16)):
+        assert REPORT_KEYS <= set(row)
+        assert (row["route"], row["bound_by"]) == ("cuda", "bytes")
+        assert (ROOT / row["source"]).is_file()
+        path, line = row["replaces"].split(":")
+        assert "copy_kernel" in (ROOT / path).read_text().splitlines()[
+            int(line) - 1]
+        assert row["launches"] == 0 and row["path_launches"] == {}
+        assert row["bound_ms"] == pytest.approx(
+            alias_probe.floor_us(512, 16, dtype) / 1e3)
+        assert all(row[k] > 0 for k in ("ms", "plain_ms", "library_ms"))
+    out = capsys.readouterr().out
+    assert "phase 39 alias probe: ok" in out
+    for fmt in ("f32", "bf16"):
+        for name in alias_probe.MEASUREMENTS:
+            assert re.search(rf"{fmt} table {name}: \S+ us/step \(\S+x "
+                             rf"floor of \S+ us\)", out)
+        for rows, dim in ((512, 16), (131, 7)):
+            table = {"f32": "float32", "bf16": "bfloat16"}[fmt]
+            assert (f"copy step {rows} x {dim} {table} table: bit-equal to "
+                    "its twin in place, out of place and unaligned") in out
+    assert re.search(r"past the L2: copy step in place on 1000 x 8 f32 \+ "
+                     r"f32 \(128000 B a step, bound \S+ us\): \S+ us, \S+ "
+                     r"TB/s, \S+ of 3.35 TB/s", out)
+
+
+def test_alias_probe_phase_defaults_are_the_probes_shapes():
+    from recommenders_tpu_torch.tools import alias_probe
+
+    size = chip_smoke.ProbeSize()
+    shape = size.shape
+    assert (shape.rows, shape.dim, shape.ids) == (131_072, 64, 4096)
+    assert (shape.rows * shape.dim) % 8 == 0
+    rows, dim = size.ragged
+    assert (rows * dim) % 8 != 0
+    # Phase 18's stacked storage, f32 + f32: 2,323,578,880 B a step,
+    # 693.6 us at 3.35 TB/s; 40 times the L2.
+    assert size.past_l2 == (4_538_240, 32)
+    moved = alias_probe.traffic_bytes(*size.past_l2, torch.float32)
+    assert moved == 2_323_578_880
+    assert alias_probe.floor_us(*size.past_l2, torch.float32) == (
+        pytest.approx(693.6, abs=0.05))
+    assert moved / 2 > 20 * 50e6

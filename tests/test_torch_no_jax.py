@@ -5,6 +5,7 @@ torch; the machine with the card has no ml_dtypes). Checked statically,
 on the parsed imports of every file."""
 
 import ast
+import re
 from pathlib import Path
 
 import pytest
@@ -63,6 +64,7 @@ def test_every_package_file_is_checked():
         "parallel/ann.py", "utils/collectives.py", "utils/export.py",
         "utils/native_serving.py", "ops/product_quantization.py",
         "examples/__init__.py", "tools/run_examples.py",
+        "ops/copy_chain.py", "tools/alias_probe.py", "tools/build_api_docs.py",
     ):
         assert f"recommenders_tpu_torch/{module}" in names
     assert "chip_smoke.py" in names
@@ -87,18 +89,69 @@ def test_every_jax_module_has_a_counterpart():
     assert not missing, missing
 
 
+# A repository tool whose counterpart in the port has another name.
+TOOL_COUNTERPARTS = {"tools/reference_parity_ctr.py": "tools/quality_parity.py"}
+
+
 @pytest.mark.parametrize(
     "jax_file",
-    sorted((ROOT / "examples").glob("*.py")) + [ROOT / "tools" /
-                                                "run_examples.py"],
+    sorted((ROOT / "examples").glob("*.py")) + [
+        ROOT / "tools" / name for name in (
+            "run_examples.py", "build_api_docs.py",
+            "reference_parity_ctr.py")],
     ids=lambda p: str(p.relative_to(ROOT)))
 def test_every_example_and_the_runner_have_a_counterpart(jax_file):
-    """Each user example and the example runner have a file of the same
-    name in the port (`examples/` and `tools/`), which the import check
-    above covers."""
-    port = ROOT / "recommenders_tpu_torch" / jax_file.relative_to(ROOT)
+    """Each user example, the example runner, the API-docs tool and the
+    CTR quality tool have a file in the port (`examples/` and `tools/`;
+    of the same name, or the one `TOOL_COUNTERPARTS` names), which the
+    import check above covers."""
+    name = jax_file.relative_to(ROOT).as_posix()
+    port = ROOT / "recommenders_tpu_torch" / TOOL_COUNTERPARTS.get(name, name)
     assert port.is_file(), port
     assert port in FILES
+
+
+def _pallas_call_sites():
+    """(file, line, names of the functions around it) of every
+    `pl.pallas_call` in the JAX package and the benchmarks."""
+    sites = []
+    for path in sorted([*(ROOT / "recommenders_tpu").rglob("*.py"),
+                        *(ROOT / "benchmarks").rglob("*.py")]):
+        def walk(node, names):
+            for child in ast.iter_child_nodes(node):
+                inner = names
+                if isinstance(child, (ast.FunctionDef, ast.AsyncFunctionDef)):
+                    inner = names + [child.name]
+                if (isinstance(child, ast.Call)
+                        and isinstance(child.func, ast.Attribute)
+                        and child.func.attr == "pallas_call"):
+                    sites.append((path.relative_to(ROOT).as_posix(),
+                                  child.lineno, names))
+                walk(child, inner)
+
+        walk(ast.parse(path.read_text(), filename=str(path)), [])
+    return sites
+
+
+def test_every_pallas_call_is_replaced_by_a_cuda_source():
+    """Every `pl.pallas_call` site is named by the "Replaces the TPU
+    kernel" note of some `csrc/*.cu`: its file, its line (`:N`) and a
+    function around it. A kernel added to the JAX tree without a port
+    fails here."""
+    notes = []
+    for source in sorted((ROOT / "recommenders_tpu_torch" / "csrc").glob(
+            "*.cu")):
+        header = source.read_text().split("#include")[0]
+        assert "Replaces the TPU kernel" in header, source.name
+        notes.append(" ".join(header.replace("//", " ").split()))
+    sites = _pallas_call_sites()
+    assert len(sites) >= 8
+    missing = [
+        (path, line, names) for path, line, names in sites
+        if not any(path in note and re.search(rf":{line}\b", note)
+                   and any(name in note for name in names)
+                   for note in notes)]
+    assert not missing, missing
 
 
 def test_the_serving_ops_library_includes_no_python_headers():
