@@ -2100,8 +2100,8 @@ def check_k5(index, fmt, chunk, launches, device) -> dict:
         device, iters=2)
     bytes_ms, ops_ms, pairs, _ = k5_bound(kernel, vals.nbytes + rows.nbytes)
     tiles, p = probes.shape
-    splits = leaf_scoring.bucketed_splits(
-        tiles, tile, buckets, p,
+    splits = leaf_scoring.k5_splits(
+        fmt, tiles, tile, buckets, cap, p,
         cuda_build.sm_count(device) if device.type == "cuda"
         else H100_SMS)
     # JAX's cost estimate (`leaf_scoring.py:439-449`): each tile reads each

@@ -51,13 +51,42 @@
 // tensor-core peak, so 1.6 ms for f32's six (3.9 ms at the f32 CUDA-core
 // peak, which the CUDA-core body this replaced ran at 46 % of). On an
 // NVIDIA H100 80GB HBM3 at 700 W (chip_smoke.py, tools/kernel_ab.py)
-// bf16 / int8 / int4 take 1.22 / 1.45 / 1.51 ms and f32 4.5 ms (the
-// CUDA-core body 8.5). The tensor cores do not set the one-pass bodies'
-// pace: each stage waits at two (bf16) or three (codes) block barriers,
+// bf16 / int4 take 1.20 / 1.51 ms and f32 4.5 ms (the CUDA-core body
+// 8.5). The tensor cores do not set these bodies' pace: each stage
+// waits at two (bf16) or three (int4) block barriers,
 // and warps resident matter more than shared-memory traffic (keeping a
 // warp's query fragments in registers instead of reloading them every
 // group needs 220+ registers, one block an SM, and was slower on that
-// card). wgmma with a TMA ring is the next step.
+// card). The int8 body below takes that step.
+//
+// The int8 body (`bucketed_int8_kernel`). At the 100M catalog's request
+// (Q = 256, N = 100,003,840, D = 128, B = 4,096) the codes are 12.8 GB
+// and the products 6.6 TFLOP: 3.9 ms of bytes, 6.6 ms at the bf16 peak,
+// so it is bound by operations. The mma.sync body it replaced read every
+// code once a 128-query tile (twice here), ran one and a half waves and
+// waited at three block barriers a stage (43 ms). Here a block owns 64
+// buckets x all of a request's queries (a tile of 256, 128 or 64: one
+// read of the codes up to 256 queries), one block an SM, and the plan
+// splits the group walk until the grid is one wave. One lane of a
+// producer warpgroup copies each group's slab (64 contiguous code rows)
+// into a ring of up to eight stages with one cp.async.bulk completing on
+// an mbarrier; two consumer warpgroups, each with NQ = tile / 2 of the
+// queries as wgmma's B (bf16 in shared memory, 128-byte swizzled, stored
+// once), read their slab rows 16 bytes a lane, decode them to bf16 A
+// fragments in registers (exact, two codes a packed bf16 subtraction;
+// the query's features are stored in the matching order, wg::code_k),
+// release the stage with one arrival a warp and multiply with
+// wgmma.m64nNQk16 (A in registers), taking turns a group at the tensor
+// cores (named barriers). No block-wide barrier follows the set-up. Each
+// thread's accumulators cover two buckets x NQ / 4 queries, so the fold
+// needs two scales a group and keeps a running (max, group) beside them:
+// 64 + 64 + 64 registers at NQ = 128, which setmaxnreg makes room for
+// (the producer warpgroup drops to 24). The A fragments of 64 features
+// (four k-steps) are in flight at a time. What bounds it now is the
+// consumers' ALU work beside the products: the fold's four operations a
+// score (scale, compare, two selects) and the decode take longer than
+// the tensor cores, and the two barely overlap (PERF.md, section 6,
+// times each part alone).
 //
 // What the design does about it. The TPU ran its grid (query tile, corpus
 // chunk) in order and carried the running max/argmax in VMEM across
@@ -74,10 +103,10 @@
 // over a contiguous range of groups, and a second kernel merges their
 // (value, lowest row) pairs: that merge is associative and commutative,
 // so the result equals the unsplit walk's.
-//   bf16 / int8 / int4: TQ = 128 (64 for D > 512), two blocks an SM; the
-//   codes are decoded to bf16 in shared memory (int8 sign-extends; int4
-//   takes the low or the high nibble by the group's half of the corpus)
-//   with integer and f32 tricks, not the quarter-rate int-to-float unit.
+//   bf16 / int4: TQ = 128 (64 for D > 512), two blocks an SM; the int4
+//   codes are decoded to bf16 in shared memory (the low or the high
+//   nibble by the group's half of the corpus) with integer tricks, not
+//   the quarter-rate int-to-float unit.
 //   f32: the query's three bf16 planes ([TQ][D + 8] each, split once) and
 //   the raw f32 slab ring ([64][136] floats a stage) take 170 KB at TQ =
 //   128, D = 128, so one block an SM; TQ = 64 from D = 256 and 32 from D =
@@ -95,7 +124,10 @@
 #include <math_constants.h>
 #include <stdint.h>
 
+#include <algorithm>
+
 #include "tensor_core.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
@@ -283,9 +315,9 @@ bucketed_tc_kernel(const void* __restrict__ q, const void* __restrict__ c,
     if constexpr (FMT == kRows) {
       slab = slabs + (s & 1) * kTB * kSlab;
     } else if constexpr (FMT != kF32) {
-      // Decode the codes to bf16 (exact), 8 a thread per step.
+      // Decode the int4 codes to bf16 (exact), 8 a thread per step.
       const int8_t* src = raw + (s & 1) * kTB * kKC;
-      const bool high = FMT == kPacked4 && grp >= half_groups;
+      const bool high = grp >= half_groups;
       for (int idx = tid; idx < kTB * (kKC / 8); idx += kThreadsTc) {
         const int i = idx / (kKC / 8);
         const int u = idx % (kKC / 8);
@@ -294,18 +326,13 @@ bucketed_tc_kernel(const void* __restrict__ q, const void* __restrict__ c,
 #pragma unroll
         for (int j = 0; j < 2; ++j) {
           const uint32_t w = j == 0 ? word.x : word.y;
-          if constexpr (FMT == kInt8) {
-            packed[2 * j] = tc::int8x2_to_bf16x2(w ^ 0x80808080u, 0);
-            packed[2 * j + 1] = tc::int8x2_to_bf16x2(w ^ 0x80808080u, 2);
-          } else {
-            // Bytes (0, 1) and (2, 3) spread to the two 16-bit halves;
-            // the group's half of the corpus picks the nibble.
-            const int shift = high ? 4 : 0;
-            packed[2 * j] =
-                tc::int4x2_to_bf16x2(__byte_perm(w, 0u, 0x4140) >> shift);
-            packed[2 * j + 1] =
-                tc::int4x2_to_bf16x2(__byte_perm(w, 0u, 0x4342) >> shift);
-          }
+          // Bytes (0, 1) and (2, 3) spread to the two 16-bit halves; the
+          // group's half of the corpus picks the nibble.
+          const int shift = high ? 4 : 0;
+          packed[2 * j] =
+              tc::int4x2_to_bf16x2(__byte_perm(w, 0u, 0x4140) >> shift);
+          packed[2 * j + 1] =
+              tc::int4x2_to_bf16x2(__byte_perm(w, 0u, 0x4342) >> shift);
         }
         *reinterpret_cast<uint4*>(slabs + i * kSlab + u * 8) =
             make_uint4(packed[0], packed[1], packed[2], packed[3]);
@@ -391,7 +418,7 @@ bucketed_tc_kernel(const void* __restrict__ q, const void* __restrict__ c,
           const int bucket = b0 + wb * 32 + nb * 8 + 2 * t + e;
           const int64_t r = grp * buckets + bucket;
           float scale = 1.f;
-          if constexpr (FMT == kInt8 || FMT == kPacked4) {
+          if constexpr (FMT == kPacked4) {
             scale = bucket < buckets ? __ldg(scales + r) : 0.f;
           }
 #pragma unroll
@@ -456,6 +483,292 @@ __global__ void merge_splits_kernel(const float* __restrict__ split_vals,
   }
   vals[i] = v;
   rows[i] = r;
+}
+
+// ------------------------------------------------------- int8 on wgmma
+
+constexpr int kSlabRows = 64;            // buckets of a block: wgmma's M
+constexpr int kConsumerWarpgroups = 2;   // each multiplies NQ queries
+constexpr int kConsumerWarps = 4 * kConsumerWarpgroups;
+// + a producer warpgroup: setmaxnreg moves registers between whole
+// warpgroups (ptxas sizes the launch for three), and only its first
+// warp's first lane works.
+constexpr int kInt8Threads = 32 * (kConsumerWarps + 4);
+constexpr int kMaxStages = 8;
+constexpr int kBarrierBytes = 2 * kMaxStages * 8;         // full, empty
+
+// Shared bytes of the int8 body: the query tile (2 NQ rows of D bf16),
+// its barriers and `stages` slabs of 64 code rows.
+__host__ __device__ constexpr size_t int8_smem(int nq, int d, int stages) {
+  return kBarrierBytes + static_cast<size_t>(kConsumerWarpgroups) * nq * d *
+                             2 +
+         static_cast<size_t>(stages) * kSlabRows * d;
+}
+
+// Folds one group's scores into the running best: accumulator d[4j + e]
+// is bucket row `ra` and d[4j + 2 + e] row `ra + 8` (rows `row_a`,
+// `row_a + 8` of the corpus, scales sa, sb), each against query column
+// 8j + 2t + e. MASKED: rows >= valid_rows score mask_value.
+template <int R, bool MASKED>
+__device__ __forceinline__ void fold_group(const float (&acc)[R],
+                                           float (&best)[R],
+                                           int (&best_g)[R], int grp,
+                                           float sa, float sb, int row_a,
+                                           int valid_rows, float mask_value) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    const bool lower = (i & 2) == 0;
+    float v = acc[i] * (lower ? sa : sb);
+    if constexpr (MASKED) {
+      if ((lower ? row_a : row_a + 8) >= valid_rows) v = mask_value;
+    }
+    if (v > best[i]) {
+      best[i] = v;
+      best_g[i] = grp;
+    }
+  }
+}
+
+// K3's int8 body. A block owns 64 buckets x 2 NQ queries of the output and
+// walks groups [g_begin, g_end) of its split (blockIdx.z of gridDim.z).
+// One lane of a producer warpgroup brings each group's slab of 64 code
+// rows (contiguous: rows g*B + b0 .. + 63) into a ring of `stages` stages
+// with one bulk copy, which completes on the stage's `full` barrier. Two
+// consumer warpgroups each own NQ of the block's queries, stored once as
+// wgmma's B operand; each reads the slab's codes as A fragments, decodes
+// them to bf16 in registers, releases the stage (its `empty` barrier, one
+// arrival a warp), multiplies on wgmma in its turn and folds the group
+// into a running (max, group) in the accumulator layout. No block-wide
+// barrier follows the set-up. Writes its [Q, B] plane at vals / rows +
+// blockIdx.z * Q * B.
+template <int NQ>
+__global__ void __launch_bounds__(kInt8Threads, 1)
+bucketed_int8_kernel(const bf16* __restrict__ q,
+                     const int8_t* __restrict__ codes,
+                     const float* __restrict__ scales,
+                     float* __restrict__ vals, int* __restrict__ rows,
+                     int num_q, int n, int d, int buckets, int valid_rows,
+                     float mask_value, int stages) {
+  constexpr int R = NQ / 2;  // accumulators a thread
+  // The query tile first (its K blocks 1024-byte aligned for the
+  // swizzle), then the barriers and the ring.
+  extern __shared__ __align__(1024) unsigned char smem_i8[];
+  unsigned char* qs = smem_i8;
+  uint64_t* full =
+      reinterpret_cast<uint64_t*>(qs + kConsumerWarpgroups * NQ * d * 2);
+  uint64_t* empty = full + kMaxStages;
+  unsigned char* ring = reinterpret_cast<unsigned char*>(full) + kBarrierBytes;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int b0 = blockIdx.x * kSlabRows;
+  const int q0 = blockIdx.y * kConsumerWarpgroups * NQ;
+  const int groups = n / buckets;
+  const int g_begin = static_cast<int>(static_cast<int64_t>(groups) *
+                                       blockIdx.z / gridDim.z);
+  const int g_end = static_cast<int>(static_cast<int64_t>(groups) *
+                                     (blockIdx.z + 1) / gridDim.z);
+  const int slab_bytes = d * kSlabRows;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < stages; ++s) {
+      wg::mbar_init(&full[s], 1);
+      wg::mbar_init(&empty[s], kConsumerWarps);
+    }
+    wg::fence_mbar_init();
+  }
+  __syncthreads();
+
+  if (warp >= kConsumerWarps) {
+    // The producer: one lane keeps the ring full. 168 registers a thread
+    // at launch; the producer's 144 fewer give the consumers 72 more.
+    wg::regs_dec<24>();
+    if (warp == kConsumerWarps && lane == 0) {
+      // The block's last slab stops at bucket B (a row past it may be past
+      // the corpus); the rows it leaves stale are never written out.
+      const uint32_t bytes =
+          static_cast<uint32_t>(min(kSlabRows, buckets - b0) * d);
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int grp = g_begin; grp < g_end; ++grp) {
+        wg::mbar_wait(&empty[stage], phase ^ 1);
+        wg::mbar_expect_tx(&full[stage], bytes);
+        wg::bulk_load(ring + stage * slab_bytes,
+                      codes + (static_cast<int64_t>(grp) * buckets + b0) * d,
+                      bytes, &full[stage]);
+        if (++stage == stages) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+    }
+  } else {
+    wg::regs_inc<240>();
+    const int wgi = warp >> 2;  // consumer warpgroup
+    const int g = lane >> 2, t = lane & 3;
+    // The query tile as B, once: warpgroup w's NQ queries at qs + w * NQ
+    // * d * 2, features in `wg::code_k` order (rows past num_q zero).
+    const int chunks = d / 8;
+    for (int idx = threadIdx.x; idx < kConsumerWarpgroups * NQ * chunks;
+         idx += 32 * kConsumerWarps) {
+      const int r = idx / chunks;
+      const int c = (idx - r * chunks) * 8;
+      uint4 v = make_uint4(0u, 0u, 0u, 0u);
+      if (q0 + r < num_q) {
+        v = *reinterpret_cast<const uint4*>(
+            q + static_cast<int64_t>(q0 + r) * d + c);
+      }
+      unsigned char* dst = qs + (r / NQ) * NQ * d * 2;
+      const bf16* x = reinterpret_cast<const bf16*>(&v);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        *reinterpret_cast<bf16*>(
+            dst + wg::b_offset<NQ>(r % NQ, wg::code_k(c + i))) = x[i];
+      }
+    }
+    wg::fence_proxy_async();
+    wg::named_sync(1, 32 * kConsumerWarps);
+
+    const int ra = (warp & 3) * 16 + g;  // the thread's slab rows ra, ra + 8
+    const int bucket_a = b0 + ra, bucket_b = bucket_a + 8;
+    const uint32_t b_base = tc::smem_addr(qs + wgi * NQ * d * 2);
+    float acc[R], best[R];
+    int best_g[R];
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+      // The first group always replaces this, so an all-masked bucket
+      // reports its first row.
+      best[i] = -CUDART_INF_F;
+      best_g[i] = g_begin;
+    }
+    const int kblocks = d / 64;
+    // The two scales of a group, loaded a group ahead of their fold.
+    auto scales_of = [&](int grp, float& sa, float& sb) {
+      const int row_a = grp * buckets + bucket_a;
+      sa = bucket_a < buckets ? __ldg(scales + row_a) : 0.f;
+      sb = bucket_b < buckets ? __ldg(scales + row_a + 8) : 0.f;
+    };
+    float next_a = 0.f, next_b = 0.f;
+    if (g_begin < g_end) scales_of(g_begin, next_a, next_b);
+    // The two warpgroups take turns at the tensor cores, a turn a group
+    // (named barriers 2 and 3), so that one's products run while the
+    // other folds: warpgroup 0 goes first.
+    if (wgi == 1 && g_begin < g_end) wg::named_arrive(2, 32 * kConsumerWarps);
+    int stage = 0;
+    uint32_t phase = 0;
+    for (int grp = g_begin; grp < g_end; ++grp) {
+      const int row_a = grp * buckets + bucket_a;
+      const float sa = next_a, sb = next_b;
+      if (grp + 1 < g_end) scales_of(grp + 1, next_a, next_b);
+      wg::mbar_wait(&full[stage], phase);
+      const unsigned char* lo = ring + stage * slab_bytes + ra * d + 16 * t;
+      for (int kb = 0; kb < kblocks; ++kb) {
+        const uint4 wa = *reinterpret_cast<const uint4*>(lo + kb * 64);
+        const uint4 wb = *reinterpret_cast<const uint4*>(lo + 8 * d + kb * 64);
+        uint32_t a[4][4];
+        wg::decode_int8(wa, wb, a);
+        const bool last = kb == kblocks - 1;
+        if (last) {
+          // Every code of the stage is in registers: release it.
+          __syncwarp();
+          if (lane == 0) wg::mbar_arrive(&empty[stage]);
+        }
+        if (kb == 0) wg::named_sync(2 + wgi, 32 * kConsumerWarps);
+        wg::fence();
+        wg::hold(acc);
+#pragma unroll
+        for (int s = 0; s < 4; ++s) {
+          wg::Mma<NQ>::run(acc, a[s], wg::b_desc<NQ>(b_base, kb * 4 + s),
+                           kb + s > 0);
+        }
+        wg::commit();
+        // The other's turn next (warpgroup 1's last turn hands none on).
+        if (last && (wgi == 0 || grp + 1 < g_end)) {
+          wg::named_arrive(3 - wgi, 32 * kConsumerWarps);
+        }
+        wg::hold(acc);
+        wg::wait<0>();
+        wg::hold(acc);
+      }
+      if ((grp + 1) * buckets <= valid_rows) {
+        fold_group<R, false>(acc, best, best_g, grp, sa, sb, row_a,
+                             valid_rows, mask_value);
+      } else {
+        fold_group<R, true>(acc, best, best_g, grp, sa, sb, row_a,
+                            valid_rows, mask_value);
+      }
+      if (++stage == stages) {
+        stage = 0;
+        phase ^= 1;
+      }
+    }
+
+    const int64_t plane = static_cast<int64_t>(blockIdx.z) * num_q * buckets;
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+      const int qi = q0 + wgi * NQ + 8 * (i >> 2) + 2 * t + (i & 1);
+      const int bucket = (i & 2) ? bucket_b : bucket_a;
+      if (qi < num_q && bucket < buckets) {
+        const int64_t o = plane + static_cast<int64_t>(qi) * buckets + bucket;
+        vals[o] = best[i];
+        rows[o] = best_g[i] * buckets + bucket;
+      }
+    }
+  }
+}
+
+template <int NQ>
+cudaError_t launch_int8(const bf16* q, const int8_t* c, const float* scales,
+                        float* vals, int* rows, int num_q, int64_t n, int d,
+                        int buckets, int64_t valid_rows, float mask_value,
+                        int splits, float* split_vals, int* split_rows,
+                        cudaStream_t stream) {
+  constexpr size_t kMaxBytes = 232448;  // 227 KB a block on the H100
+  const size_t fixed = int8_smem(NQ, d, 0);
+  const size_t slab = static_cast<size_t>(kSlabRows) * d;
+  const int stages = fixed + 2 * slab > kMaxBytes
+                         ? 0
+                         : static_cast<int>(std::min<size_t>(
+                               kMaxStages, (kMaxBytes - fixed) / slab));
+  if (stages < 2) return cudaErrorInvalidValue;
+  auto kernel = bucketed_int8_kernel<NQ>;
+  const size_t smem = int8_smem(NQ, d, stages);
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  const dim3 grid((buckets + kSlabRows - 1) / kSlabRows,
+                  (num_q + 2 * NQ - 1) / (2 * NQ), splits);
+  kernel<<<grid, kInt8Threads, smem, stream>>>(
+      q, c, scales, splits > 1 ? split_vals : vals,
+      splits > 1 ? split_rows : rows, num_q, static_cast<int>(n), d, buckets,
+      static_cast<int>(std::min<int64_t>(valid_rows, n)), mask_value, stages);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || splits == 1) return err;
+  const int64_t plane = static_cast<int64_t>(num_q) * buckets;
+  merge_splits_kernel<<<static_cast<unsigned>((plane + 255) / 256), 256, 0,
+                        stream>>>(split_vals, split_rows, plane, splits, vals,
+                                  rows);
+  return cudaGetLastError();
+}
+
+// query_tile is the block's 2 NQ queries: 256, 128 or 64.
+cudaError_t launch_int8_tile(int query_tile, const void* q, const void* c,
+                             const float* scales, float* vals, int* rows,
+                             int num_q, int64_t n, int d, int buckets,
+                             int64_t valid_rows, float mask_value, int splits,
+                             float* split_vals, int* split_rows,
+                             cudaStream_t stream) {
+  const bf16* qb = static_cast<const bf16*>(q);
+  const int8_t* codes = static_cast<const int8_t*>(c);
+  switch (query_tile) {
+#define RTPU_INT8(NQ)                                                       \
+  launch_int8<NQ>(qb, codes, scales, vals, rows, num_q, n, d, buckets,      \
+                  valid_rows, mask_value, splits, split_vals, split_rows,   \
+                  stream)
+    case 256: return RTPU_INT8(128);
+    case 128: return RTPU_INT8(64);
+    case 64: return RTPU_INT8(32);
+#undef RTPU_INT8
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 template <int FMT, int TQ>
@@ -549,10 +862,9 @@ int bucketed_scores_launch(int format, int bf16, const void* q, const void* c,
                                   mask_value, splits, split_vals, split_rows,
                                   s);
     case kInt8:
-      return launch_format<kInt8>(query_tile, q, c, scales, vals, rows,
-                                  num_q, n, d, buckets, valid_rows,
-                                  mask_value, splits, split_vals, split_rows,
-                                  s);
+      return launch_int8_tile(query_tile, q, c, scales, vals, rows, num_q, n,
+                              d, buckets, valid_rows, mask_value, splits,
+                              split_vals, split_rows, s);
     case kPacked4:
       return launch_format<kPacked4>(query_tile, q, c, scales, vals, rows,
                                      num_q, n, d, buckets, valid_rows,

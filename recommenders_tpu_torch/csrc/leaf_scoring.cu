@@ -92,22 +92,53 @@
 //   memory, walks the leaf's slots 64 at a time and stores each query
 //   row's scores, scaled, as float2 runs. A leaf is read once a group
 //   instead of once a pair; blocks past the live groups exit at once.
-//   K5: a block owns 64 queries x 64 buckets of one query tile and walks a
-//   contiguous range of that tile's probes (split z of S, its probe ids in
-//   shared memory), with its running (max, row) in registers in the
-//   accumulator layout; S is chosen by the wrapper to fill the card. A
+//   K5 (f32, bf16, int4): a block owns 64 queries x 64 buckets of one
+//   query tile and walks a contiguous range of that tile's probes (split
+//   z of S, its probe ids in shared memory), with its running (max, row)
+//   in registers in the accumulator layout; S is chosen by the wrapper to
+//   fill the card. A
 //   second kernel merges the S partial planes in order of z with strict
 //   `>`, so the first maximum in fold order still wins (not K3's merge,
 //   which sends ties to the lowest row: here an earlier probe's higher row
 //   must win).
+//   K5 int8 (`probed_bucketed_int8_kernel`). At the 100M catalog's
+//   request (8 tiles of T = 32 queries, P = 1,536 probes of cap 12,928
+//   slots, B = 8,192, D = 128) the products are 1.1 TFLOP but the tiles'
+//   probed leaves are 17.6 GB read once a (tile, leaf) pair and 10.7 GB
+//   read once a leaf: it is bound by bytes (3.2 ms at 3.35 TB/s, 3.8 at
+//   the 2.85 the card streams). The mma.sync body it replaced used
+//   64-query blocks (half of every block's rows empty at T = 32), walked
+//   each tile's probes on its own through a three-stage cp.async ring
+//   with a block barrier a stage, and left the bucket tiles that fold two
+//   groups a leaf twice the work of the others (17.8 ms). Here a block is
+//   a consumer warpgroup and a producer warp: the query block is
+//   exactly the tile (NQ = 16, 32 or 64 columns of wgmma's B), each
+//   unit's 64 contiguous slot rows, their scales and rows come in by
+//   cp.async.bulk on an mbarrier ring (the scales and rows the consumers
+//   once loaded themselves cost two serial trips to memory a unit), and
+//   the consumers decode the codes to bf16 A fragments in registers, as
+//   K3's int8 body does, eight k-steps in flight a wait. It is bound by
+//   the consumers' work still (their decode, products and fold; the
+//   bytes alone stream in about half its time). The first maximum of the
+//   reference's fold is kept by an order key, key = p * G + g (p the
+//   probe's position in the tile's list, g the group, G the groups a
+//   leaf): the walk visits keys in rising order, and the merge of the
+//   splits (`finalize_int8_kernel`, which also turns a key into its row)
+//   sends a tie to the lower key. Walking each tile's probes in leaf
+//   order instead, so that the tiles sharing a leaf read it at about the
+//   same time, was no faster on the H100 (PERF.md, section 6).
+//   The split gives a bucket tile S * G_bt blocks, so blocks of one-group
+//   and two-group tiles walk the same number of units.
 // Any D <= 512 and any cap are taken: ragged edges are masked, and rows
 // that are not 16-byte aligned are staged by plain loads.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <math_constants.h>
 #include <stdint.h>
 
 #include "tensor_core.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
@@ -128,10 +159,6 @@ constexpr size_t kWideSmem = 200 * 1024;  // most bytes a KC = 128 block takes
 // arrays (at most 1.5 KB).
 constexpr size_t kMaxSmem = 232448 - 2048;
 constexpr int kSplitProbes = 256;   // most probes a K5 split walks
-
-__device__ __forceinline__ int low_nibble(int p) {
-  return static_cast<int>(static_cast<unsigned>(p) << 28) >> 28;
-}
 
 // Stored row of slot s of `leaf` (for int4, the packed row holding it).
 template <int FMT>
@@ -779,6 +806,305 @@ __global__ void merge_probe_splits_kernel(const float* __restrict__ split_vals,
   rows[i] = r;
 }
 
+// ------------------------------------------------------- K5 int8 on wgmma
+
+constexpr int kI8Threads = 160;      // a consumer warpgroup + a producer warp
+constexpr int kI8MaxStages = 8;
+constexpr int kI8BarrierBytes = 2 * kI8MaxStages * 8;
+constexpr int kI8MaxSpan = 1040;     // most probes a block walks (+ 2)
+constexpr int kI8Sentinel = 0x7FFFFFFF;  // the order key of no candidate
+constexpr int kI8FoldSlots = kNS + 4;    // scales (and rows) a stage holds
+
+// Groups of B slots of a leaf that reach bucket tile bt (b0 = 64 bt < B).
+__host__ __device__ __forceinline__ int tile_groups(int bt, int cap,
+                                                    int buckets) {
+  return (cap - bt * kNS + buckets - 1) / buckets;
+}
+
+// Shared bytes of the int8 body before its ring: the query block (NQ rows
+// of dp bf16), barriers and the staged probes' leaves.
+__host__ __device__ constexpr size_t i8_fixed_smem(int nq, int dp) {
+  return kI8BarrierBytes + static_cast<size_t>(nq) * dp * 2 +
+         sizeof(int) * kI8MaxSpan;
+}
+
+// K5's int8 body. Block (x, y): query block x of its tile (x = tile *
+// qblocks + j), and bucket tile bt with split z of the S * G_bt splits y
+// names (G_bt = tile_groups(bt)). The tile's walk is a list of units (p,
+// g), its p-th probe and group g of it, p-major; the block walks units
+// [U z / S_bt, U (z + 1) / S_bt) of the U = P * G_bt, so every block walks
+// about P / S units. A producer warp brings each unit's 64 slot rows
+// (contiguous codes) and their scales and rows into a ring of `stages`
+// stages: bulk copies where all are 16-byte aligned (`vec`), else its
+// lanes' plain copies at a 16-byte row stride. The consumer warpgroup
+// holds the query block as wgmma's B (NQ = 16, 32 or 64 columns: no
+// empty query row past the tile's own), decodes the slab's codes to bf16
+// A fragments in registers, releases the stage, multiplies, and folds
+// each slot into its bucket's running (value, key) in the accumulator
+// layout (key = p * G + g). Writes plane z of the planes [S * G][Q, B] of
+// values and keys; `finalize_int8_kernel` merges them.
+template <int NQ>
+__global__ void __launch_bounds__(kI8Threads, NQ <= 32 ? 3 : 2)
+probed_bucketed_int8_kernel(
+    const float* __restrict__ q, const int8_t* __restrict__ codes,
+    const float* __restrict__ scales, const int* __restrict__ leaf_rows,
+    const int* __restrict__ probes,
+    float* __restrict__ plane_vals, int* __restrict__ plane_keys,
+    int query_tile, int num_probes, int num_leaves, int cap, int d,
+    int buckets, int splits, int row_stride, int vec, int stages,
+    float mask_value) {
+  constexpr int R = NQ / 2;
+  // The query block first (1024-byte aligned K blocks for the swizzle),
+  // then the barriers, the staged probes and the ring.
+  extern __shared__ __align__(1024) unsigned char smem_k5[];
+  const int dp = (d + 63) / 64 * 64;
+  unsigned char* qs = smem_k5;
+  uint64_t* full = reinterpret_cast<uint64_t*>(qs + NQ * dp * 2);
+  uint64_t* empty = full + kI8MaxStages;
+  int* span_leaf = reinterpret_cast<int*>(
+      reinterpret_cast<unsigned char*>(full) + kI8BarrierBytes);
+  unsigned char* ring = reinterpret_cast<unsigned char*>(span_leaf + kI8MaxSpan);
+  // A stage: the unit's 64 code rows, then its slots' scales and rows
+  // (kI8FoldSlots each, from a 16-byte aligned slot at `vec`).
+  const int slab_bytes = kNS * row_stride + 2 * 4 * kI8FoldSlots;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+
+  const int qblocks = (query_tile + NQ - 1) / NQ;
+  const int tile = blockIdx.x / qblocks;
+  const int t0 = (blockIdx.x % qblocks) * NQ;
+  // Bucket tile and split of blockIdx.y.
+  int bt = 0, rest = blockIdx.y, g_bt = tile_groups(0, cap, buckets);
+  while (rest >= splits * g_bt) {
+    rest -= splits * g_bt;
+    g_bt = tile_groups(++bt, cap, buckets);
+  }
+  const int z = rest, s_bt = splits * g_bt;
+  const int b0 = bt * kNS;
+  const int groups = (cap + buckets - 1) / buckets;
+  const int64_t units = static_cast<int64_t>(num_probes) * g_bt;
+  const int u0 = static_cast<int>(units * z / s_bt);
+  const int u1 = static_cast<int>(units * (z + 1) / s_bt);
+  const int i0 = u0 / g_bt;
+  const int* tile_probes = probes + static_cast<int64_t>(tile) * num_probes;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < stages; ++s) {
+      wg::mbar_init(&full[s], 1);
+      wg::mbar_init(&empty[s], 4);
+    }
+    wg::fence_mbar_init();
+  }
+  if (u1 > u0) {
+    for (int i = i0 + threadIdx.x; i <= (u1 - 1) / g_bt; i += kI8Threads) {
+      span_leaf[i - i0] = tile_probes[i];
+    }
+  }
+  __syncthreads();
+
+  if (warp == 4) {
+    // The producer warp.
+    int stage = 0;
+    uint32_t phase = 0;
+    // Unit u = (probe i, group gg), advanced without a division.
+    for (int u = u0, i = i0, gg = u0 - i0 * g_bt; u < u1;
+         ++u, gg = gg + 1 < g_bt ? gg + 1 : (++i, 0)) {
+      const int leaf = span_leaf[i - i0];
+      if (leaf < 0 || leaf >= num_leaves) continue;  // skipped by both
+      const int s0 = gg * buckets + b0;
+      const int nrows = min(kNS, min(buckets - b0, cap - s0));
+      const int64_t first = static_cast<int64_t>(leaf) * cap + s0;
+      unsigned char* dst = ring + stage * slab_bytes;
+      float* dst_scales = reinterpret_cast<float*>(dst + kNS * row_stride);
+      int* dst_rows = reinterpret_cast<int*>(dst_scales + kI8FoldSlots);
+      if (vec) {
+        if (lane == 0) {
+          // Scales and rows from the 16-byte aligned slot at or before
+          // `first`, a multiple of 4 of them (cap % 4 == 0: none past the
+          // table).
+          const int64_t first4 = first & ~static_cast<int64_t>(3);
+          const int count = (static_cast<int>(first - first4) + nrows + 3) & ~3;
+          wg::mbar_wait(&empty[stage], phase ^ 1);
+          wg::mbar_expect_tx(&full[stage], nrows * d + 8 * count);
+          wg::bulk_load(dst, codes + first * d, nrows * d, &full[stage]);
+          wg::bulk_load(dst_scales, scales + first4, 4 * count, &full[stage]);
+          wg::bulk_load(dst_rows, leaf_rows + first4, 4 * count,
+                        &full[stage]);
+        }
+      } else {
+        wg::mbar_wait(&empty[stage], phase ^ 1);
+        for (int e = lane; e < nrows * d; e += 32) {
+          const int r = e / d;
+          dst[r * row_stride + e - r * d] = codes[first * d + e];
+        }
+        for (int e = lane; e < nrows; e += 32) {
+          dst_scales[e] = scales[first + e];
+          dst_rows[e] = leaf_rows[first + e];
+        }
+        __syncwarp();
+        if (lane == 0) wg::mbar_arrive(&full[stage]);
+      }
+      if (++stage == stages) {
+        stage = 0;
+        phase ^= 1;
+      }
+    }
+  } else {
+    const int g = lane >> 2, t = lane & 3;
+    // The query block as B: rows t0 .. t0 + NQ - 1 of the tile, rounded
+    // to bf16, features in `wg::code_k` order, zero past the tile and D.
+    const int64_t q0 = static_cast<int64_t>(tile) * query_tile + t0;
+    for (int idx = threadIdx.x; idx < NQ * dp; idx += 128) {
+      const int r = idx / dp;
+      const int c = idx - r * dp;
+      const float x = t0 + r < query_tile && c < d ? q[(q0 + r) * d + c] : 0.f;
+      *reinterpret_cast<bf16*>(qs + wg::b_offset<NQ>(r, wg::code_k(c))) =
+          __float2bfloat16(x);
+    }
+    wg::fence_proxy_async();
+    wg::named_sync(1, 128);
+
+    const int ra = warp * 16 + g;  // the thread's slot rows ra, ra + 8
+    const uint32_t b_base = tc::smem_addr(qs);
+    float acc[R], best[R];
+    int best_key[R];
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+      best[i] = mask_value;
+      best_key[i] = kI8Sentinel;
+    }
+    const int kblocks = dp / 64;
+    int stage = 0;
+    uint32_t phase = 0;
+    for (int u = u0, i = i0, gg = u0 - i0 * g_bt; u < u1;
+         ++u, gg = gg + 1 < g_bt ? gg + 1 : (++i, 0)) {
+      const int leaf = span_leaf[i - i0];
+      if (leaf < 0 || leaf >= num_leaves) continue;
+      const int key = i * groups + gg;
+      const int s0 = gg * buckets + b0;
+      const int nrows = min(kNS, min(buckets - b0, cap - s0));
+      wg::mbar_wait(&full[stage], phase);
+      const unsigned char* st = ring + stage * slab_bytes;
+      // The slots' scales and rows; a slot past the tile, or padding (row
+      // -1), never wins.
+      const int64_t first = static_cast<int64_t>(leaf) * cap + s0;
+      const int at = (vec ? static_cast<int>(first & 3) : 0) + ra;
+      const float* st_scales =
+          reinterpret_cast<const float*>(st + kNS * row_stride);
+      const int* st_rows =
+          reinterpret_cast<const int*>(st_scales + kI8FoldSlots);
+      const bool ok_a = ra < nrows && st_rows[at] >= 0;
+      const bool ok_b = ra + 8 < nrows && st_rows[at + 8] >= 0;
+      const float sa = ok_a ? st_scales[at] : 0.f;
+      const float sb = ok_b ? st_scales[at + 8] : 0.f;
+      // -inf for such a slot: its score never beats mask_value.
+      const float bias_a = ok_a ? 0.f : -CUDART_INF_F;
+      const float bias_b = ok_b ? 0.f : -CUDART_INF_F;
+      const unsigned char* lo = st + ra * row_stride + 16 * t;
+      // Two 64-feature blocks (eight k-steps) in flight a wait.
+      for (int kb = 0; kb < kblocks; kb += 2) {
+        const bool pair = kb + 1 < kblocks;
+        uint32_t a[2][4][4];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          if (h == 0 || pair) {
+            const unsigned char* src = lo + (kb + h) * 64;
+            wg::decode_int8(*reinterpret_cast<const uint4*>(src),
+                            *reinterpret_cast<const uint4*>(
+                                src + 8 * row_stride),
+                            a[h]);
+          }
+        }
+        if (kb + 2 >= kblocks) {
+          __syncwarp();
+          if (lane == 0) wg::mbar_arrive(&empty[stage]);
+        }
+        wg::fence();
+        wg::hold(acc);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          if (h == 1 && !pair) break;
+#pragma unroll
+          for (int s = 0; s < 4; ++s) {
+            wg::Mma<NQ>::run(acc, a[h][s],
+                             wg::b_desc<NQ>(b_base, (kb + h) * 4 + s),
+                             kb + h + s > 0);
+          }
+        }
+        wg::commit();
+        wg::hold(acc);
+        wg::wait<0>();
+        wg::hold(acc);
+      }
+      // The walk visits keys in rising order: a strictly greater score
+      // replaces, so the lowest key of a maximum stays.
+#pragma unroll
+      for (int i = 0; i < R; ++i) {
+        const bool upper = (i & 2) != 0;
+        const float v =
+            fmaf(acc[i], upper ? sb : sa, upper ? bias_b : bias_a);
+        if (v > best[i]) {
+          best[i] = v;
+          best_key[i] = key;
+        }
+      }
+      if (++stage == stages) {
+        stage = 0;
+        phase ^= 1;
+      }
+    }
+
+    const int64_t qn = static_cast<int64_t>(gridDim.x / qblocks) * query_tile;
+    const int64_t base = static_cast<int64_t>(z) * qn * buckets;
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+      const int tq = t0 + 8 * (i >> 2) + 2 * t + (i & 1);
+      const int b = b0 + ra + ((i & 2) ? 8 : 0);
+      if (tq < query_tile && b < buckets) {
+        const int64_t o = base + (static_cast<int64_t>(tile) * query_tile +
+                                  tq) * buckets + b;
+        plane_vals[o] = best[i];
+        plane_keys[o] = best_key[i];
+      }
+    }
+  }
+}
+
+// Merges the int8 body's planes into K5's result: bucket b of query i
+// takes the best (value, lowest key) over the S * G_bt planes of its
+// bucket tile, and its key's row (-1 where no candidate beat mask_value).
+__global__ void finalize_int8_kernel(
+    const float* __restrict__ plane_vals, const int* __restrict__ plane_keys,
+    const int* __restrict__ leaf_rows, const int* __restrict__ probes,
+    float* __restrict__ vals, int* __restrict__ rows, int64_t qn,
+    int query_tile, int num_probes, int cap, int buckets, int splits,
+    float mask_value) {
+  const int64_t idx = static_cast<int64_t>(blockIdx.x) * blockDim.x +
+                      threadIdx.x;
+  if (idx >= qn * buckets) return;
+  const int b = static_cast<int>(idx % buckets);
+  const int64_t qi = idx / buckets;
+  const int planes = splits * tile_groups(b / kNS, cap, buckets);
+  const int64_t stride = qn * buckets;
+  float v = plane_vals[idx];
+  int key = plane_keys[idx];
+  for (int z = 1; z < planes; ++z) {
+    const float x = plane_vals[z * stride + idx];
+    const int k = plane_keys[z * stride + idx];
+    if (x > v || (x == v && k < key)) {
+      v = x;
+      key = k;
+    }
+  }
+  int row = -1;
+  if (v > mask_value && key != kI8Sentinel) {
+    const int groups = (cap + buckets - 1) / buckets;
+    const int leaf = probes[(qi / query_tile) * num_probes + key / groups];
+    row = leaf_rows[static_cast<int64_t>(leaf) * cap +
+                    (key % groups) * buckets + b];
+  }
+  vals[idx] = v;
+  rows[idx] = row;
+}
+
 template <class Kernel>
 cudaError_t set_smem(Kernel kernel, size_t smem) {
   return cudaFuncSetAttribute(kernel,
@@ -880,6 +1206,85 @@ cudaError_t launch_bucketed_format(const float* q, const void* leaves,
   });
 }
 
+template <int NQ>
+cudaError_t launch_int8_nq(const float* q, const int8_t* codes,
+                           const float* scales, const int* leaf_rows,
+                           const int* probes, float* vals,
+                           int* rows, float* plane_vals, int* plane_keys,
+                           int tiles, int query_tile, int num_probes,
+                           int num_leaves, int cap, int d, int buckets,
+                           int splits, int vec, float mask_value,
+                           cudaStream_t stream) {
+  constexpr int kPerSm = NQ <= 32 ? 3 : 2;
+  const int dp = (d + 63) / 64 * 64;
+  // Bulk copies need 16-byte aligned rows, scales and slot rows.
+  auto aligned = [](const void* p) {
+    return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+  };
+  vec = vec && cap % 4 == 0 && aligned(scales) && aligned(leaf_rows);
+  const int row_stride = vec ? d : (d + 15) / 16 * 16;
+  const size_t fixed = i8_fixed_smem(NQ, dp) + 64;  // + the last row's over-read
+  const size_t slab =
+      static_cast<size_t>(kNS) * row_stride + 2 * 4 * kI8FoldSlots;
+  // Stages that let kPerSm blocks share an SM's 228 KB (1 KB each
+  // reserved), at least two.
+  const size_t budget = 233472 / kPerSm - 1024;
+  int stages = budget > fixed + 2 * slab
+                   ? static_cast<int>((budget - fixed) / slab)
+                   : 2;
+  stages = stages < kI8MaxStages ? stages : kI8MaxStages;
+  const size_t smem = fixed + stages * slab;
+  if (smem > kMaxSmem) return cudaErrorInvalidValue;
+  auto kernel = probed_bucketed_int8_kernel<NQ>;
+  cudaError_t err = set_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  // All of the SM's 228 KB as shared memory, so kPerSm blocks fit.
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributePreferredSharedMemoryCarveout,
+                             cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess) return err;
+  int y = 0;
+  for (int bt = 0; bt * kNS < buckets; ++bt) {
+    y += splits * tile_groups(bt, cap, buckets);
+  }
+  const dim3 grid(tiles * ((query_tile + NQ - 1) / NQ), y);
+  kernel<<<grid, kI8Threads, smem, stream>>>(
+      q, codes, scales, leaf_rows, probes, plane_vals, plane_keys,
+      query_tile, num_probes, num_leaves, cap, d, buckets, splits,
+      row_stride, vec, stages, mask_value);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const int64_t qn = static_cast<int64_t>(tiles) * query_tile;
+  const int64_t cells = qn * buckets;
+  finalize_int8_kernel<<<static_cast<unsigned>((cells + 255) / 256), 256, 0,
+                         stream>>>(plane_vals, plane_keys, leaf_rows, probes,
+                                   vals, rows, qn, query_tile, num_probes,
+                                   cap, buckets, splits, mask_value);
+  return cudaGetLastError();
+}
+
+// K5 int8: query blocks of 16, 32 or 64 queries (the smallest that holds
+// the tile, else 64).
+cudaError_t launch_bucketed_int8(const float* q, const void* leaves,
+                                 const float* scales, const int* leaf_rows,
+                                 const int* probes,
+                                 float* vals, int* rows, float* plane_vals,
+                                 int* plane_keys, int tiles, int query_tile,
+                                 int num_probes, int num_leaves, int cap,
+                                 int d, int buckets, int splits, int vec,
+                                 float mask_value, cudaStream_t stream) {
+  const int8_t* codes = static_cast<const int8_t*>(leaves);
+#define RTPU_K5_INT8(NQ)                                                      \
+  launch_int8_nq<NQ>(q, codes, scales, leaf_rows, probes, vals, rows,        \
+                     plane_vals, plane_keys, tiles, query_tile, num_probes,  \
+                     num_leaves, cap, d, buckets, splits, vec, mask_value,   \
+                     stream)
+  if (query_tile <= 16) return RTPU_K5_INT8(16);
+  if (query_tile <= 32) return RTPU_K5_INT8(32);
+  return RTPU_K5_INT8(64);
+#undef RTPU_K5_INT8
+}
+
 }  // namespace
 
 extern "C" {
@@ -919,19 +1324,34 @@ int probed_leaf_scores_launch(int format, const float* q, const void* leaves,
 // q is f32 [tiles * query_tile, d]; probes int32 [tiles, num_probes];
 // leaf_rows int32 [num_leaves, cap]; vals f32 and rows int32
 // [tiles * query_tile, buckets]. vec as for probed_leaf_scores_launch.
-// splits (1 .. max(1, num_probes)) blocks share each block's probe walk,
-// split z over probes [P*z/S, P*(z+1)/S); with splits > 1, split_vals /
-// split_rows hold splits * Q * B entries and a second kernel merges them.
+// f32, bf16, int4: splits (1 .. max(1, num_probes)) blocks share each
+// block's probe walk, split z over probes [P*z/S, P*(z+1)/S); with
+// splits > 1, split_vals / split_rows hold splits * Q * B entries and a
+// second kernel merges them. int8: splits S (1 .. num_probes), a bucket
+// tile of G_bt groups a leaf split S * G_bt ways, and split_vals /
+// split_rows always hold S * ceil(cap / B) planes of Q * B (values and
+// order keys).
 int probed_bucketed_scores_launch(int format, const float* q,
                                   const void* leaves, const float* scales,
                                   const int* leaf_rows, const int* probes,
-                                  float* vals, int* rows, int tiles,
-                                  int query_tile, int num_probes,
+                                  float* vals, int* rows, int tiles, int query_tile, int num_probes,
                                   int num_leaves, int cap, int d, int buckets,
                                   int vec, int splits, float* split_vals,
                                   int* split_rows, float mask_value,
                                   void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (format == kInt8) {
+    if (d <= 0 || d > kMaxDim || buckets <= 0 || buckets > cap ||
+        num_probes <= 0 || splits < 1 || splits > num_probes ||
+        (num_probes + splits - 1) / splits + 2 > kI8MaxSpan ||
+        split_vals == nullptr || split_rows == nullptr) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    return static_cast<int>(launch_bucketed_int8(
+        q, leaves, scales, leaf_rows, probes, vals, rows, split_vals,
+        split_rows, tiles, query_tile, num_probes, num_leaves, cap, d,
+        buckets, splits, vec, mask_value, s));
+  }
   if (d <= 0 || d > kMaxDim || buckets <= 0 || buckets > cap ||
       splits < 1 || splits > (num_probes > 1 ? num_probes : 1) ||
       (num_probes + splits - 1) / splits > kSplitProbes ||
@@ -950,7 +1370,6 @@ int probed_bucketed_scores_launch(int format, const float* q,
                             d, buckets, vec, mask_value, s)
     case kF32: err = RTPU_LAUNCH_BUCKETED(kF32); break;
     case kBF16: err = RTPU_LAUNCH_BUCKETED(kBF16); break;
-    case kInt8: err = RTPU_LAUNCH_BUCKETED(kInt8); break;
     case kInt4: err = RTPU_LAUNCH_BUCKETED(kInt4); break;
 #undef RTPU_LAUNCH_BUCKETED
     default: return static_cast<int>(cudaErrorInvalidValue);

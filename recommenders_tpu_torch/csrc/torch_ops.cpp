@@ -220,16 +220,20 @@ std::tuple<at::Tensor, at::Tensor> probed_bucketed_scores(
   TORCH_CHECK(leaf_rows.scalar_type() == at::kInt &&
                   probes.scalar_type() == at::kInt,
               "leaf_rows and probes must be int32");
+  const bool int8 = format == 2;
   const int64_t qn = queries.size(0);
   auto f32 = queries.options().dtype(at::kFloat);
   auto i32 = queries.options().dtype(at::kInt);
   at::Tensor vals = at::empty({qn, buckets}, f32);
   at::Tensor rows = at::empty({qn, buckets}, i32);
   if (qn == 0) return {vals, rows};
+  // int8: S * ceil(cap / B) planes of values and order keys, always.
+  const int64_t planes =
+      int8 ? splits * ((cap + buckets - 1) / buckets) : splits;
   at::Tensor split_vals, split_rows;
-  if (splits > 1) {
-    split_vals = at::empty({splits, qn, buckets}, f32);
-    split_rows = at::empty({splits, qn, buckets}, i32);
+  if (int8 || splits > 1) {
+    split_vals = at::empty({planes, qn, buckets}, f32);
+    split_rows = at::empty({planes, qn, buckets}, i32);
   }
   const int err = probed_bucketed_scores_launch(
       static_cast<int>(format), queries.data_ptr<float>(), leaves.data_ptr(),
@@ -239,8 +243,8 @@ std::tuple<at::Tensor, at::Tensor> probed_bucketed_scores(
       static_cast<int>(probes.size(1)), static_cast<int>(leaves.size(0)),
       static_cast<int>(cap), static_cast<int>(queries.size(1)),
       static_cast<int>(buckets), vec, static_cast<int>(splits),
-      splits > 1 ? split_vals.data_ptr<float>() : nullptr,
-      splits > 1 ? split_rows.data_ptr<int>() : nullptr,
+      split_vals.defined() ? split_vals.data_ptr<float>() : nullptr,
+      split_rows.defined() ? split_rows.data_ptr<int>() : nullptr,
       static_cast<float>(mask_value), stream_of(queries));
   TORCH_CHECK(err == 0, "probed_bucketed_scores kernel launch failed: ",
               leaf_scoring_error_string(err), " (cudaError ", err, ")");

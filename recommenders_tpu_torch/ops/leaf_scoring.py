@@ -40,7 +40,9 @@ synchronisation and tested on the CPU: `leaf_groups` inverts K4's
 leaf, a block each; `bucketed_splits` picks how many blocks share K5's
 walk over a tile's probes (`probe_splits` gives their ranges), and
 `merge_probe_splits_reference` is the twin of the kernel that merges
-their partial results.
+their partial results. K5's int8 body runs on Hopper's `wgmma`; its
+splits merge by the order key p·G + g (a tie to the lower key), and
+`int8_splits` and `int8_units` give their even shares of the walk.
 """
 
 from __future__ import annotations
@@ -81,6 +83,13 @@ _BUCKET_BLOCK = 64
 _K5_BLOCKS_PER_SM = 6
 # K5: most probes one split walks (the kernel keeps them in shared memory).
 _SPLIT_PROBES = 256
+# K5's int8 body (`probed_bucketed_int8_kernel`): a consumer warpgroup
+# multiplies a query block of 16, 32 or 64 of a tile's queries (the
+# smallest that holds the tile, else 64) against 64-slot slabs; each
+# bucket tile of G_bt groups a leaf is split S·G_bt ways, so every block
+# walks about P / S (probe, group) units, at most `_INT8_SPAN` probes.
+_INT8_QUERY_BLOCKS = (16, 32, 64)
+_INT8_SPAN = 1024
 
 
 def _format(leaf_embs: Tensor, leaf_scales: Optional[Tensor],
@@ -406,6 +415,51 @@ def bucketed_splits(tiles: int, query_tile: int, buckets: int,
     return max(1, min(num_probes, want))
 
 
+def int8_query_block(query_tile: int) -> int:
+    """Queries a K5 int8 block multiplies: the smallest of 16, 32 and 64
+    that holds the tile, else 64 (a tile then takes several blocks)."""
+    return next((b for b in _INT8_QUERY_BLOCKS if query_tile <= b),
+                _INT8_QUERY_BLOCKS[-1])
+
+
+def int8_tile_groups(cap: int, buckets: int) -> list:
+    """Groups of `buckets` slots a leaf has that reach each 64-bucket
+    tile: ⌈(cap − b0) / B⌉ for b0 = 0, 64, … < B."""
+    return [-(-(cap - b0) // buckets)
+            for b0 in range(0, buckets, _BUCKET_BLOCK)]
+
+
+def int8_splits(tiles: int, query_tile: int, buckets: int, cap: int,
+                num_probes: int, sms: int) -> int:
+    """S of K5's int8 body: bucket tile b0's walk of P·G_bt units is
+    split S·G_bt ways, so every block walks about P / S units; S is the
+    least that gives the grid `_K5_BLOCKS_PER_SM` blocks an SM and keeps
+    a block's probes within `_INT8_SPAN`, at most P."""
+    qblocks = -(-query_tile // int8_query_block(query_tile))
+    blocks = tiles * qblocks * sum(int8_tile_groups(cap, buckets))
+    want = max(-(-_K5_BLOCKS_PER_SM * sms // max(1, blocks)),
+               -(-num_probes // _INT8_SPAN))
+    return max(1, min(num_probes, want))
+
+
+def int8_units(num_probes: int, groups: int, splits: int) -> list:
+    """The units `[U·z/S', U·(z+1)/S')` of each split z of a bucket tile
+    with `groups` groups a leaf (U = P·groups, S' = splits·groups), as
+    the kernel computes them; unit u is (probe u // groups, group
+    u % groups), its order key."""
+    units, parts = num_probes * groups, splits * groups
+    return [(units * z // parts, units * (z + 1) // parts)
+            for z in range(parts)]
+
+
+def k5_splits(fmt: str, tiles: int, query_tile: int, buckets: int,
+              cap: int, num_probes: int, sms: int) -> int:
+    """The splits K5 launches with for leaves of format `fmt`."""
+    if fmt == "int8":
+        return int8_splits(tiles, query_tile, buckets, cap, num_probes, sms)
+    return bucketed_splits(tiles, query_tile, buckets, num_probes, sms)
+
+
 def merge_probe_splits_reference(vals: Tensor,
                                  rows: Tensor) -> Tuple[Tensor, Tensor]:
     """Twin of the kernel merging K5's split planes `[S, Q, B]` in order
@@ -522,10 +576,14 @@ def _launch_bucketed(queries, leaf_embs, leaf_scales, leaf_rows, probes,
     if qn == 0:
         return (torch.empty((0, buckets), dtype=torch.float32, device=device),
                 torch.empty((0, buckets), dtype=torch.int32, device=device))
-    if tiles * -(-query_tile // _QUERY_BLOCK) > 65535:
+    splits = k5_splits(fmt, tiles, query_tile, buckets, cap, num_probes,
+                       cuda_build.sm_count(device))
+    if fmt == "int8":
+        if splits * sum(int8_tile_groups(cap, buckets)) > 65535:
+            raise ValueError(f"{buckets} buckets of a {cap}-slot leaf "
+                             "exceed the grid")
+    elif tiles * -(-query_tile // _QUERY_BLOCK) > 65535:
         raise ValueError(f"{tiles} tiles of {query_tile} exceed the grid")
-    splits = bucketed_splits(tiles, query_tile, buckets, num_probes,
-                             cuda_build.sm_count(device))
     vals, rows = _ops()[1](queries, leaf_embs,
                            _scales_arg(queries, leaf_scales), leaf_rows,
                            probes, _FORMATS[fmt], query_tile, cap, buckets,

@@ -19,11 +19,12 @@ whose fake impl below lets `torch.export` trace the call), or raises.
 Every body multiplies on the bf16 tensor
 cores; the f32 body splits both operands into three bf16 terms and takes
 six of their nine products (`split3` and `split_scores` model that split
-in plain PyTorch; nothing on the serving path calls them). `_tc_plan`
-picks the query tile and how many blocks share one tile's walk over the
-row groups (a second small kernel merges those). Its `launches` attribute
-counts wrapper launches of the kernel (and `launches_by_format` splits
-them by corpus format).
+in plain PyTorch; nothing on the serving path calls them). int8 codes
+run on Hopper's `wgmma`, fed by bulk copies. `_tc_plan` (`_int8_plan`
+for int8) picks the query tile and how many blocks share one tile's
+walk over the row groups (a second small kernel merges those). Its
+`launches` attribute counts wrapper launches of the kernel (and
+`launches_by_format` splits them by corpus format).
 """
 
 from __future__ import annotations
@@ -63,6 +64,13 @@ _TC_WIDE_DIM = 512
 # `csrc/bucketed_scores.cu`).
 _SMEM_PER_BLOCK = 232_448
 _F32_RING_BYTES = 2 * 64 * 136 * 4
+
+# The int8 body (`bucketed_int8_kernel`): a block of two consumer
+# warpgroups owns 64 buckets x a query tile of 256, 128 or 64, the tile
+# kept as bf16 in shared memory beside barriers and a ring of 2 .. 8
+# slabs of 64 code rows; its registers hold one block an SM.
+_INT8_TILES = (256, 128, 64)
+_INT8_BARRIER_BYTES = 128
 
 _FORMAT_ROWS, _FORMAT_INT8, _FORMAT_PACKED4 = 0, 1, 2
 
@@ -206,6 +214,30 @@ def _tc_plan(qn: int, n: int, d: int, buckets: int, sms: int,
     return tq, max(1, min(n // buckets, -(-per_sm * sms // blocks)))
 
 
+def _int8_tile(qn: int, d: int) -> int:
+    """The int8 body's query tile: the largest of 256, 128 and 64 whose
+    bf16 rows and a ring of two 64-row code slabs fit a block's shared
+    memory, halved while half of it still holds every query."""
+    tq = next(t for t in _INT8_TILES
+              if _INT8_BARRIER_BYTES + 2 * t * d + 2 * 64 * d
+              <= _SMEM_PER_BLOCK)
+    while tq > _INT8_TILES[-1] and qn <= tq // 2:
+        tq //= 2
+    return tq
+
+
+def _int8_plan(qn: int, n: int, d: int, buckets: int,
+               sms: int) -> Tuple[int, int]:
+    """(query tile, splits) of an int8 launch: one block an SM, each
+    reading its tile's 64 buckets of every row group once; where those
+    blocks are fewer than the SMs, the walk over the `n / buckets` groups
+    is split over as many blocks as one wave holds (a merge kernel folds
+    the splits' planes, ties to the lowest row)."""
+    tq = _int8_tile(qn, d)
+    blocks = -(-buckets // _BUCKET_TILE) * -(-qn // tq)
+    return tq, max(1, min(n // buckets, sms // blocks))
+
+
 def _launch(
     queries: Tensor,
     candidates: Tensor,
@@ -260,8 +292,11 @@ def _launch(
 
     # The plan is fixed here, on the host, for the card that runs (or
     # exports) the call. The op checks alignment and launches.
-    tq, splits = _tc_plan(qn, n, d, buckets, cuda_build.sm_count(device),
-                          f32=name == "f32")
+    sms = cuda_build.sm_count(device)
+    if name == "int8":
+        tq, splits = _int8_plan(qn, n, d, buckets, sms)
+    else:
+        tq, splits = _tc_plan(qn, n, d, buckets, sms, f32=name == "f32")
     empty = queries.new_empty((0,), dtype=torch.float32)
     vals, rows = _op()(queries, candidates,
                        empty if scales is None else scales, fmt, buckets,

@@ -9,6 +9,7 @@ settings in turn, so that both readings share the card and its clock.
     python3 recommenders_tpu_torch/tools/kernel_ab.py k3 [--root DIR]
     python3 recommenders_tpu_torch/tools/kernel_ab.py k1 [--root DIR]
     python3 recommenders_tpu_torch/tools/kernel_ab.py leaf [--root DIR]
+    python3 recommenders_tpu_torch/tools/kernel_ab.py scale [--root DIR]
     python3 recommenders_tpu_torch/tools/kernel_ab.py k5-splits \
         [--blocks-per-sm 3 6 12 24 48]
 
@@ -53,12 +54,21 @@ bodies on `f32_gather`'s and `f32_bucketed`'s own f32 rows); the mean of
 10 wrapper calls between CUDA events, 3 times a format, and the device
 time of one call by CUDA-graph replay (10 calls captured, 3 replays).
 
+`scale`: the int8 bodies of K3 and K5 at the 100M catalog's request
+(`chip_smoke.py` phase 38: its streamed 100M x 128 corpus from the seed,
+Bucketed int8 and ScaNN int8 built once through `index_streamed`, the
+256 fixed queries, K5 on the index's own probe lists) and at the 1M
+serving smoke's (phase 7's Bucketed int8, phase 16's `int8_bucketed`
+ScaNN, their first request): each by CUDA-graph replay (10 calls
+captured, 3 replays) and as eager wrapper calls (the mean of 10 between
+CUDA events), 3 times.
+
 `k5-splits`: K5's bf16, int8 and int4 bodies as `leaf` calls them, by
 CUDA-graph replay, with `leaf_scoring._K5_BLOCKS_PER_SM` (the blocks an
 SM its probe-walk split aims for) set to each value of `--blocks-per-sm`
 in turn, and restored after.
 
-`k2-f32`, `k3-f32`, `k3`, `k1` and `leaf` import the port's package from the
+`k2-f32`, `k3-f32`, `k3`, `k1`, `leaf` and `scale` import the port's package from the
 checkout `--root` (this one by default) and set up and time it with this
 checkout's `chip_smoke.py`, so that two checkouts are compared by the
 same code, running the mode once for each, in turn: parent, change,
@@ -263,6 +273,63 @@ def k5_splits(cs, device: torch.device, values, size=None) -> dict:
     return {"k5_splits": readings}
 
 
+def _reads(cs, name: str, fn, device: torch.device) -> dict:
+    graph = [cs.graph_ms(fn, device, launches=10, replays=3)
+             for _ in range(READS)]
+    calls = [cs.device_ms(fn, device, iters=10) for _ in range(READS)]
+    print(f"  {name}: graph replay " + " / ".join(f"{t:.3f}" for t in graph)
+          + " ms; calls " + " / ".join(f"{t:.3f}" for t in calls) + " ms",
+          flush=True)
+    return {"graph_ms": graph, "call_ms": calls}
+
+
+def scale(cs, device: torch.device) -> dict:
+    size = cs.ScaleSize()
+    readings = {}
+    # 1M: phase 7's Bucketed int8 and phase 16's int8_bucketed ScaNN.
+    serving = cs.Size()
+    corpus, queries = cs.serving_inputs(serving, SEED, device)
+    index = cs.factorized_top_k.Bucketed(
+        k=cs.K, device=device, **cs.BUCKETED["int8"]).index(corpus)
+    kw = dict(buckets=index._buckets, chunk=index._chunk,
+              query_tile=index._query_tile, valid_rows=serving.items)
+    readings["K3 int8 1M"] = _reads(
+        cs, "K3 int8 1M", lambda: cs.scoring.bucketed_scores(
+            queries, index._candidates, index._scales, **kw), device)
+    del index, corpus, queries
+    scann_size = cs.ScannSize(requests=1)
+    corpus_np, requests_np = cs.clustered_data(scann_size, SEED)
+    settings = cs.scann_configs(scann_size)[cs.MAIN_INDEX][0]
+    index = cs.approximate.ScaNN(k=cs.K, device=device, **settings).index(
+        torch.from_numpy(corpus_np).to(device))
+    request = torch.from_numpy(requests_np[0][:settings["query_batch"]])
+    call = cs.leaf_call(index, "K5", request.to(device))
+    readings["K5 int8 1M"] = _reads(cs, "K5 int8 1M", call, device)
+    del index, call, corpus_np, requests_np
+    cs.release(device)
+    # 100M: phase 38's indexes over the streamed catalog.
+    batches, draw = cs.scale_stream(size, SEED, device)
+    queries = draw(size.queries, cs.SCALE_QUERY_SALT)
+    index = cs.approximate.ScaNN(k=cs.K, device=device,
+                                 **cs.scale_scann_settings(size))
+    index.index_streamed(batches, num_rows=size.rows)
+    call = cs.leaf_call(index, "K5", queries)
+    readings["K5 int8 100M"] = _reads(cs, "K5 int8 100M", call, device)
+    del index, call
+    cs.release(device)
+    index = cs.factorized_top_k.Bucketed(
+        k=cs.K, buckets=size.buckets, chunk=size.chunk,
+        query_tile=size.query_tile, quantize="int8",
+        device=device).index_streamed(batches, num_rows=size.rows)
+    readings["K3 int8 100M"] = _reads(
+        cs, "K3 int8 100M", lambda: cs.scoring.bucketed_scores(
+            queries, index._candidates, index._scales,
+            buckets=index._buckets, chunk=index._chunk,
+            query_tile=index._query_tile,
+            valid_rows=index._num_candidates), device)
+    return {"scale": readings}
+
+
 def load(root: Path):
     """This checkout's `chip_smoke.py` over the port's package from
     `root`: the package is imported first, so the script's own imports
@@ -282,7 +349,7 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("what",
                         choices=("k2-parts", "k2-f32", "k3-f32", "k3",
-                                 "k1", "leaf", "k5-splits"))
+                                 "k1", "leaf", "scale", "k5-splits"))
     parser.add_argument("--root", type=Path, default=ROOT)
     parser.add_argument("--blocks-per-sm", type=float, nargs="+")
     parser.add_argument("--f32", action="store_true",
@@ -310,6 +377,8 @@ def main() -> int:
         result = k1(cs, device)
     elif args.what == "leaf":
         result = leaf(cs, device)
+    elif args.what == "scale":
+        result = scale(cs, device)
     else:
         result = k5_splits(cs, device, [int(v) for v in args.blocks_per_sm
                                         or [3, 6, 12, 24, 48]])

@@ -80,6 +80,8 @@ def _inputs_with_ties(fmt, q, n, buckets, d, device):
     (48, 4096, 256, 4000, 384),       # f32: 64-query tiles (D 256 .. 384)
     (70, 4096, 256, 4000, 640),       # D > 512: 64-query tiles, 5 stages a group
     (40, 2048, 128, 2000, 768),       # the widest D (f32: 32-query tiles)
+    (100, 8960, 320, 8900, 256),      # int8: a ragged 128-query tile
+    (200, 9984, 96, 9900, 512),       # int8: 128-query tiles, 3 stages
 ])
 def test_kernel_matches_twin(device, fmt, q, n, buckets, valid, d):
     queries, stored, scales, packed4, deq = _inputs(fmt, q, n, d, device)
@@ -117,20 +119,25 @@ def test_kernel_matches_twin(device, fmt, q, n, buckets, valid, d):
 
 
 @pytest.mark.parametrize("fmt", FORMATS)
-@pytest.mark.parametrize("q,n,buckets", [(64, 8192, 512), (256, 16384, 128)])
-def test_kernel_ties_go_to_the_lowest_row(device, fmt, q, n, buckets):
+@pytest.mark.parametrize("q,n,buckets,valid,d", [
+    (64, 8192, 512, 8192, 128), (256, 16384, 128, 16384, 128),
+    (130, 16640, 160, 16500, 256),    # ragged tiles, masked rows
+    (72, 8192, 512, 8000, 512),
+])
+def test_kernel_ties_go_to_the_lowest_row(device, fmt, q, n, buckets, valid,
+                                          d):
     """Every group repeats group 0, so each bucket's best score ties over
     all its rows (split walks and merges included): the kernel must
     report group 0's row, with the twin's value."""
     queries, stored, scales, packed4 = _inputs_with_ties(fmt, q, n, buckets,
-                                                         128, device)
+                                                         d, device)
     vals, rows = scoring.bucketed_scores(
         queries, stored, scales, buckets=buckets,
-        chunk=2 * buckets if packed4 else buckets, query_tile=q,
-        valid_rows=n, packed4=packed4)
+        chunk=2 * math.lcm(buckets, 128) if packed4 else buckets,
+        query_tile=q, valid_rows=valid, packed4=packed4)
     torch.cuda.synchronize()
     ref_v, _ = scoring.bucketed_scores_reference(
-        queries, stored, scales, buckets=buckets, valid_rows=n,
+        queries, stored, scales, buckets=buckets, valid_rows=valid,
         packed4=packed4)
     want = torch.arange(buckets, dtype=torch.int32, device=device)
     assert torch.equal(rows, want.expand(q, buckets))
@@ -138,7 +145,7 @@ def test_kernel_ties_go_to_the_lowest_row(device, fmt, q, n, buckets):
     deq = (quantization.unpack_nibbles(stored) if packed4 else stored).float()
     if scales is not None:
         deq = deq * scales[:, None]
-    tol = 128 * 2.0**-23 * (qf.abs() @ deq[:buckets].abs().T)
+    tol = d * 2.0**-23 * (qf.abs() @ deq[:buckets].abs().T)
     assert ((vals - ref_v).abs() <= tol).all()
 
 
@@ -572,6 +579,9 @@ def test_probed_leaf_kernel_masks_out_of_range_probes(device):
     # bf16 rows: 128-column stages up to D = 384, 64-column from D = 385
     (3, 8, 6, 130, 384, 64, 5), (3, 8, 6, 130, 392, 64, 5),
     (3, 8, 5, 100, 512, 48, 4),
+    # the catalog's T = 32 and the smoke's T = 64, cap no multiple of B
+    # (three and two groups a leaf), few leaves: each probed by many tiles
+    (8, 32, 12, 300, 128, 128, 7), (5, 64, 10, 200, 128, 96, 6),
 ])
 def test_probed_bucketed_kernel_matches_twin(device, fmt, tiles, tile,
                                              num_leaves, cap, d, buckets, p):
@@ -590,6 +600,8 @@ def test_probed_bucketed_kernel_matches_twin(device, fmt, tiles, tile,
     probes[0, 1] = probes[0, 0]                    # adjacent duplicate
     probes = torch.sort(probes, dim=1).values.to(torch.int32)
     rows[probes[1, 0]] = -1                        # an empty probed leaf
+    probes[2, 1] = -1                              # probes outside [0, L):
+    probes[-1, -1] = num_leaves                    # skipped
     before = dict(leaf_scoring.probed_bucketed_scores.launches_by_format)
     vals, got_rows = leaf_scoring.probed_bucketed_scores(
         queries, leaves, scales, rows, probes, buckets, query_tile=tile,
@@ -601,11 +613,25 @@ def test_probed_bucketed_kernel_matches_twin(device, fmt, tiles, tile,
     after = leaf_scoring.probed_bucketed_scores.launches_by_format
     assert after[fmt] == before[fmt] + 2
     assert torch.equal(vals, again[0]) and torch.equal(got_rows, again[1])
-    _check_bucketed(queries, leaves, scales, packed4, deq, rows, probes,
-                    buckets, tile, vals, got_rows)
+    _check_bucketed(queries, *_with_empty_leaf(leaves, scales, deq, rows,
+                                               probes), packed4=packed4,
+                    buckets=buckets, tile=tile, vals=vals,
+                    got_rows=got_rows)
 
 
-def _check_bucketed(queries, leaves, scales, packed4, deq, rows, probes,
+def _with_empty_leaf(leaves, scales, deq, rows, probes):
+    """(leaves, scales, deq, rows, probes) for the twin, which reads
+    every probe: one more leaf, all padding, in place of each probe
+    outside [0, L), which the kernel skips."""
+    num_leaves = leaves.shape[0]
+    outside = (probes < 0) | (probes >= num_leaves)
+    pad = lambda t, v: torch.cat([t, torch.full_like(t[:1], v)])
+    return (pad(leaves, 0), None if scales is None else pad(scales, 0),
+            pad(deq, 0), pad(rows, -1),
+            probes.masked_fill(outside, num_leaves))
+
+
+def _check_bucketed(queries, leaves, scales, deq, rows, probes, packed4,
                     buckets, tile, vals, got_rows):
     """K5's result against its twin: scores within the bound, empty
     buckets MIN_FLOAT / -1, rows equal in every separated bucket."""
@@ -680,8 +706,9 @@ def test_probed_leaf_kernel_splits_a_crowded_leaf_into_groups(device, fmt,
 def test_probed_bucketed_first_maximum_wins_across_splits(device, monkeypatch,
                                                           fmt, splits):
     """All eight probed leaves hold the same codes and scales, so every
-    bucket ties across the probes; the first probe's leaf holds the
-    highest rows and must win however the walk is split."""
+    bucket ties across the probes; the first probe's leaf must win
+    however the walk is split and ordered (tile 1 lists its probes out of
+    leaf order)."""
     from recommenders_tpu_torch.ops import leaf_scoring
 
     num_leaves, cap, d, buckets, tile = 8, 64, 128, 64, 64
@@ -693,19 +720,19 @@ def test_probed_bucketed_first_maximum_wins_across_splits(device, monkeypatch,
     slots = torch.arange(cap, dtype=torch.int32, device=device)
     rows = torch.stack([(num_leaves - l) * cap + slots
                         for l in range(num_leaves)])
-    probes = torch.arange(num_leaves, dtype=torch.int32,
-                          device=device)[None].repeat(2, 1)
+    probes = torch.tensor([list(range(num_leaves)), [5, 2, 7, 0, 3, 6, 1, 4]],
+                          dtype=torch.int32, device=device)
     queries = torch.randn(2 * tile, d, device=device,
                           generator=torch.Generator(device=device)
                           .manual_seed(6))
-    monkeypatch.setattr(leaf_scoring, "bucketed_splits",
-                        lambda *args: splits)
+    monkeypatch.setattr(leaf_scoring, "k5_splits", lambda *args: splits)
     vals, got_rows = leaf_scoring.probed_bucketed_scores(
         queries, leaves, scales, rows, probes, buckets, query_tile=tile,
         packed4=packed4)
     torch.cuda.synchronize()
     # One slot a bucket in each leaf: slot b of probe 0's leaf must win.
-    assert torch.equal(got_rows, rows[0].expand(2 * tile, buckets))
+    assert torch.equal(got_rows[:tile], rows[0].expand(tile, buckets))
+    assert torch.equal(got_rows[tile:], rows[5].expand(tile, buckets))
     ref_v, _ = leaf_scoring.probed_bucketed_reference(
         queries, leaves, scales, rows, probes, buckets, query_tile=tile,
         packed4=packed4)
@@ -764,7 +791,7 @@ def _probed_f32_against_twins(queries, leaves, g, p, tile, buckets):
     after = (leaf_scoring.probed_leaf_scores.launches_by_format["f32"],
              leaf_scoring.probed_bucketed_scores.launches_by_format["f32"])
     assert after == (before[0] + 2, before[1] + 2)
-    _check_bucketed(queries, leaves, None, False, leaves, rows, tile_probes,
+    _check_bucketed(queries, leaves, None, leaves, rows, tile_probes, False,
                     buckets, tile, vals, got_rows)
 
 
@@ -891,9 +918,9 @@ def _export_trial(tmp_path, index, queries, k=10):
     program = export.load_program(path)
     targets = {str(n.target) for n in program.graph.nodes}
     assert any(t.startswith("recommenders_tpu_torch.") for t in targets)
-    cuda_build.reset_op_launches()
-    got = export.load_index(path)(queries)
     want = index(queries)
+    cuda_build.reset_op_launches()    # count the loaded program's alone
+    got = export.load_index(path)(queries)
     for a, b in zip(got, want):
         assert torch.equal(a, b)
     return path, cuda_build.op_launches()
