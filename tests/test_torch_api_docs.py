@@ -13,6 +13,7 @@ from pathlib import Path
 import pytest
 
 from recommenders_tpu_torch.tools import build_api_docs as docs
+from torch_threads import torch_threads  # noqa: F401 (autouse)
 
 ROOT = Path(__file__).resolve().parents[1]
 

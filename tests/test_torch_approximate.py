@@ -20,6 +20,7 @@ import torch
 from recommenders_tpu.layers import approximate as jax_approx
 from recommenders_tpu_torch.layers import approximate
 from recommenders_tpu_torch.layers import factorized_top_k
+from torch_threads import torch_threads  # noqa: F401 (autouse)
 
 CPU = torch.device("cpu")
 

@@ -16,6 +16,7 @@ from recommenders_tpu.layers import blocks as jax_blocks
 from recommenders_tpu.utils import activations as jax_activations
 from recommenders_tpu_torch.layers import blocks
 from recommenders_tpu_torch.utils import activations
+from torch_threads import torch_threads  # noqa: F401 (autouse)
 
 
 @pytest.mark.parametrize("name", sorted(jax_activations._ACTIVATIONS))

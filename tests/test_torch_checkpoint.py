@@ -25,6 +25,7 @@ from recommenders_tpu_torch.embedding import config
 from recommenders_tpu_torch.embedding import engine
 from recommenders_tpu_torch.utils import checkpoint as ckpt_lib
 from recommenders_tpu_torch.utils import convert
+from torch_threads import torch_threads  # noqa: F401 (autouse)
 
 USERS, ITEMS, DIM, B = 120, 300, 8, 32
 

@@ -4,7 +4,9 @@ The script's `main()` runs only where CUDA is; its phases take a device,
 so here they run with `device="cpu"` (where each kernel's wrapper runs
 its plain twin) on a small model and a small training step. Every check
 of the script must pass, and the kernels' report must carry every key
-the script promises.
+the script promises. The serving and ScaNN phases are checked in
+`tests/test_torch_chip_smoke_export.py`, which runs them once for the
+export and quantization phases that take what they keep.
 """
 
 import json
@@ -19,82 +21,13 @@ import pytest
 import torch
 
 import chip_smoke
+from torch_threads import torch_threads  # noqa: F401 (autouse)
 
 ROOT = Path(__file__).resolve().parents[1]
 REPORT_KEYS = {
     "name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
     "plain_ms", "bound_ms", "bound_by", "library_ms",
 }
-
-
-def test_smoke_phases_pass_on_cpu_at_a_tiny_size(capsys):
-    size = chip_smoke.Size(users=256, items=20_000, batch=32, requests=2)
-    report = chip_smoke.run(torch.device("cpu"), size, seed=0)
-    assert [r["name"] for r in report] == [
-        f"bucketed_scores[{fmt}]" for fmt in chip_smoke.BUCKETED
-    ]
-    for row in report:
-        assert REPORT_KEYS <= set(row)
-        assert row["route"] == "cuda"
-        assert (ROOT / row["source"]).is_file()
-        path, line = row["replaces"].split(":")
-        # The line that defines the TPU kernel's body.
-        assert (ROOT / path).read_text().splitlines()[
-            int(line) - 1
-        ].startswith("def _bucket_kernel")
-        assert row["bound_by"] in ("bytes", "operations")
-        assert row["bound_ms"] > 0
-    # f32 rows' bound is six bf16 passes at the bf16 peak, every other
-    # format's one; the f32 CUDA-core figure is printed beside it.
-    ops = 2.0 * size.batch * size.items * chip_smoke.DIM
-    for row in report:
-        fmt = row["name"].split("[")[1].rstrip("]")
-        passes = 6 if fmt == "f32" else 1
-        assert chip_smoke.K3_PASSES[fmt] == passes
-        assert row["bound_ms"] >= passes * ops / 989e12 * 1e3
-    out = capsys.readouterr().out
-    for name in ("build", "towers", "embed", "index", "serve", "outputs",
-                 "kernels", "recall"):
-        assert f"phase {name}: ok" in out
-    line = re.search(r"kernel f32: .* bound (\S+) ms \(6 bf16 pass\(es\)\) "
-                     r"\(f32 CUDA-core bound (\S+) ms\)", out)
-    assert line is not None
-    assert float(line[2]) == pytest.approx(ops / 67e12 * 1e3, rel=1e-3)
-
-
-def test_scann_phases_pass_on_cpu_at_a_tiny_size(capsys):
-    # 10 leaves for the reorder index keep every probed leaf above k rows
-    # at this corpus size, as 2,000 do at 1M rows.
-    size = chip_smoke.ScannSize(items=30_000, batch=64, requests=2,
-                                leaves=32, leaves_2000=10, users=256)
-    report = chip_smoke.scann(torch.device("cpu"), size, seed=0)
-    assert [r["name"] for r in report] == [
-        f"{name}[{fmt}]"
-        for name in ("probed_leaf_scores", "probed_bucketed_scores")
-        for fmt in ("f32", "bf16", "int8", "int4")
-    ]
-    for row in report:
-        assert REPORT_KEYS <= set(row)
-        assert row["route"] == "cuda"
-        assert (ROOT / row["source"]).is_file()
-        path, line = row["replaces"].split(":")
-        assert (ROOT / path).read_text().splitlines()[
-            int(line) - 1
-        ].startswith("def _kernel")
-        assert row["bound_by"] in ("bytes", "operations")
-        assert row["bound_ms"] > 0
-        assert row["library_ms"] is None
-        assert row["gather_matmul_ms"] > 0
-        assert row["graph_ms"] > 0   # beside `ms`, the eager wrapper call
-        assert row["max_abs_err"] == 0.0   # the twin against itself
-        assert row["on_main_path"] is True   # f32 too: f32_gather, f32_bucketed
-    out = capsys.readouterr().out
-    for name in ("scann data", "scann build", "scann serve",
-                 "scann outputs", "scann kernels", "scann recall"):
-        assert f"phase {name}: ok" in out
-    for name in chip_smoke.scann_configs(size):
-        assert f"recall@100 {name}:" in out
-    assert "0 differ beyond a tie" in out
 
 
 TRAIN_KERNELS = {

@@ -13,6 +13,7 @@ import pytest
 import torch
 
 import chip_smoke
+from torch_threads import torch_threads  # noqa: F401 (autouse)
 
 ROOT = Path(__file__).resolve().parents[1]
 TINY_RUNS = (

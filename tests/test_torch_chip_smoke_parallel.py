@@ -6,6 +6,7 @@ card (where the kernels run and must launch)."""
 import torch
 
 import chip_smoke
+from torch_threads import torch_threads  # noqa: F401 (autouse)
 
 
 def tiny_size():

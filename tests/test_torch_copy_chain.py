@@ -21,6 +21,7 @@ from jax.experimental import pallas as pl
 
 from recommenders_tpu_torch.ops import copy_chain
 from recommenders_tpu_torch.tools import alias_probe
+from torch_threads import torch_threads  # noqa: F401 (autouse)
 
 ROOT = Path(__file__).resolve().parents[1]
 V, D, BR = 36, 63, 12                  # V·D = 2,268: not a multiple of 8

@@ -10,6 +10,7 @@ import torch
 from recommenders_tpu_torch.ops import cuda_build
 from recommenders_tpu_torch.ops import fused_retrieval
 from recommenders_tpu_torch.ops import scoring
+from torch_threads import torch_threads  # noqa: F401 (autouse)
 
 
 @pytest.fixture

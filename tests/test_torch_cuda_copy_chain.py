@@ -14,6 +14,7 @@ import pytest
 import torch
 
 from recommenders_tpu_torch.ops import copy_chain
+from torch_threads import torch_threads  # noqa: F401 (autouse)
 
 pytestmark = pytest.mark.cuda
 

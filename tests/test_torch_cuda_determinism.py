@@ -12,6 +12,7 @@ import torch
 
 from recommenders_tpu_torch.embedding import embedding
 from recommenders_tpu_torch.tools import determinism
+from torch_threads import torch_threads  # noqa: F401 (autouse)
 
 pytestmark = pytest.mark.cuda
 

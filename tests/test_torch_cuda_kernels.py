@@ -24,6 +24,7 @@ import torch
 
 from recommenders_tpu_torch.ops import quantization
 from recommenders_tpu_torch.ops import scoring
+from torch_threads import torch_threads  # noqa: F401 (autouse)
 
 pytestmark = pytest.mark.cuda
 

@@ -23,6 +23,7 @@ from recommenders_tpu_torch import data
 from recommenders_tpu_torch.data import movielens
 from recommenders_tpu_torch.data import preprocessing as pp
 from recommenders_tpu_torch.data import vocab
+from torch_threads import torch_threads  # noqa: F401 (autouse)
 
 
 # --- vocab -----------------------------------------------------------------

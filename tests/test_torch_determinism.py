@@ -20,6 +20,7 @@ from recommenders_tpu.layers import approximate as jax_approximate
 from recommenders_tpu_torch.embedding import embedding
 from recommenders_tpu_torch.layers import approximate
 from recommenders_tpu_torch.ops import sparse_apply
+from torch_threads import torch_threads  # noqa: F401 (autouse)
 
 
 def _gather_problem(seed=0, rows=64, dim=16, n=4096):

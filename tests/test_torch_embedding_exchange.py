@@ -18,6 +18,7 @@ from recommenders_tpu.parallel import embedding_lookup as jax_exchange
 from recommenders_tpu.parallel import mesh as jax_mesh
 
 import torch_rank_workers as workers
+from torch_threads import torch_threads  # noqa: F401 (autouse)
 
 ROWS, DIM, BATCH = 256, 16, 32
 

@@ -12,6 +12,7 @@ import pytest
 import torch_rank_workers
 from recommenders_tpu_torch.examples import sharded_ann_serving
 from recommenders_tpu_torch.parallel import launch
+from torch_threads import torch_threads  # noqa: F401 (autouse)
 
 RUNS = [
     ("tpu_embedding", {"steps": 3}),

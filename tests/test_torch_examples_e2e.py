@@ -11,6 +11,7 @@ distributed examples in `tests/test_torch_examples_distributed.py`.
 import pytest
 
 from torch_examples_common import run_main
+from torch_threads import torch_threads  # noqa: F401 (autouse)
 
 
 @pytest.mark.parametrize("name", ['basic_ranking', 'deep_ranking_dcn', 'hybrid_dlrm', 'listwise_ranking', 'multitask', 'prebuilt_dlrm', 'unified_embedding'])

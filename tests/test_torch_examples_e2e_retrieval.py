@@ -6,6 +6,7 @@ the ranking examples.
 import pytest
 
 from torch_examples_common import run_main
+from torch_threads import torch_threads  # noqa: F401 (autouse)
 
 
 @pytest.mark.parametrize("name", ['context_features', 'deep_recommenders', 'featurization', 'full_pipeline', 'sequential_retrieval'])

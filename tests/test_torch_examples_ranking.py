@@ -35,6 +35,7 @@ from torch_examples_common import (B, CPU, STEP_GAP, jax_example,
                                    movielens_batch, numpy_params,
                                    ranking_outputs, step_gap, to_torch,
                                    trainer_parity)
+from torch_threads import torch_threads  # noqa: F401 (autouse)
 
 
 @pytest.mark.parametrize("example", ["basic_ranking", "deep_ranking_dcn",

@@ -18,6 +18,7 @@ from recommenders_tpu_torch.examples import context_features
 from recommenders_tpu_torch.examples import sequential_retrieval
 from torch_examples_common import (B, CPU, jax_example, movielens_batch,
                                    tower_outputs, trainer_parity)
+from torch_threads import torch_threads  # noqa: F401 (autouse)
 
 
 def test_context_query_tower():

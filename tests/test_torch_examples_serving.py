@@ -39,6 +39,7 @@ from recommenders_tpu_torch.examples import efficient_serving
 from recommenders_tpu_torch.examples import quickstart
 from recommenders_tpu_torch.tools import run_examples
 from recommenders_tpu_torch.utils import convert
+from torch_threads import torch_threads  # noqa: F401 (autouse)
 
 ROOT = Path(__file__).resolve().parents[1]
 CPU = torch.device("cpu")

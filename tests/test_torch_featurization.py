@@ -38,6 +38,7 @@ import chip_smoke
 from recommenders_tpu_torch.examples import featurization as port_example
 from recommenders_tpu_torch.utils import convert
 from torch_examples_common import STEP_GAP, step_gap, to_torch
+from torch_threads import torch_threads  # noqa: F401 (autouse)
 
 ROOT = Path(__file__).resolve().parents[1]
 

@@ -25,6 +25,7 @@ import torch
 
 from recommenders_tpu.ops import fused_retrieval as jax_fused
 from recommenders_tpu_torch.ops import fused_retrieval
+from torch_threads import torch_threads  # noqa: F401 (autouse)
 
 KNOBS = [
     dict(),

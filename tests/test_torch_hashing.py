@@ -14,6 +14,7 @@ import jax.numpy as jnp
 
 from recommenders_tpu.ops import hashing as jax_hashing
 from recommenders_tpu_torch.ops import hashing
+from torch_threads import torch_threads  # noqa: F401 (autouse)
 
 EDGES = [0, 1, -1, -2, 2**31 - 1, -(2**31), 12345, -98765]
 WIDE = [2**31, 2**32 - 1, 2**32, 2**32 + 5, 2**40 + 7, -(2**33) - 3,

@@ -44,6 +44,7 @@ from recommenders_tpu_torch.layers.feature_interaction import (
 )
 from recommenders_tpu_torch.models import ranking
 from recommenders_tpu_torch.utils import convert
+from torch_threads import torch_threads  # noqa: F401 (autouse)
 
 B, DENSE, DIM = 32, 4, 8
 VOCABS = {"user": 500, "item": 200, "tag": 60}

@@ -1,10 +1,9 @@
-"""`kernel_ab.py k1` rehearsed on the CPU, in a file of its own: the
-K1 twin's timing loop is the longest test of `chip_smoke.py`'s
-rehearsals, and under `--dist loadfile` a file runs on one worker."""
+"""`kernel_ab.py k1` rehearsed on the CPU, in a file of its own."""
 
 import torch
 
 import chip_smoke
+from torch_threads import torch_threads  # noqa: F401 (autouse)
 
 
 def test_kernel_ab_k1_times_the_step_and_the_floor_on_cpu():

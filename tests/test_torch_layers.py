@@ -18,6 +18,7 @@ import torch
 
 from recommenders_tpu.layers import factorized_top_k as jax_ftk
 from recommenders_tpu_torch.layers import factorized_top_k as ftk
+from torch_threads import torch_threads  # noqa: F401 (autouse)
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 N, D, Q, K = 3000, 128, 16, 20

@@ -17,6 +17,7 @@ import pytest
 import torch
 
 from recommenders_tpu_torch.ops import leaf_scoring
+from torch_threads import torch_threads  # noqa: F401 (autouse)
 
 
 def _probes(kind, q, p, num_leaves, seed):

@@ -24,6 +24,7 @@ from recommenders_tpu.ops import leaf_scoring as jax_leaf
 from recommenders_tpu.ops import quantization as jax_quant
 from recommenders_tpu_torch.ops import leaf_scoring
 from recommenders_tpu_torch.ops import quantization
+from torch_threads import torch_threads  # noqa: F401 (autouse)
 
 D = 128
 F32_EPS = 2.0 ** -23

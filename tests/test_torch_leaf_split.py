@@ -34,6 +34,7 @@ from recommenders_tpu.ops import leaf_scoring as jax_leaf
 from recommenders_tpu_torch.ops import leaf_scoring
 from recommenders_tpu_torch.ops import scoring
 from test_torch_split_precision import ABS_TOL, KINDS, _problem
+from torch_threads import torch_threads  # noqa: F401 (autouse)
 
 F32_EPS = 2.0 ** -23
 NUM_LEAVES, CAP, NUM_PROBES = 4, 48, 3

@@ -20,6 +20,7 @@ import torch
 
 from recommenders_tpu.tasks import listwise as jax_listwise
 from recommenders_tpu_torch.tasks import listwise
+from torch_threads import torch_threads  # noqa: F401 (autouse)
 
 B, L = 16, 8
 

@@ -20,6 +20,7 @@ from recommenders_tpu_torch.utils import checkpoint
 
 import torch_rank_workers as workers
 from test_torch_meshed_trainer import RANKING_FCS, _ranking_batches
+from torch_threads import torch_threads  # noqa: F401 (autouse)
 
 SEED = 21
 DENSE = 4

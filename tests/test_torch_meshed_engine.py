@@ -32,6 +32,7 @@ from recommenders_tpu.parallel import mesh as jax_mesh
 
 from test_torch_sparse_apply import assert_ulp_close, to_f32
 import torch_rank_workers as workers
+from torch_threads import torch_threads  # noqa: F401 (autouse)
 
 PAD = -1
 

@@ -32,6 +32,7 @@ from recommenders_tpu_torch.utils import convert
 
 import torch_rank_workers as workers
 from test_torch_pooled_negatives import _batch, _jax_model, _params
+from torch_threads import torch_threads  # noqa: F401 (autouse)
 
 LR = 0.5
 RANKING_FCS = (("c0", "t0", 2000), ("c1", "t1", 300), ("c2", "t2", 900))

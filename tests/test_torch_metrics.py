@@ -17,6 +17,7 @@ from recommenders_tpu import metrics as jax_metrics
 from recommenders_tpu.layers import factorized_top_k as jax_ftk
 from recommenders_tpu_torch import metrics
 from recommenders_tpu_torch.layers import factorized_top_k
+from torch_threads import torch_threads  # noqa: F401 (autouse)
 
 CPU = "cpu"
 TOL = dict(rtol=1e-6, atol=1e-7)

@@ -27,6 +27,7 @@ from recommenders_tpu_torch import models
 from recommenders_tpu_torch.models import multitask
 from recommenders_tpu_torch.models import ranking
 from recommenders_tpu_torch.utils import convert
+from torch_threads import torch_threads  # noqa: F401 (autouse)
 
 USERS, ITEMS, DIM, B = 64, 128, 16, 32
 LR = 0.2

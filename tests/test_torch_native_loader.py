@@ -5,10 +5,20 @@ thread, batch for batch (tolerance: none).
 
 The library builds with `g++` into the port's build directory; a test
 where the toolchain is missing fails at the build, it is not skipped.
+
+The JAX batcher that the port is held against loads a library built for
+this module alone (`jax_library`): `native/loader.cc` with the JAX
+package's flags, into a private directory, under a temporary name and
+then renamed. The JAX loader's own build writes `native/build/
+libloader.so` in place, so a process that loads it while another is
+writing it keeps the error for its whole life; no test here reads or
+writes that file.
 """
 
 import ctypes
+import os
 import threading
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -18,6 +28,7 @@ from recommenders_tpu.data import native_loader as jax_native_loader
 from recommenders_tpu_torch import data as data_lib
 from recommenders_tpu_torch import models as models_lib
 from recommenders_tpu_torch.data import native_loader
+from torch_threads import torch_threads  # noqa: F401 (autouse)
 
 
 def _data(n=1000, seed=0):
@@ -62,10 +73,43 @@ def test_concurrent_builds_leave_one_whole_library(tmp_path, monkeypatch):
     ctypes.CDLL(str(paths[0])).loader_create  # loads and has the symbol
 
 
-@pytest.mark.parametrize("shuffle,drop,batch", [
-    (False, False, 64), (True, False, 64), (True, True, 100),
-    (False, True, 1000)])
-def test_single_thread_batches_equal_jax(shuffle, drop, batch):
+# The JAX package's flags (`recommenders_tpu/data/native_loader.py`).
+JAX_CXX_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17", "-pthread")
+JAX_BUILD_DIR = Path(jax_native_loader._SO).parent
+PARITY_CASES = [(False, False, 64), (True, False, 64), (True, True, 100),
+                (False, True, 1000)]
+
+
+@pytest.fixture(scope="module")
+def jax_library(tmp_path_factory):
+    """`native/loader.cc` built with the JAX package's flags into a
+    directory of this module's own, atomically (the port's `_build`: a
+    temporary name, then `os.replace`)."""
+    assert native_loader.CXX_FLAGS == JAX_CXX_FLAGS
+    with pytest.MonkeyPatch.context() as patch:
+        patch.setattr(native_loader, "BUILD_DIR",
+                      tmp_path_factory.mktemp("jax_loader"))
+        path = native_loader._build()
+    # The JAX loader rebuilds in place where its source is newer.
+    assert os.path.getmtime(path) >= os.path.getmtime(jax_native_loader._SRC)
+    return path
+
+
+def _load_jax_batcher_from(patch, library):
+    """Points the JAX loader at `library`, its cached load and error
+    cleared; `patch` restores all three."""
+    patch.setattr(jax_native_loader, "_SO", str(library))
+    patch.setattr(jax_native_loader, "_lib", None)
+    patch.setattr(jax_native_loader, "_build_error", None)
+
+
+@pytest.fixture
+def private_jax_loader(jax_library, monkeypatch):
+    _load_jax_batcher_from(monkeypatch, jax_library)
+
+
+def _assert_batches_equal_jax(shuffle, drop, batch):
+    assert not Path(jax_native_loader._SO).is_relative_to(JAX_BUILD_DIR)
     data = _data(1000, seed=4)
     ours = native_loader.NativeBatcher(data, batch, shuffle=shuffle, seed=9,
                                        drop_remainder=drop, num_threads=1)
@@ -80,6 +124,31 @@ def test_single_thread_batches_equal_jax(shuffle, drop, batch):
             for k in w:
                 assert g[k].dtype == w[k].dtype
                 np.testing.assert_array_equal(g[k], w[k])
+
+
+@pytest.mark.parametrize("shuffle,drop,batch", PARITY_CASES)
+def test_single_thread_batches_equal_jax(private_jax_loader, shuffle, drop,
+                                         batch):
+    _assert_batches_equal_jax(shuffle, drop, batch)
+
+
+def test_parity_holds_where_the_jax_loader_cached_a_truncated_library(
+        jax_library, monkeypatch):
+    """A worker that loaded `native/build/libloader.so` while another
+    was writing it caches the loader's error for good; the parity cases
+    load the private library all the same, bit-equal."""
+    monkeypatch.setattr(jax_native_loader, "_lib", None)
+    monkeypatch.setattr(jax_native_loader, "_build_error",
+                        f"{jax_native_loader._SO}: file too short")
+    with pytest.raises(RuntimeError, match="file too short"):
+        jax_native_loader.NativeBatcher(_data(10), 4)
+    with pytest.MonkeyPatch.context() as patch:
+        _load_jax_batcher_from(patch, jax_library)
+        for case in PARITY_CASES:
+            _assert_batches_equal_jax(*case)
+    assert jax_native_loader._build_error.endswith("file too short")
+    # The port builds outside the JAX package's directory.
+    assert not native_loader.BUILD_DIR.is_relative_to(JAX_BUILD_DIR)
 
 
 def test_unshuffled_single_thread_matches_python():

@@ -28,6 +28,7 @@ from recommenders_tpu_torch.layers import approximate
 from recommenders_tpu_torch.layers import factorized_top_k
 from recommenders_tpu_torch.utils import export as export_lib
 from recommenders_tpu_torch.utils import native_serving as ns
+from torch_threads import torch_threads  # noqa: F401 (autouse)
 
 
 def _arrays():

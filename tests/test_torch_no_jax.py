@@ -9,6 +9,7 @@ import re
 from pathlib import Path
 
 import pytest
+from torch_threads import torch_threads  # noqa: F401 (autouse)
 
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "recommenders_tpu",

@@ -30,6 +30,7 @@ from recommenders_tpu.optimizers import (
     shrink_by_references as jax_shrink_by_references,
 )
 from recommenders_tpu_torch import optimizers
+from torch_threads import torch_threads  # noqa: F401 (autouse)
 
 STEPS = 5
 SHAPES = {"embedding": {"table": (40, 8)},

@@ -22,6 +22,7 @@ from recommenders_tpu_torch.parallel import launch
 from recommenders_tpu_torch.parallel import mesh as mesh_lib
 
 import torch_rank_workers as workers
+from torch_threads import torch_threads  # noqa: F401 (autouse)
 
 K = 7
 

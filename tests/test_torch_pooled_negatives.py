@@ -16,6 +16,7 @@ from recommenders_tpu import models as jax_models
 from recommenders_tpu_torch.utils import convert
 
 import torch_rank_workers as workers
+from torch_threads import torch_threads  # noqa: F401 (autouse)
 
 
 def _jax_model():

@@ -28,6 +28,7 @@ import torch
 from recommenders_tpu.ops import product_quantization as jpq
 from recommenders_tpu.ops import quantization as jqz
 from recommenders_tpu_torch.ops import product_quantization as pq
+from torch_threads import torch_threads  # noqa: F401 (autouse)
 
 
 def _clustered(rng, n, d, num_clusters=40, spread=0.3):

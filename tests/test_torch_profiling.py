@@ -13,6 +13,7 @@ import torch
 
 from recommenders_tpu.utils import profiling as jax_profiling
 from recommenders_tpu_torch.utils import profiling
+from torch_threads import torch_threads  # noqa: F401 (autouse)
 
 
 def test_step_timer_matches_the_jax_timer():

@@ -35,6 +35,7 @@ from recommenders_tpu.models import ranking as jax_ranking
 from recommenders_tpu_torch import models
 from recommenders_tpu_torch.tools import quality_parity as qp
 from recommenders_tpu_torch.utils import convert
+from torch_threads import torch_threads  # noqa: F401 (autouse)
 
 ROOT = Path(__file__).resolve().parents[1]
 

@@ -26,6 +26,7 @@ from recommenders_tpu_torch import models
 from recommenders_tpu_torch.layers import blocks
 from recommenders_tpu_torch.tools import quality_parity as qp
 from recommenders_tpu_torch.utils import convert
+from torch_threads import torch_threads  # noqa: F401 (autouse)
 
 def _args():
     return qp.parse_args(["--device", "cpu", "--interactions", "25000",

@@ -28,6 +28,7 @@ from recommenders_tpu.embedding import unified as jax_unified
 from recommenders_tpu.ops import hashing as jax_hashing
 from recommenders_tpu_torch.tools import quality_parity as qp
 from recommenders_tpu_torch.utils import convert
+from torch_threads import torch_threads  # noqa: F401 (autouse)
 
 ROOT = Path(__file__).resolve().parents[1]
 

@@ -14,6 +14,7 @@ import torch
 
 from recommenders_tpu.ops import quantization as jax_quant
 from recommenders_tpu_torch.ops import quantization
+from torch_threads import torch_threads  # noqa: F401 (autouse)
 
 CODE_AGREEMENT = 0.9999
 

@@ -48,6 +48,7 @@ from recommenders_tpu_torch.layers.feature_interaction import (
 from recommenders_tpu_torch.models import ranking
 from recommenders_tpu_torch.tasks import ranking as task
 from recommenders_tpu_torch.utils import convert
+from torch_threads import torch_threads  # noqa: F401 (autouse)
 
 B, DENSE, DIM = 32, 5, 8
 VOCABS = {"user": 300, "item": 50, "genre": 20}

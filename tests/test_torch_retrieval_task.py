@@ -23,6 +23,7 @@ from recommenders_tpu_torch import tasks
 from recommenders_tpu_torch.layers import loss
 from recommenders_tpu_torch.models import retrieval
 from recommenders_tpu_torch.utils import convert
+from torch_threads import torch_threads  # noqa: F401 (autouse)
 
 B, C, D = 16, 24, 32
 

@@ -36,6 +36,7 @@ from recommenders_tpu_torch.layers import approximate
 from recommenders_tpu_torch.layers import factorized_top_k
 from recommenders_tpu_torch.ops import scoring
 from recommenders_tpu_torch.utils import convert
+from torch_threads import torch_threads  # noqa: F401 (autouse)
 
 CPU = torch.device("cpu")
 D, K = 128, 20

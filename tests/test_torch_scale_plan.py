@@ -17,6 +17,7 @@ import torch
 from recommenders_tpu.ops import leaf_scoring as jax_leaf
 from recommenders_tpu_torch.ops import leaf_scoring
 from recommenders_tpu_torch.ops import scoring
+from torch_threads import torch_threads  # noqa: F401 (autouse)
 
 SMS = 132
 SMEM = 232_448

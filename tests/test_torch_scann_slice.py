@@ -29,6 +29,7 @@ import chip_smoke
 from recommenders_tpu.layers import approximate as jax_approx
 from recommenders_tpu_torch.layers import approximate
 from recommenders_tpu_torch.utils import convert
+from torch_threads import torch_threads  # noqa: F401 (autouse)
 
 N, D, LEAVES, K, Q = 8192, 128, 32, 10, 64
 F32_EPS = 2.0 ** -23

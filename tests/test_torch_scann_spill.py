@@ -31,6 +31,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import torch
+from torch_threads import torch_threads  # noqa: F401 (autouse)
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 

@@ -23,6 +23,7 @@ from recommenders_tpu.ops import quantization as jax_quant
 from recommenders_tpu.ops import scoring as jax_scoring
 from recommenders_tpu_torch.ops import quantization
 from recommenders_tpu_torch.ops import scoring
+from torch_threads import torch_threads  # noqa: F401 (autouse)
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 D = 128

@@ -20,6 +20,7 @@ from recommenders_tpu.models import retrieval as jax_retrieval
 from recommenders_tpu_torch.layers import sequential
 from recommenders_tpu_torch.models import retrieval
 from recommenders_tpu_torch.utils import convert
+from torch_threads import torch_threads  # noqa: F401 (autouse)
 
 VOCAB, DIM, B, L = 60, 8, 6, 7
 OUT_TOL = dict(rtol=1e-5, atol=1e-6)

@@ -26,6 +26,7 @@ from recommenders_tpu_torch.utils import convert
 
 from test_sharded_ann import _assert_topk_equal
 import torch_rank_workers as workers
+from torch_threads import torch_threads  # noqa: F401 (autouse)
 
 
 def _clustered(n, d, q, seed=0, clusters=32, noise=0.3):

@@ -18,6 +18,7 @@ from recommenders_tpu.parallel import mesh as jax_mesh
 from recommenders_tpu_torch.layers import factorized_top_k
 
 import torch_rank_workers as workers
+from torch_threads import torch_threads  # noqa: F401 (autouse)
 
 
 def _data(n, d, q, seed=0):

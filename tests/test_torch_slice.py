@@ -19,6 +19,7 @@ from recommenders_tpu.models import retrieval as jax_retrieval
 from recommenders_tpu_torch.layers import factorized_top_k as ftk
 from recommenders_tpu_torch.models import retrieval
 from recommenders_tpu_torch.utils import convert
+from torch_threads import torch_threads  # noqa: F401 (autouse)
 
 USERS, ITEMS, DIM, MLP = 200, 4000, 128, (256, 128)
 EMB_TOL = dict(rtol=1e-5, atol=1e-5)

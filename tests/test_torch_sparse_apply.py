@@ -37,6 +37,7 @@ from recommenders_tpu.ops import sparse_apply as jax_sa
 from recommenders_tpu_torch.embedding import config as config
 from recommenders_tpu_torch.embedding import sparse_optimizer as opt
 from recommenders_tpu_torch.ops import sparse_apply
+from torch_threads import torch_threads  # noqa: F401 (autouse)
 
 KINDS = ("sgd", "adagrad", "rowwise_adagrad", "adam", "ftrl")
 SPEC_ARGS = {

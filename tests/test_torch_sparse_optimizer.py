@@ -24,6 +24,7 @@ from recommenders_tpu.embedding import config as jax_config
 from recommenders_tpu.embedding import sparse_optimizer as jax_opt
 from recommenders_tpu_torch.embedding import config
 from recommenders_tpu_torch.embedding import sparse_optimizer as opt
+from torch_threads import torch_threads  # noqa: F401 (autouse)
 
 V, D, N = 64, 8, 48
 PAD = config.PAD_ID

@@ -25,6 +25,7 @@ import torch
 
 from recommenders_tpu.ops import scoring as jax_scoring
 from recommenders_tpu_torch.ops import scoring
+from torch_threads import torch_threads  # noqa: F401 (autouse)
 
 F32_EPS = 2.0 ** -23
 # The GPU tests' absolute term (tests/test_torch_cuda_kernels.py).

@@ -25,6 +25,7 @@ from recommenders_tpu.layers import factorized_top_k as jax_ftk
 from recommenders_tpu.ops import topk as jax_topk
 from recommenders_tpu_torch.layers import factorized_top_k
 from recommenders_tpu_torch.ops import topk
+from torch_threads import torch_threads  # noqa: F401 (autouse)
 
 DIM = 128
 CPU = "cpu"

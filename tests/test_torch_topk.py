@@ -13,6 +13,7 @@ import torch
 
 from recommenders_tpu.ops import topk as jax_topk
 from recommenders_tpu_torch.ops import topk
+from torch_threads import torch_threads  # noqa: F401 (autouse)
 
 
 def _scores(q=6, m=40, seed=0):

@@ -32,6 +32,7 @@ from recommenders_tpu_torch.embedding import engine
 from recommenders_tpu_torch.utils import convert
 
 from test_torch_sparse_apply import assert_ulp_close, to_f32
+from torch_threads import torch_threads  # noqa: F401 (autouse)
 
 USERS, ITEMS, DIM, BATCH = 512, 1024, 16, 64
 

@@ -33,6 +33,7 @@ from recommenders_tpu_torch import models
 from recommenders_tpu_torch.layers import factorized_top_k
 from recommenders_tpu_torch.metrics import factorized_top_k as ftk_metric
 from recommenders_tpu_torch.utils import convert
+from torch_threads import torch_threads  # noqa: F401 (autouse)
 
 USERS, ITEMS, DIM, B = 64, 128, 16, 32
 LR = {"sgd": 0.5, "adagrad": 0.3}

@@ -18,6 +18,7 @@ import jax.numpy as jnp
 from recommenders_tpu.embedding import unified as jax_unified
 from recommenders_tpu_torch.embedding import unified
 from recommenders_tpu_torch.utils import convert
+from torch_threads import torch_threads  # noqa: F401 (autouse)
 
 FEATURES = {"movie": (4000, 2), "user": (1500, 3), "zip": (300, 12)}
 
