@@ -43,6 +43,7 @@ from recommenders_tpu_torch.ops import sparse_apply
 from recommenders_tpu_torch.ops import quantization
 from recommenders_tpu_torch.ops import scoring
 from recommenders_tpu_torch.ops import topk as topk_ops
+from recommenders_tpu_torch.utils import profiling
 
 Tensor = torch.Tensor
 
@@ -539,9 +540,11 @@ def _search_bucketed(
     into `buckets` cells per query inside the kernel, so the final top-k
     is over B columns; with `tile > 1`, each tile of queries shares one
     probe list. Query order is restored on return."""
-    with _full_f32():
-        cscores = queries @ centroids.T  # [Q, L]
-    queries, probes, inv = _tile_probes(queries, cscores, num_probes, tile)
+    with profiling.annotate("scann.probe"):
+        with _full_f32():
+            cscores = queries @ centroids.T  # [Q, L]
+        queries, probes, inv = _tile_probes(queries, cscores, num_probes,
+                                            tile)
     packed4 = quantized == "int4"
     # The fold width cannot exceed a leaf's capacity.
     buckets = min(buckets, leaf_embs.shape[1] * (2 if packed4 else 1))
@@ -549,24 +552,25 @@ def _search_bucketed(
         queries, leaf_embs, leaf_scales if quantized else None, leaf_rows,
         probes, buckets, query_tile=tile, packed4=packed4,
     )
-    if inv is not None:
-        vals, rows = vals[inv], rows[inv]
-    k = min(k, buckets)
-    fetch = min(2 * k, buckets) if dedup else k
-    top_scores, idx = topk_ops.top_k(vals, fetch)
-    top_rows = topk_ops.take_along_rows(rows, idx)
-    # identifiers=None: rows are the ids.
-    if identifiers is None:
-        top_ids = top_rows
-    else:
-        top_ids = torch.where(
-            top_rows >= 0, identifiers[torch.clamp(top_rows, min=0).long()],
-            EMPTY_ID,
-        )
-    if dedup:
-        top_scores, top_ids, top_rows = _dedup_topk(
-            top_scores, top_ids, top_rows, k
-        )
+    with profiling.annotate("scann.merge"):
+        if inv is not None:
+            vals, rows = vals[inv], rows[inv]
+        k = min(k, buckets)
+        fetch = min(2 * k, buckets) if dedup else k
+        top_scores, idx = topk_ops.top_k(vals, fetch)
+        top_rows = topk_ops.take_along_rows(rows, idx)
+        # identifiers=None: rows are the ids.
+        if identifiers is None:
+            top_ids = top_rows
+        else:
+            top_ids = torch.where(
+                top_rows >= 0,
+                identifiers[torch.clamp(top_rows, min=0).long()], EMPTY_ID,
+            )
+        if dedup:
+            top_scores, top_ids, top_rows = _dedup_topk(
+                top_scores, top_ids, top_rows, k
+            )
     return top_scores, top_ids, top_rows
 
 
@@ -988,37 +992,39 @@ class ScaNN(factorized_top_k.TopK):
         packed4 = self._quantize == "int4"
 
         # Pass 3: quantize (or cast) and scatter each batch.
-        d = centroids.shape[1]
-        rows_buf = torch.full((num_leaves, capacity), -1, dtype=torch.int32,
-                              device=self.device)
-        valid_buf = torch.zeros((num_leaves, capacity), dtype=torch.bool,
-                                device=self.device)
-        scales_buf = None
-        if self._quantize:
-            code_cap = capacity // 2 if packed4 else capacity
-            codes_buf = torch.zeros((num_leaves, code_cap, d),
-                                    dtype=torch.int8, device=self.device)
-            scales_buf = torch.zeros((num_leaves, capacity),
-                                     dtype=torch.float32, device=self.device)
-        else:
-            codes_buf = torch.zeros((num_leaves, capacity, d),
-                                    dtype=self._leaf_dtype,
+        with profiling.phase("scann.build.scatter", self.device):
+            d = centroids.shape[1]
+            rows_buf = torch.full((num_leaves, capacity), -1,
+                                  dtype=torch.int32, device=self.device)
+            valid_buf = torch.zeros((num_leaves, capacity), dtype=torch.bool,
                                     device=self.device)
-        off = 0
-        for batch in self._stream(factory):
-            b = batch.shape[0]
-            leaf_b, slot_b = leaf_of[off:off + b], slot_of[off:off + b]
+            scales_buf = None
             if self._quantize:
-                _scatter_batch_quantized(
-                    codes_buf, scales_buf, rows_buf, valid_buf, batch,
-                    leaf_b, slot_b, off,
-                    threshold=self._anisotropic_threshold,
-                    bits=4 if packed4 else 8, half=capacity // 2,
-                )
+                code_cap = capacity // 2 if packed4 else capacity
+                codes_buf = torch.zeros((num_leaves, code_cap, d),
+                                        dtype=torch.int8, device=self.device)
+                scales_buf = torch.zeros((num_leaves, capacity),
+                                         dtype=torch.float32,
+                                         device=self.device)
             else:
-                _scatter_batch(codes_buf, rows_buf, valid_buf, batch,
-                               leaf_b, slot_b, off)
-            off += b
+                codes_buf = torch.zeros((num_leaves, capacity, d),
+                                        dtype=self._leaf_dtype,
+                                        device=self.device)
+            off = 0
+            for batch in self._stream(factory):
+                b = batch.shape[0]
+                leaf_b, slot_b = leaf_of[off:off + b], slot_of[off:off + b]
+                if self._quantize:
+                    _scatter_batch_quantized(
+                        codes_buf, scales_buf, rows_buf, valid_buf, batch,
+                        leaf_b, slot_b, off,
+                        threshold=self._anisotropic_threshold,
+                        bits=4 if packed4 else 8, half=capacity // 2,
+                    )
+                else:
+                    _scatter_batch(codes_buf, rows_buf, valid_buf, batch,
+                                   leaf_b, slot_b, off)
+                off += b
 
         self._centroids = centroids
         self._leaf_embs = codes_buf
@@ -1054,41 +1060,44 @@ class ScaNN(factorized_top_k.TopK):
         capacity = self._capacity(num_leaves, num_rows)
 
         # Pass 1: stride-sample rows for centroid training.
-        sample_target = min(self._kmeans_sample or (1 << 21), num_rows)
-        rng = np.random.RandomState(self._seed)
-        parts, seen = [], 0
-        for batch in stream():
-            b = batch.shape[0]
-            take = min(b, int(np.ceil(sample_target * b / num_rows)))
-            if take:
-                idx = np.sort(rng.choice(b, size=take, replace=False))
-                parts.append(batch[_rows(idx, self.device)])
-            seen += b
-        if seen != num_rows:
-            raise ValueError(
-                f"Batches supplied {seen} rows, expected num_rows="
-                f"{num_rows}."
+        with profiling.phase("scann.build.kmeans", self.device):
+            sample_target = min(self._kmeans_sample or (1 << 21), num_rows)
+            rng = np.random.RandomState(self._seed)
+            parts, seen = [], 0
+            for batch in stream():
+                b = batch.shape[0]
+                take = min(b, int(np.ceil(sample_target * b / num_rows)))
+                if take:
+                    idx = np.sort(rng.choice(b, size=take, replace=False))
+                    parts.append(batch[_rows(idx, self.device)])
+                seen += b
+            if seen != num_rows:
+                raise ValueError(
+                    f"Batches supplied {seen} rows, expected num_rows="
+                    f"{num_rows}."
+                )
+            sample = torch.cat(parts)
+            del parts
+            centroids = kmeans_device(
+                sample, num_leaves, self._iterations, self._seed,
+                chunk=self._assign_chunk,
+                balance_fraction=self._kmeans_balance,
             )
-        sample = torch.cat(parts)
-        del parts
-        centroids = kmeans_device(
-            sample, num_leaves, self._iterations, self._seed,
-            chunk=self._assign_chunk, balance_fraction=self._kmeans_balance,
-        )
-        del sample
+            del sample
 
         # Pass 2: top-R assignment, then capacity packing.
-        rounds = min(self._spill_rounds, num_leaves)
-        choices = torch.zeros((num_rows, rounds), dtype=torch.int32,
-                              device=self.device)
-        off = 0
-        for batch in stream():
-            choices[off:off + batch.shape[0]] = _topr_assign_device(
-                batch, centroids, rounds, self._assign_chunk)
-            off += batch.shape[0]
-        leaf_of, slot_of, unplaced = _pack_assign_device(
-            choices, num_leaves, capacity
-        )
+        with profiling.phase("scann.build.assign", self.device):
+            rounds = min(self._spill_rounds, num_leaves)
+            choices = torch.zeros((num_rows, rounds), dtype=torch.int32,
+                                  device=self.device)
+            off = 0
+            for batch in stream():
+                choices[off:off + batch.shape[0]] = _topr_assign_device(
+                    batch, centroids, rounds, self._assign_chunk)
+                off += batch.shape[0]
+            leaf_of, slot_of, unplaced = _pack_assign_device(
+                choices, num_leaves, capacity
+            )
         if int(unplaced) > 0:
             raise ValueError(
                 f"{int(unplaced)} rows could not be placed within their "
@@ -1106,11 +1115,12 @@ class ScaNN(factorized_top_k.TopK):
                 "create the retrieval index."
             )
         k = k if k is not None else self._k
-        if self.query_fn is not None:
-            queries = self.query_fn(queries)
-        queries = torch.as_tensor(queries, device=self.device)
-        return self._decode(*search(queries, self.serving_arrays(),
-                                    self.serving_config(), k))
+        with profiling.annotate("scann.search"):
+            if self.query_fn is not None:
+                queries = self.query_fn(queries)
+            queries = torch.as_tensor(queries, device=self.device)
+            return self._decode(*search(queries, self.serving_arrays(),
+                                        self.serving_config(), k))
 
     def serving_config(self) -> ServingConfig:
         """The built index's query settings (for `search`)."""

@@ -29,6 +29,7 @@ from recommenders_tpu_torch.ops import quantization
 from recommenders_tpu_torch.ops import scoring
 from recommenders_tpu_torch.ops import topk as topk_ops
 from recommenders_tpu_torch.utils import device as device_lib
+from recommenders_tpu_torch.utils import profiling
 
 Tensor = torch.Tensor
 
@@ -662,27 +663,29 @@ class Bucketed(TopK):
                 "The `index` method must be called first to "
                 "create the retrieval index."
             )
-        if self.query_fn is not None:
-            queries = self.query_fn(queries)
-        k = min(k, self._num_candidates)
-        if not self._quantize:
-            # The stored dtype (corpus_dtype, else f32): bf16 indexes score
-            # bf16 queries; an f32 index takes any query exactly in f32.
-            queries = queries.to(self._candidates.dtype)
-        scores, rows = scoring.bucketed_top_k(
-            queries,
-            self._candidates,
-            k,
-            buckets=self._buckets,
-            chunk=self._chunk,
-            query_tile=self._query_tile,
-            scales=self._scales,
-            packed4=self._quantize == "int4",
-            valid_rows=self._num_candidates,
-        )
-        if self._identifiers is not None:
-            return scores, self._identifiers[rows.long()]
-        return self._decode(scores, rows)
+        with profiling.annotate("bucketed.search"):
+            if self.query_fn is not None:
+                queries = self.query_fn(queries)
+            k = min(k, self._num_candidates)
+            if not self._quantize:
+                # The stored dtype (corpus_dtype, else f32): bf16 indexes
+                # score bf16 queries; an f32 index takes any query exactly
+                # in f32.
+                queries = queries.to(self._candidates.dtype)
+            scores, rows = scoring.bucketed_top_k(
+                queries,
+                self._candidates,
+                k,
+                buckets=self._buckets,
+                chunk=self._chunk,
+                query_tile=self._query_tile,
+                scales=self._scales,
+                packed4=self._quantize == "int4",
+                valid_rows=self._num_candidates,
+            )
+            if self._identifiers is not None:
+                return scores, self._identifiers[rows.long()]
+            return self._decode(scores, rows)
 
     def is_exact(self) -> bool:
         return False

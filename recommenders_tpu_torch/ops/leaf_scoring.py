@@ -57,6 +57,7 @@ from recommenders_tpu_torch.ops import cuda_build
 from recommenders_tpu_torch.ops import quantization
 from recommenders_tpu_torch.ops import scoring
 from recommenders_tpu_torch.ops import topk as topk_ops
+from recommenders_tpu_torch.utils import profiling
 
 Tensor = torch.Tensor
 
@@ -222,8 +223,9 @@ def probed_bucketed_scores(
             queries, leaf_embs, leaf_scales, leaf_rows, probes, buckets,
             query_tile=query_tile, packed4=packed4,
         )
-    return _launch_bucketed(queries, leaf_embs, leaf_scales, leaf_rows,
-                            probes, buckets, query_tile, cap, packed4)
+    with profiling.annotate("k5.launch"):
+        return _launch_bucketed(queries, leaf_embs, leaf_scales, leaf_rows,
+                                probes, buckets, query_tile, cap, packed4)
 
 
 probed_bucketed_scores.launches = 0

@@ -39,6 +39,7 @@ import torch.nn.functional as F
 from recommenders_tpu_torch.ops import cuda_build
 from recommenders_tpu_torch.ops import quantization
 from recommenders_tpu_torch.ops import topk as topk_ops
+from recommenders_tpu_torch.utils import profiling
 
 Tensor = torch.Tensor
 
@@ -169,8 +170,9 @@ def bucketed_scores(
             queries, candidates, scales, buckets=buckets,
             valid_rows=valid_rows, packed4=packed4,
         )
-    return _launch(queries, candidates, scales, buckets, int(valid_rows),
-                   packed4)
+    with profiling.annotate("k3.launch"):
+        return _launch(queries, candidates, scales, buckets,
+                       int(valid_rows), packed4)
 
 
 bucketed_scores.launches = 0
@@ -447,9 +449,10 @@ def bucketed_top_k(
     vals, rows = bucketed_scores_padded(
         queries, padded, scales, buckets, chunk, query_tile, valid_rows,
         packed4)
-    k = min(k, int(valid_rows), buckets)
-    top_vals, idx = topk_ops.top_k(vals, k)
-    return top_vals, topk_ops.take_along_rows(rows, idx)
+    with profiling.annotate("bucketed.merge"):
+        k = min(k, int(valid_rows), buckets)
+        top_vals, idx = topk_ops.top_k(vals, k)
+        return top_vals, topk_ops.take_along_rows(rows, idx)
 
 
 def bucketed_scores_padded(

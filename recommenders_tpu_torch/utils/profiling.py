@@ -1,27 +1,63 @@
-"""Profiling hooks: `torch.profiler` tracing + throughput accounting.
+"""Profiling hooks: `torch.profiler` tracing, spans, set-up phases and
+throughput accounting.
 
 Port of `recommenders_tpu/utils/profiling.py`. Wrap code in
 `trace(logdir)` to write a Chrome-trace JSON of the host and, on a CUDA
 machine, the device timeline (Perfetto or `chrome://tracing` open it),
-name regions with `annotate`, and time steady-state steps with
-`StepTimer`, which skips warm-up steps.
+name regions with `annotate`, time set-up passes with `phase`, and time
+steady-state steps with `StepTimer`, which skips warm-up steps.
+
+`annotate` costs one check when no profiler records, and nothing enters
+the trace; under a recording profiler its span lands as a
+`user_annotation` on the same clock as the card's kernels, copies and
+fills, nested by time in the caller's spans. The port's served paths
+record these spans:
+
+  - `scann.search`: `ScaNN.__call__`, the index's whole host call;
+  - `scann.probe`: the centroid product and the probe lists ahead of K5;
+  - `k5.launch`: K5's plan, checks and dispatcher call (the op's own
+    `recommenders_tpu_torch::probed_bucketed_scores` event nests inside);
+  - `scann.merge`: after K5, the restored order, top-k, rows and ids;
+  - `bucketed.search`: `Bucketed.__call__`, the index's whole host call;
+  - `k3.launch`: K3's plan, checks and dispatcher call;
+  - `bucketed.merge`: after K3, the top-k over the buckets and its rows.
+
+`ScaNN.index_streamed` records one `phase` a pass, each synchronized
+with the index's device at its end: `scann.build.kmeans` (stride sample
+and k-means), `scann.build.assign` (top-R assignment and packing) and
+`scann.build.scatter` (quantize or cast, and scatter). `phases()` returns
+the records (name, start, end on `time.perf_counter`, enclosing phase),
+`clear_phases()` empties them; nothing is written to disk.
 
 ```python
 with profiling.trace("/tmp/profile"):
     for batch in batches:
         with profiling.annotate("train_step"):
             state, loss = trainer.train_step(state, batch)
+
+# A ScaNN request's spans, and the build's passes:
+index = approximate.ScaNN(..., scoring_buckets=8192, device="cuda")
+index.index_streamed(batches, num_rows=n)
+print([(p.name, p.seconds) for p in profiling.phases()])
+with profiling.trace("/tmp/profile"):   # scann.search ⊃ scann.probe,
+    scores, ids = index(queries, k=100)  # k5.launch, scann.merge
 ```
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
+import dataclasses
 import os
+import threading
 import time
-from typing import Optional
+from typing import List, Optional
 
 import torch
+
+# The records `phase` keeps, oldest first dropped past this many.
+MAX_PHASES = 256
 
 
 @contextlib.contextmanager
@@ -39,9 +75,75 @@ def trace(logdir: str):
         os.path.join(logdir, f"trace_{time.time_ns()}.json"))
 
 
+_OFF = contextlib.nullcontext()
+
+
 def annotate(name: str):
-    """Named region visible in profiler timelines (`record_function`)."""
+    """Named region visible in profiler timelines (`record_function`)
+    while a `torch.profiler` session records; otherwise, and inside a
+    `torch.export` or `torch.compile` trace, a shared null context, so
+    an unprofiled call pays one check and a traced program holds no
+    profiler op."""
+    if (not torch._C._autograd._profiler_enabled()
+            or torch.compiler.is_compiling()):
+        return _OFF
     return torch.profiler.record_function(name)
+
+
+@dataclasses.dataclass(frozen=True)
+class Phase:
+    """One `phase`: its name, start and end on `time.perf_counter`, and
+    the name of the phase that enclosed it (None at the top)."""
+
+    name: str
+    start: float
+    end: float
+    parent: Optional[str]
+
+    @property
+    def seconds(self) -> float:
+        return self.end - self.start
+
+
+class _Open(threading.local):
+    """The names of the phases open in this thread, innermost last."""
+
+    def __init__(self) -> None:
+        self.names: List[str] = []
+
+
+_phases: collections.deque = collections.deque(maxlen=MAX_PHASES)
+_open = _Open()
+
+
+@contextlib.contextmanager
+def phase(name: str, device=None):
+    """A coarse span for set-up, always recorded (into `phases()`) and,
+    while a profiler records, emitted as `annotate` does. On exit it
+    synchronizes `device` when that is a CUDA device, so the span holds
+    the pass's device work and not only its enqueue. A phase that raises
+    is not recorded."""
+    stack = _open.names
+    parent = stack[-1] if stack else None
+    stack.append(name)
+    start = time.perf_counter()
+    try:
+        with annotate(name):
+            yield
+            if device is not None and torch.device(device).type == "cuda":
+                torch.cuda.synchronize(device)
+    finally:
+        stack.pop()
+    _phases.append(Phase(name, start, time.perf_counter(), parent))
+
+
+def phases() -> List[Phase]:
+    """The recorded phases, oldest first (at most `MAX_PHASES`)."""
+    return list(_phases)
+
+
+def clear_phases() -> None:
+    _phases.clear()
 
 
 class StepTimer:
