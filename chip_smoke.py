@@ -634,6 +634,8 @@ def reset_counts() -> None:
     scoring.bucketed_scores.launches = 0
     for fmt in scoring.bucketed_scores.launches_by_format:
         scoring.bucketed_scores.launches_by_format[fmt] = 0
+    for tile in scoring.bucketed_scores.launches_by_int8_tile:
+        scoring.bucketed_scores.launches_by_int8_tile[tile] = 0
 
 
 def recall(got: torch.Tensor, want: torch.Tensor) -> float:
@@ -6121,11 +6123,20 @@ def scale_ann(device: torch.device, size: ScaleSize, seed: int) -> list:
     scale_gib_check("bucketed", distinct_gib(
         index, ("_candidates", "_scales")), size)
     reset_example_counts(device)
+    if device.type == "cuda":
+        cuda_build.k3_fold_counts(reset=True)
     (scores, ids), ms = serve_timed(index, queries, requests, device)
     launches = example_counts(device)["bucketed_scores[int8]"]
     if device.type == "cuda":
         check(launches == served, f"phase 38: {launches} K3 launches for "
               f"{served} requests")
+        by_tile = dict(scoring.bucketed_scores.launches_by_int8_tile)
+        fold = cuda_build.k3_fold_counts()
+        print(f"  bucketed: K3 int8 launches by query tile {by_tile}; fast "
+              f"fold {fold['updated']} of {fold['checked']} chunks updated",
+              flush=True)
+        check(by_tile[scoring._int8_tile(size.queries, DIM)] == served,
+              f"phase 38: K3 int8 launches by query tile {by_tile}")
     codes, scales = stored_rows(index, ids)
     exact = (scored_query(index, queries)[:, None, :] * codes).sum(-1) * scales
     check_results("phase 38: Bucketed", scores, ids, size.rows, exact,

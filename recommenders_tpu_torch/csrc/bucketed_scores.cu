@@ -67,26 +67,43 @@
 // waited at three block barriers a stage (43 ms). Here a block owns 64
 // buckets x all of a request's queries (a tile of 256, 128 or 64: one
 // read of the codes up to 256 queries), one block an SM, and the plan
-// splits the group walk until the grid is one wave. One lane of a
-// producer warpgroup copies each group's slab (64 contiguous code rows)
-// into a ring of up to eight stages with one cp.async.bulk completing on
-// an mbarrier; two consumer warpgroups, each with NQ = tile / 2 of the
-// queries as wgmma's B (bf16 in shared memory, 128-byte swizzled, stored
-// once), read their slab rows 16 bytes a lane, decode them to bf16 A
-// fragments in registers (exact, two codes a packed bf16 subtraction;
-// the query's features are stored in the matching order, wg::code_k),
-// release the stage with one arrival a warp and multiply with
-// wgmma.m64nNQk16 (A in registers), taking turns a group at the tensor
-// cores (named barriers). No block-wide barrier follows the set-up. Each
-// thread's accumulators cover two buckets x NQ / 4 queries, so the fold
-// needs two scales a group and keeps a running (max, group) beside them:
-// 64 + 64 + 64 registers at NQ = 128, which setmaxnreg makes room for
-// (the producer warpgroup drops to 24). The A fragments of 64 features
-// (four k-steps) are in flight at a time. What bounds it now is the
-// consumers' ALU work beside the products: the fold's four operations a
-// score (scale, compare, two selects) and the decode take longer than
-// the tensor cores, and the two barely overlap (PERF.md, section 6,
-// times each part alone).
+// splits the group walk until the grid is one wave. A producer warp
+// copies each group's slab (64 contiguous code rows) into a ring of up to
+// eight stages with one cp.async.bulk completing on an mbarrier, and the
+// slab's 64 scales beside it by cp.async on the same barrier; two
+// consumer warpgroups, each with NQ = tile / 2 of the queries as wgmma's
+// B (bf16 in shared memory, 128-byte swizzled, stored once), read their
+// slab rows 16 bytes a lane and decode them to bf16 A fragments in
+// registers (exact, three instructions a pair of codes; the query's
+// features are stored in the matching order, wg::code_k). Each
+// warpgroup decodes a pair of k-blocks (D = 128 is one pair a group),
+// releases the stage with one arrival a warp, takes its turn at the
+// tensor cores (named barriers), issues the pair's eight wgmma.m64nNQk16
+// under one fence as one commit group and hands the turn on at once:
+// the turn holds no wait at D = 128. The wait for its products and the
+// fold run outside the turn, beside the other warpgroup's products. No
+// block-wide barrier follows the set-up. Each thread's accumulators
+// cover two buckets x NQ / 4 queries, so the fold needs two scales a
+// group and keeps a running (max, group) beside them: 64 + 64 + 64
+// registers and 32 of A at NQ = 128, which setmaxnreg makes room for
+// (the producer warpgroup drops to 24). Past its first 1,024 groups a
+// walk folds by a compare-only pass (fold_group_fast), since a new best
+// is rare there; the B descriptors are formed once, in uniform
+// registers; a width of D is a template instance (KB = D / 64).
+//
+// What bounds it now (PERF.md, section 6, PR 22): the consumers'
+// instructions beside the products, not the products. A consumer warp
+// issues about 340 instructions a group at D = 128 (decode 112, fold
+// about 140, the rest addresses, barriers and issue), two such warps a
+// sub-partition, and on the H100 ALU work on one warpgroup hides only
+// about half of itself under another warpgroup's wgmma (1.19 ms of
+// wgmma alone and 0.83 ms of a fold alone took 1.59 ms together, in a
+// standalone test on the card), so the walk takes about twice its tensor
+// time. Decoding a k-block while the one before it is in flight, the
+// schedule the two sets of A fragments allow, was no faster: the fence
+// before a k-block's products waits for those in flight, and a second
+// set leaves no registers at NQ = 128 (ptxas serialized or spilled each
+// such body).
 //
 // What the design does about it. The TPU ran its grid (query tile, corpus
 // chunk) in order and carried the running max/argmax in VMEM across
@@ -491,18 +508,50 @@ constexpr int kSlabRows = 64;            // buckets of a block: wgmma's M
 constexpr int kConsumerWarpgroups = 2;   // each multiplies NQ queries
 constexpr int kConsumerWarps = 4 * kConsumerWarpgroups;
 // + a producer warpgroup: setmaxnreg moves registers between whole
-// warpgroups (ptxas sizes the launch for three), and only its first
-// warp's first lane works.
+// warpgroups (ptxas sizes the launch for three), and only its first warp
+// works.
 constexpr int kInt8Threads = 32 * (kConsumerWarps + 4);
 constexpr int kMaxStages = 8;
 constexpr int kBarrierBytes = 2 * kMaxStages * 8;         // full, empty
+constexpr size_t kInt8MaxSmem = 232448;  // 227 KB a block on the H100
 
 // Shared bytes of the int8 body: the query tile (2 NQ rows of D bf16),
-// its barriers and `stages` slabs of 64 code rows.
+// its barriers and `stages` stages of 64 code rows and their 64 scales.
 __host__ __device__ constexpr size_t int8_smem(int nq, int d, int stages) {
   return kBarrierBytes + static_cast<size_t>(kConsumerWarpgroups) * nq * d *
                              2 +
-         static_cast<size_t>(stages) * kSlabRows * d;
+         static_cast<size_t>(stages) * kSlabRows * (d + sizeof(float));
+}
+
+// Copies 4 bytes from global `src` to shared `dst` asynchronously.
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   tc::smem_addr(dst)),
+               "l"(src)
+               : "memory");
+}
+
+// Holds `bar`'s phase open (one more pending arrival) until this thread's
+// cp.async copies so far have landed, then arrives.
+__device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.shared::cta.b64 [%0];\n" ::"r"(
+                   tc::smem_addr(bar))
+               : "memory");
+}
+
+// Waits for the phase of parity `parity` of `bar`: one test first, which
+// does not suspend the warp, for the usual case of a stage that has
+// landed.
+__device__ __forceinline__ void mbar_ready(uint64_t* bar, uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "mbarrier.test_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done)
+      : "r"(tc::smem_addr(bar)), "r"(parity)
+      : "memory");
+  if (!done) wg::mbar_wait(bar, parity);
 }
 
 // Folds one group's scores into the running best: accumulator d[4j + e]
@@ -529,27 +578,153 @@ __device__ __forceinline__ void fold_group(const float (&acc)[R],
   }
 }
 
-// K3's int8 body. A block owns 64 buckets x 2 NQ queries of the output and
-// walks groups [g_begin, g_end) of its split (blockIdx.z of gridDim.z).
-// One lane of a producer warpgroup brings each group's slab of 64 code
-// rows (contiguous: rows g*B + b0 .. + 63) into a ring of `stages` stages
-// with one bulk copy, which completes on the stage's `full` barrier. Two
-// consumer warpgroups each own NQ of the block's queries, stored once as
-// wgmma's B operand; each reads the slab's codes as A fragments, decodes
-// them to bf16 in registers, releases the stage (its `empty` barrier, one
-// arrival a warp), multiplies on wgmma in its turn and folds the group
-// into a running (max, group) in the accumulator layout. No block-wide
-// barrier follows the set-up. Writes its [Q, B] plane at vals / rows +
-// blockIdx.z * Q * B.
+// The unmasked fold once a walk is past its first groups. There a
+// group rarely holds a new best (the i-th group of a walk holds one for a
+// given score with chance 1 / i, so a warp's chunk of 32 x 16 scores with
+// chance about 512 / i), so a compare-only pass comes first: one multiply
+// and one compare a score, or-ed into a flag a chunk, and only a chunk
+// whose flag is set in some lane of the warp is folded as fold_group
+// folds it, with the same products, the same strict > and the same group
+// order. Up to kFastFoldAfter groups into a walk every chunk would take
+// the update, so fold_group runs there.
+constexpr int kFoldChunk = 16;
+constexpr int kFastFoldAfter = 1024;
+
+// Chunks the compare-only pass checked, and those that took the update,
+// summed over launches (one atomic add a warp at the block's end); the
+// host reads and clears them with bucketed_scores_fold_counts.
+__device__ unsigned long long g_fold_checked, g_fold_updated;
+
+// a * b, rounded as the fold rounds it, but opaque to the compiler, so
+// that the compare-only pass keeps none of its products for the update.
+__device__ __forceinline__ float mul_again(float a, float b) {
+  float c;
+  asm volatile("mul.rn.f32 %0, %1, %2;" : "=f"(c) : "f"(a), "f"(b));
+  return c;
+}
+
+template <int R>
+__device__ __forceinline__ void fold_group_fast(const float (&acc)[R],
+                                                float (&best)[R],
+                                                int (&best_g)[R], int grp,
+                                                float sa, float sb,
+                                                uint32_t& updated) {
+  constexpr int kChunks = R / kFoldChunk;
+  bool up[kChunks];
+#pragma unroll
+  for (int c = 0; c < kChunks; ++c) up[c] = false;
+  // The chunks' compares interleaved, so their or-chains run side by side.
+#pragma unroll
+  for (int i = 0; i < kFoldChunk; ++i) {
+#pragma unroll
+    for (int c = 0; c < kChunks; ++c) {
+      const int j = c * kFoldChunk + i;
+      up[c] |= mul_again(acc[j], (j & 2) == 0 ? sa : sb) > best[j];
+    }
+  }
+#pragma unroll
+  for (int c = 0; c < kChunks; ++c) {
+    if (__any_sync(0xffffffffu, up[c])) {
+      ++updated;
+#pragma unroll
+      for (int j = c * kFoldChunk; j < (c + 1) * kFoldChunk; ++j) {
+        const float v = acc[j] * ((j & 2) == 0 ? sa : sb);
+        if (v > best[j]) {
+          best[j] = v;
+          best_g[j] = grp;
+        }
+      }
+    }
+  }
+}
+
+// (w & MASK) | k in one instruction; k, a constant, stays in a register,
+// so that the mask can be the instruction's immediate.
+template <uint32_t MASK>
+__device__ __forceinline__ uint32_t and_or(uint32_t w, uint32_t k) {
+  uint32_t out;
+  asm("lop3.b32 %0, %1, %2, %3, 0xEA;" : "=r"(out) : "r"(w), "n"(MASK),
+      "r"(k));
+  return out;
+}
+
+// wg::int8x2_to_bf16x2, bit for bit, in three instructions: the magic
+// word 0x4300 | m and the bias word 0x4300 | b << 7 are one lop3 each
+// (k holds 0x43004300), their difference one packed bf16 subtraction.
+__device__ __forceinline__ uint32_t int8x2_bf16x2(uint32_t w, uint32_t k) {
+  const uint32_t magic = and_or<0x007F007Fu>(w, k);
+  const uint32_t bias = and_or<0x00800080u>(w, k);
+  const __nv_bfloat162 r =
+      __hsub2(*reinterpret_cast<const __nv_bfloat162*>(&magic),
+              *reinterpret_cast<const __nv_bfloat162*>(&bias));
+  return *reinterpret_cast<const uint32_t*>(&r);
+}
+
+// Loads lane t's 16 code bytes of k-block kb from its two slab rows (`lo`
+// at row ra, row ra + 8 at lo + 8 d) and decodes them into the A
+// fragments that wg::decode_int8 gives.
+__device__ __forceinline__ void decode_kblock(const unsigned char* lo, int d,
+                                              int kb, uint32_t k,
+                                              uint32_t (&a)[4][4]) {
+  const uint4 wa = *reinterpret_cast<const uint4*>(lo + kb * 64);
+  const uint4 wb = *reinterpret_cast<const uint4*>(lo + 8 * d + kb * 64);
+  const uint32_t l[4] = {wa.x, wa.y, wa.z, wa.w};
+  const uint32_t h[4] = {wb.x, wb.y, wb.z, wb.w};
+#pragma unroll
+  for (int s = 0; s < 4; ++s) {
+    a[s][0] = int8x2_bf16x2(l[s], k);       // row g: k 2t, 2t + 1
+    a[s][1] = int8x2_bf16x2(h[s], k);       // row g + 8
+    a[s][2] = int8x2_bf16x2(l[s] >> 8, k);  // row g: k 2t + 8, 2t + 9
+    a[s][3] = int8x2_bf16x2(h[s] >> 8, k);
+  }
+}
+
+// wg::b_desc<N>(b_base, s), bit for bit, from `lo0`, the low word of
+// wg::b_desc<N>(b_base, 0): k-step s moves only the start address field
+// (bits 0-13, the address over 16, which stays below 2^14 in shared
+// memory), so each descriptor is one add; the high word is a constant
+// (stride 1024 bytes, 128-byte swizzle).
+template <int N>
+__device__ __forceinline__ uint64_t b_desc_from(uint32_t lo0, int s) {
+  const uint32_t lo = lo0 + (((s >> 2) * N * 128 + (s & 3) * 32) >> 4);
+  return (static_cast<uint64_t>(0x40000040u) << 32) | lo;
+}
+
+// Issues k-block kb's four k-steps into acc; k-block 0's first overwrites.
 template <int NQ>
+__device__ __forceinline__ void issue_kblock(float (&acc)[NQ / 2],
+                                             const uint32_t (&a)[4][4],
+                                             uint32_t b_lo, int kb) {
+#pragma unroll
+  for (int s = 0; s < 4; ++s) {
+    wg::Mma<NQ>::run(acc, a[s], b_desc_from<NQ>(b_lo, kb * 4 + s),
+                     kb + s > 0);
+  }
+}
+
+// K3's int8 body for D = 64 KB features. A block owns 64 buckets x 2 NQ
+// queries of the output and walks groups [g_begin, g_end) of its split
+// (blockIdx.z of gridDim.z). A producer warp brings each group's slab of
+// 64 code rows (contiguous: rows g*B + b0 .. + 63) into a ring of
+// `stages` stages with one bulk copy, and its 64 scales by cp.async, both
+// completing on the stage's `full` barrier. Two consumer warpgroups each
+// own NQ of the block's queries, stored once as wgmma's B operand; each
+// reads the slab's codes as A fragments, decodes them to bf16 in
+// registers, releases the stage (its `empty` barrier, one arrival a
+// warp), multiplies on wgmma in its turn and folds the group into a
+// running (max, group) in the accumulator layout. No block-wide barrier
+// follows the set-up. Writes its [Q, B] plane at vals / rows +
+// blockIdx.z * Q * B.
+template <int NQ, int KB>
 __global__ void __launch_bounds__(kInt8Threads, 1)
 bucketed_int8_kernel(const bf16* __restrict__ q,
                      const int8_t* __restrict__ codes,
                      const float* __restrict__ scales,
                      float* __restrict__ vals, int* __restrict__ rows,
-                     int num_q, int n, int d, int buckets, int valid_rows,
+                     int num_q, int n, int buckets, int valid_rows,
                      float mask_value, int stages) {
   constexpr int R = NQ / 2;  // accumulators a thread
+  constexpr int d = 64 * KB;  // features: KB k-blocks of 64
   // The query tile first (its K blocks 1024-byte aligned for the
   // swizzle), then the barriers and the ring.
   extern __shared__ __align__(1024) unsigned char smem_i8[];
@@ -558,6 +733,7 @@ bucketed_int8_kernel(const bf16* __restrict__ q,
       reinterpret_cast<uint64_t*>(qs + kConsumerWarpgroups * NQ * d * 2);
   uint64_t* empty = full + kMaxStages;
   unsigned char* ring = reinterpret_cast<unsigned char*>(full) + kBarrierBytes;
+  float* scale_ring = reinterpret_cast<float*>(ring + stages * d * kSlabRows);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int b0 = blockIdx.x * kSlabRows;
   const int q0 = blockIdx.y * kConsumerWarpgroups * NQ;
@@ -577,22 +753,33 @@ bucketed_int8_kernel(const bf16* __restrict__ q,
   __syncthreads();
 
   if (warp >= kConsumerWarps) {
-    // The producer: one lane keeps the ring full. 168 registers a thread
+    // The producer: one warp keeps the ring full. 168 registers a thread
     // at launch; the producer's 144 fewer give the consumers 72 more.
     wg::regs_dec<24>();
-    if (warp == kConsumerWarps && lane == 0) {
+    if (warp == kConsumerWarps) {
       // The block's last slab stops at bucket B (a row past it may be past
       // the corpus); the rows it leaves stale are never written out.
-      const uint32_t bytes =
-          static_cast<uint32_t>(min(kSlabRows, buckets - b0) * d);
+      const int slab_rows = min(kSlabRows, buckets - b0);
+      const uint32_t bytes = static_cast<uint32_t>(slab_rows * d);
       int stage = 0;
       uint32_t phase = 0;
       for (int grp = g_begin; grp < g_end; ++grp) {
         wg::mbar_wait(&empty[stage], phase ^ 1);
-        wg::mbar_expect_tx(&full[stage], bytes);
-        wg::bulk_load(ring + stage * slab_bytes,
-                      codes + (static_cast<int64_t>(grp) * buckets + b0) * d,
-                      bytes, &full[stage]);
+        // The group's scales, two a lane, by cp.async (4-byte aligned
+        // only), each lane's copies holding the stage's phase open until
+        // they land; then lane 0's one bulk copy of the codes.
+        const float* src = scales + static_cast<int64_t>(grp) * buckets + b0;
+        for (int i = lane; i < slab_rows; i += 32) {
+          cp_async4(scale_ring + stage * kSlabRows + i, src + i);
+        }
+        cp_async_arrive(&full[stage]);
+        __syncwarp();
+        if (lane == 0) {
+          wg::mbar_expect_tx(&full[stage], bytes);
+          wg::bulk_load(ring + stage * slab_bytes,
+                        codes + (static_cast<int64_t>(grp) * buckets + b0) * d,
+                        bytes, &full[stage]);
+        }
         if (++stage == stages) {
           stage = 0;
           phase ^= 1;
@@ -601,7 +788,10 @@ bucketed_int8_kernel(const bf16* __restrict__ q,
     }
   } else {
     wg::regs_inc<240>();
-    const int wgi = warp >> 2;  // consumer warpgroup
+    // The consumer warpgroup, as a warp-uniform value (a warp reduce
+    // lands in a uniform register), so that its B descriptors are formed
+    // once, in uniform registers.
+    const int wgi = __reduce_max_sync(0xffffffffu, warp >> 2);
     const int g = lane >> 2, t = lane & 3;
     // The query tile as B, once: warpgroup w's NQ queries at qs + w * NQ
     // * d * 2, features in `wg::code_k` order (rows past num_q zero).
@@ -628,7 +818,9 @@ bucketed_int8_kernel(const bf16* __restrict__ q,
 
     const int ra = (warp & 3) * 16 + g;  // the thread's slab rows ra, ra + 8
     const int bucket_a = b0 + ra, bucket_b = bucket_a + 8;
-    const uint32_t b_base = tc::smem_addr(qs + wgi * NQ * d * 2);
+    // The low word of the B descriptor of k-step 0 (wg::b_desc).
+    const uint32_t b_lo = static_cast<uint32_t>(
+        wg::b_desc<NQ>(tc::smem_addr(qs + wgi * NQ * d * 2), 0));
     float acc[R], best[R];
     int best_g[R];
 #pragma unroll
@@ -638,15 +830,8 @@ bucketed_int8_kernel(const bf16* __restrict__ q,
       best[i] = -CUDART_INF_F;
       best_g[i] = g_begin;
     }
-    const int kblocks = d / 64;
-    // The two scales of a group, loaded a group ahead of their fold.
-    auto scales_of = [&](int grp, float& sa, float& sb) {
-      const int row_a = grp * buckets + bucket_a;
-      sa = bucket_a < buckets ? __ldg(scales + row_a) : 0.f;
-      sb = bucket_b < buckets ? __ldg(scales + row_a + 8) : 0.f;
-    };
-    float next_a = 0.f, next_b = 0.f;
-    if (g_begin < g_end) scales_of(g_begin, next_a, next_b);
+    const uint32_t k43 = 0x43004300u;  // decode_kblock's constant
+    uint32_t updated = 0;  // chunks fold_group_fast updated
     // The two warpgroups take turns at the tensor cores, a turn a group
     // (named barriers 2 and 3), so that one's products run while the
     // other folds: warpgroup 0 goes first.
@@ -655,16 +840,21 @@ bucketed_int8_kernel(const bf16* __restrict__ q,
     uint32_t phase = 0;
     for (int grp = g_begin; grp < g_end; ++grp) {
       const int row_a = grp * buckets + bucket_a;
-      const float sa = next_a, sb = next_b;
-      if (grp + 1 < g_end) scales_of(grp + 1, next_a, next_b);
-      wg::mbar_wait(&full[stage], phase);
+      mbar_ready(&full[stage], phase);
+      // The rows' scales, read before the stage is released.
+      const float sa = scale_ring[stage * kSlabRows + ra];
+      const float sb = scale_ring[stage * kSlabRows + ra + 8];
       const unsigned char* lo = ring + stage * slab_bytes + ra * d + 16 * t;
-      for (int kb = 0; kb < kblocks; ++kb) {
-        const uint4 wa = *reinterpret_cast<const uint4*>(lo + kb * 64);
-        const uint4 wb = *reinterpret_cast<const uint4*>(lo + 8 * d + kb * 64);
-        uint32_t a[4][4];
-        wg::decode_int8(wa, wb, a);
-        const bool last = kb == kblocks - 1;
+      // Two k-blocks a step, both decoded before their products are
+      // issued as one commit group: no A register is written while a
+      // product that reads one is in flight. At D = 128 the turn holds
+      // the group's issues alone.
+#pragma unroll
+      for (int kb = 0; kb < KB; kb += 2) {
+        uint32_t a0[4][4], a1[4][4];
+        decode_kblock(lo, d, kb, k43, a0);
+        decode_kblock(lo, d, kb + 1, k43, a1);
+        const bool last = kb + 2 == KB;
         if (last) {
           // Every code of the stage is in registers: release it.
           __syncwarp();
@@ -673,13 +863,12 @@ bucketed_int8_kernel(const bf16* __restrict__ q,
         if (kb == 0) wg::named_sync(2 + wgi, 32 * kConsumerWarps);
         wg::fence();
         wg::hold(acc);
-#pragma unroll
-        for (int s = 0; s < 4; ++s) {
-          wg::Mma<NQ>::run(acc, a[s], wg::b_desc<NQ>(b_base, kb * 4 + s),
-                           kb + s > 0);
-        }
+        issue_kblock<NQ>(acc, a0, b_lo, kb);
+        issue_kblock<NQ>(acc, a1, b_lo, kb + 1);
         wg::commit();
-        // The other's turn next (warpgroup 1's last turn hands none on).
+        // The other's turn as soon as the last product is issued
+        // (warpgroup 1's last turn hands none on); the wait for them and
+        // the fold run outside the turn, beside the other's products.
         if (last && (wgi == 0 || grp + 1 < g_end)) {
           wg::named_arrive(3 - wgi, 32 * kConsumerWarps);
         }
@@ -687,12 +876,14 @@ bucketed_int8_kernel(const bf16* __restrict__ q,
         wg::wait<0>();
         wg::hold(acc);
       }
-      if ((grp + 1) * buckets <= valid_rows) {
-        fold_group<R, false>(acc, best, best_g, grp, sa, sb, row_a,
-                             valid_rows, mask_value);
-      } else {
+      if ((grp + 1) * buckets > valid_rows) {
         fold_group<R, true>(acc, best, best_g, grp, sa, sb, row_a,
                             valid_rows, mask_value);
+      } else if (grp - g_begin >= kFastFoldAfter) {
+        fold_group_fast<R>(acc, best, best_g, grp, sa, sb, updated);
+      } else {
+        fold_group<R, false>(acc, best, best_g, grp, sa, sb, row_a,
+                             valid_rows, mask_value);
       }
       if (++stage == stages) {
         stage = 0;
@@ -700,6 +891,15 @@ bucketed_int8_kernel(const bf16* __restrict__ q,
       }
     }
 
+    if (lane == 0) {
+      // Groups the fast fold took: those past kFastFoldAfter, but not the
+      // masked ones at the corpus' end.
+      const int fast = max(0, min(g_end, valid_rows / buckets) -
+                                  (g_begin + kFastFoldAfter));
+      atomicAdd(&g_fold_checked, static_cast<unsigned long long>(fast) *
+                                     (R / kFoldChunk));
+      atomicAdd(&g_fold_updated, static_cast<unsigned long long>(updated));
+    }
     const int64_t plane = static_cast<int64_t>(blockIdx.z) * num_q * buckets;
 #pragma unroll
     for (int i = 0; i < R; ++i) {
@@ -714,21 +914,17 @@ bucketed_int8_kernel(const bf16* __restrict__ q,
   }
 }
 
-template <int NQ>
+template <int NQ, int KB>
 cudaError_t launch_int8(const bf16* q, const int8_t* c, const float* scales,
                         float* vals, int* rows, int num_q, int64_t n, int d,
                         int buckets, int64_t valid_rows, float mask_value,
                         int splits, float* split_vals, int* split_rows,
                         cudaStream_t stream) {
-  constexpr size_t kMaxBytes = 232448;  // 227 KB a block on the H100
   const size_t fixed = int8_smem(NQ, d, 0);
-  const size_t slab = static_cast<size_t>(kSlabRows) * d;
-  const int stages = fixed + 2 * slab > kMaxBytes
-                         ? 0
-                         : static_cast<int>(std::min<size_t>(
-                               kMaxStages, (kMaxBytes - fixed) / slab));
-  if (stages < 2) return cudaErrorInvalidValue;
-  auto kernel = bucketed_int8_kernel<NQ>;
+  const size_t slab = int8_smem(NQ, d, 1) - fixed;  // a stage
+  const int stages = static_cast<int>(
+      std::min<size_t>(kMaxStages, (kInt8MaxSmem - fixed) / slab));
+  auto kernel = bucketed_int8_kernel<NQ, KB>;
   const size_t smem = int8_smem(NQ, d, stages);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -738,7 +934,7 @@ cudaError_t launch_int8(const bf16* q, const int8_t* c, const float* scales,
                   (num_q + 2 * NQ - 1) / (2 * NQ), splits);
   kernel<<<grid, kInt8Threads, smem, stream>>>(
       q, c, scales, splits > 1 ? split_vals : vals,
-      splits > 1 ? split_rows : rows, num_q, static_cast<int>(n), d, buckets,
+      splits > 1 ? split_rows : rows, num_q, static_cast<int>(n), buckets,
       static_cast<int>(std::min<int64_t>(valid_rows, n)), mask_value, stages);
   err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) return err;
@@ -747,6 +943,35 @@ cudaError_t launch_int8(const bf16* q, const int8_t* c, const float* scales,
                         stream>>>(split_vals, split_rows, plane, splits, vals,
                                   rows);
   return cudaGetLastError();
+}
+
+// The instance for D = d: a width of 128 to 768 features whose query tile
+// and two stages fit a block's shared memory.
+template <int NQ>
+cudaError_t launch_int8_width(const bf16* q, const int8_t* c,
+                              const float* scales, float* vals, int* rows,
+                              int num_q, int64_t n, int d, int buckets,
+                              int64_t valid_rows, float mask_value,
+                              int splits, float* split_vals, int* split_rows,
+                              cudaStream_t stream) {
+  switch (d) {
+#define RTPU_INT8(KB)                                                       \
+  case 64 * KB:                                                             \
+    if constexpr (int8_smem(NQ, 64 * KB, 2) <= kInt8MaxSmem) {             \
+      return launch_int8<NQ, KB>(q, c, scales, vals, rows, num_q, n, d,     \
+                                 buckets, valid_rows, mask_value, splits,   \
+                                 split_vals, split_rows, stream);           \
+    }                                                                       \
+    break;
+    RTPU_INT8(2)
+    RTPU_INT8(4)
+    RTPU_INT8(6)
+    RTPU_INT8(8)
+    RTPU_INT8(10)
+    RTPU_INT8(12)
+#undef RTPU_INT8
+  }
+  return cudaErrorInvalidValue;
 }
 
 // query_tile is the block's 2 NQ queries: 256, 128 or 64.
@@ -759,15 +984,20 @@ cudaError_t launch_int8_tile(int query_tile, const void* q, const void* c,
   const bf16* qb = static_cast<const bf16*>(q);
   const int8_t* codes = static_cast<const int8_t*>(c);
   switch (query_tile) {
-#define RTPU_INT8(NQ)                                                       \
-  launch_int8<NQ>(qb, codes, scales, vals, rows, num_q, n, d, buckets,      \
-                  valid_rows, mask_value, splits, split_vals, split_rows,   \
-                  stream)
-    case 256: return RTPU_INT8(128);
-    case 128: return RTPU_INT8(64);
-    case 64: return RTPU_INT8(32);
-#undef RTPU_INT8
-    default: return cudaErrorInvalidValue;
+    case 256:
+      return launch_int8_width<128>(qb, codes, scales, vals, rows, num_q, n,
+                                    d, buckets, valid_rows, mask_value,
+                                    splits, split_vals, split_rows, stream);
+    case 128:
+      return launch_int8_width<64>(qb, codes, scales, vals, rows, num_q, n,
+                                   d, buckets, valid_rows, mask_value, splits,
+                                   split_vals, split_rows, stream);
+    case 64:
+      return launch_int8_width<32>(qb, codes, scales, vals, rows, num_q, n,
+                                   d, buckets, valid_rows, mask_value, splits,
+                                   split_vals, split_rows, stream);
+    default:
+      return cudaErrorInvalidValue;
   }
 }
 
@@ -873,6 +1103,28 @@ int bucketed_scores_launch(int format, int bf16, const void* q, const void* c,
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// The fast fold's chunks checked and updated (`bucketed_int8_kernel`)
+// since the library loaded or the last reset; waits for the device. For
+// the end of a run, never inside a request.
+int bucketed_scores_fold_counts(long long* checked, long long* updated,
+                                int reset) {
+  unsigned long long c = 0, u = 0;
+  cudaError_t err = cudaMemcpyFromSymbol(&c, g_fold_checked, sizeof(c));
+  if (err == cudaSuccess) {
+    err = cudaMemcpyFromSymbol(&u, g_fold_updated, sizeof(u));
+  }
+  if (err == cudaSuccess && reset) {
+    const unsigned long long zero = 0;
+    err = cudaMemcpyToSymbol(g_fold_checked, &zero, sizeof(zero));
+    if (err == cudaSuccess) {
+      err = cudaMemcpyToSymbol(g_fold_updated, &zero, sizeof(zero));
+    }
+  }
+  *checked = static_cast<long long>(c);
+  *updated = static_cast<long long>(u);
+  return static_cast<int>(err);
 }
 
 const char* bucketed_scores_error_string(int err) {

@@ -253,6 +253,24 @@ def reset_op_launches() -> None:
     _ops_counters().recommenders_tpu_torch_reset_launches()
 
 
+def k3_fold_counts(reset: bool = False) -> Dict[str, int]:
+    """K3 int8's fast fold (`csrc/bucketed_scores.cu`, `fold_group_fast`)
+    over every launch since the library loaded or the last reset: the
+    chunks of 32 x 16 scores its compare-only pass checked, and those that
+    took the update. Reading waits for the card, so it belongs at the end
+    of a run, never inside a request; `reset` clears the counts after."""
+    fn = _ops_counters().bucketed_scores_fold_counts
+    fn.argtypes = [ctypes.POINTER(ctypes.c_longlong),
+                   ctypes.POINTER(ctypes.c_longlong), ctypes.c_int]
+    fn.restype = ctypes.c_int
+    checked, updated = ctypes.c_longlong(), ctypes.c_longlong()
+    err = fn(ctypes.byref(checked), ctypes.byref(updated), int(reset))
+    if err != 0:
+        raise RuntimeError(f"reading K3's fold counts failed (cudaError "
+                           f"{err})")
+    return {"checked": checked.value, "updated": updated.value}
+
+
 @functools.lru_cache(maxsize=None)
 def library(name: str) -> ctypes.CDLL:
     """The loaded shared library of `csrc/<name>.cu`, built if needed."""

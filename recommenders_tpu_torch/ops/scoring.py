@@ -24,7 +24,10 @@ run on Hopper's `wgmma`, fed by bulk copies. `_tc_plan` (`_int8_plan`
 for int8) picks the query tile and how many blocks share one tile's
 walk over the row groups (a second small kernel merges those). Its
 `launches` attribute counts wrapper launches of the kernel (and
-`launches_by_format` splits them by corpus format).
+`launches_by_format` splits them by corpus format;
+`launches_by_int8_tile` splits the int8 ones by query tile, which with
+the width picks the body's instance, `bucketed_int8_kernel<tile / 2,
+D / 64>`).
 """
 
 from __future__ import annotations
@@ -69,7 +72,8 @@ _F32_RING_BYTES = 2 * 64 * 136 * 4
 # The int8 body (`bucketed_int8_kernel`): a block of two consumer
 # warpgroups owns 64 buckets x a query tile of 256, 128 or 64, the tile
 # kept as bf16 in shared memory beside barriers and a ring of 2 .. 8
-# slabs of 64 code rows; its registers hold one block an SM.
+# stages, each 64 code rows and their 64 f32 scales; its registers hold
+# one block an SM.
 _INT8_TILES = (256, 128, 64)
 _INT8_BARRIER_BYTES = 128
 
@@ -179,6 +183,7 @@ bucketed_scores.launches = 0
 bucketed_scores.launches_by_format = {
     "f32": 0, "bf16": 0, "int8": 0, "int4": 0,
 }
+bucketed_scores.launches_by_int8_tile = dict.fromkeys(_INT8_TILES, 0)
 
 
 def _bucketed_scores_fake(queries, candidates, scales, fmt, buckets,
@@ -216,12 +221,18 @@ def _tc_plan(qn: int, n: int, d: int, buckets: int, sms: int,
     return tq, max(1, min(n // buckets, -(-per_sm * sms // blocks)))
 
 
+def _int8_stage_bytes(d: int) -> int:
+    """Shared bytes of one stage of the int8 body's ring: 64 code rows of
+    D bytes and their 64 f32 scales."""
+    return _BUCKET_TILE * (d + 4)
+
+
 def _int8_tile(qn: int, d: int) -> int:
     """The int8 body's query tile: the largest of 256, 128 and 64 whose
-    bf16 rows and a ring of two 64-row code slabs fit a block's shared
-    memory, halved while half of it still holds every query."""
+    bf16 rows and a ring of two stages fit a block's shared memory,
+    halved while half of it still holds every query."""
     tq = next(t for t in _INT8_TILES
-              if _INT8_BARRIER_BYTES + 2 * t * d + 2 * 64 * d
+              if _INT8_BARRIER_BYTES + 2 * t * d + 2 * _int8_stage_bytes(d)
               <= _SMEM_PER_BLOCK)
     while tq > _INT8_TILES[-1] and qn <= tq // 2:
         tq //= 2
@@ -306,6 +317,8 @@ def _launch(
     if not torch.compiler.is_compiling():   # an export's trace launches none
         bucketed_scores.launches += 1
         bucketed_scores.launches_by_format[name] += 1
+        if name == "int8":
+            bucketed_scores.launches_by_int8_tile[tq] += 1
     return vals, rows
 
 

@@ -61,7 +61,11 @@ Bucketed int8 and ScaNN int8 built once through `index_streamed`, the
 serving smoke's (phase 7's Bucketed int8, phase 16's `int8_bucketed`
 ScaNN, their first request): each by CUDA-graph replay (10 calls
 captured, 3 replays) and as eager wrapper calls (the mean of 10 between
-CUDA events), 3 times.
+CUDA events), 3 times; then a sha256 of one K3 call's `vals` and `rows`
+at each shape, so two checkouts' runs show whether K3 answers bit for
+bit the same, and, where the package counts them, K3's int8 launches by
+query tile (the body's instance) and its fast fold's chunks checked and
+updated over one 100M call.
 
 `k5-splits`: K5's bf16, int8 and int4 bodies as `leaf` calls them, by
 CUDA-graph replay, with `leaf_scoring._K5_BLOCKS_PER_SM` (the blocks an
@@ -81,10 +85,13 @@ JSON object of the readings. Without CUDA it exits non-zero.
 from __future__ import annotations
 
 import argparse
+import functools
+import hashlib
 import importlib.util
 import json
 import sys
 from pathlib import Path
+from typing import Optional
 
 import torch
 
@@ -283,6 +290,37 @@ def _reads(cs, name: str, fn, device: torch.device) -> dict:
     return {"graph_ms": graph, "call_ms": calls}
 
 
+def _digest(name: str, fn) -> str:
+    """A digest of one call's outputs (K3's `vals` and `rows`), so two
+    checkouts' runs show whether they answer bit for bit the same."""
+    h = hashlib.sha256()
+    for t in fn():
+        h.update(t.contiguous().view(torch.uint8).cpu().numpy().tobytes())
+    print(f"  {name}: outputs sha256 {h.hexdigest()[:16]}", flush=True)
+    return h.hexdigest()
+
+
+def _int8_tiles(cs) -> Optional[dict]:
+    """K3 int8 launches by query tile, where the package counts them."""
+    by = getattr(cs.scoring.bucketed_scores, "launches_by_int8_tile", None)
+    print(f"  K3 int8 launches by query tile: {by}", flush=True)
+    return None if by is None else {str(k): v for k, v in by.items()}
+
+
+def _fold_counts(cs, name: str, fn) -> Optional[dict]:
+    """K3's fast-fold counts over one call, where the package has them."""
+    counts = getattr(cs.cuda_build, "k3_fold_counts", None)
+    if counts is None:
+        return None
+    counts(reset=True)
+    fn()
+    got = counts(reset=True)
+    share = got["updated"] / max(got["checked"], 1)
+    print(f"  {name}: fast fold checked {got['checked']} chunks, updated "
+          f"{got['updated']} ({share:.4f})", flush=True)
+    return got
+
+
 def scale(cs, device: torch.device) -> dict:
     size = cs.ScaleSize()
     readings = {}
@@ -293,10 +331,11 @@ def scale(cs, device: torch.device) -> dict:
         k=cs.K, device=device, **cs.BUCKETED["int8"]).index(corpus)
     kw = dict(buckets=index._buckets, chunk=index._chunk,
               query_tile=index._query_tile, valid_rows=serving.items)
-    readings["K3 int8 1M"] = _reads(
-        cs, "K3 int8 1M", lambda: cs.scoring.bucketed_scores(
-            queries, index._candidates, index._scales, **kw), device)
-    del index, corpus, queries
+    k3 = functools.partial(cs.scoring.bucketed_scores, queries,
+                           index._candidates, index._scales, **kw)
+    readings["K3 int8 1M"] = _reads(cs, "K3 int8 1M", k3, device)
+    readings["K3 int8 1M"]["sha256"] = _digest("K3 int8 1M", k3)
+    del k3, index, corpus, queries
     scann_size = cs.ScannSize(requests=1)
     corpus_np, requests_np = cs.clustered_data(scann_size, SEED)
     settings = cs.scann_configs(scann_size)[cs.MAIN_INDEX][0]
@@ -321,12 +360,14 @@ def scale(cs, device: torch.device) -> dict:
         k=cs.K, buckets=size.buckets, chunk=size.chunk,
         query_tile=size.query_tile, quantize="int8",
         device=device).index_streamed(batches, num_rows=size.rows)
-    readings["K3 int8 100M"] = _reads(
-        cs, "K3 int8 100M", lambda: cs.scoring.bucketed_scores(
-            queries, index._candidates, index._scales,
-            buckets=index._buckets, chunk=index._chunk,
-            query_tile=index._query_tile,
-            valid_rows=index._num_candidates), device)
+    k3 = functools.partial(
+        cs.scoring.bucketed_scores, queries, index._candidates,
+        index._scales, buckets=index._buckets, chunk=index._chunk,
+        query_tile=index._query_tile, valid_rows=index._num_candidates)
+    readings["K3 int8 100M"] = _reads(cs, "K3 int8 100M", k3, device)
+    readings["K3 int8 100M"]["sha256"] = _digest("K3 int8 100M", k3)
+    readings["K3 int8 100M"]["fold"] = _fold_counts(cs, "K3 int8 100M", k3)
+    readings["K3 int8 launches by query tile"] = _int8_tiles(cs)
     return {"scale": readings}
 
 

@@ -38,10 +38,19 @@ def device():
     return torch.device("cuda")
 
 
-def _inputs(fmt, q, n, d, device):
+def _inputs(fmt, q, n, d, device, values="randn"):
+    """Queries and a corpus in `fmt`; with values "integers", both drawn
+    from the integers -3 .. 3, so that every body's sums are exact and the
+    kernel must equal its twin bit for bit."""
     g = torch.Generator(device=device).manual_seed(0)
-    queries = torch.randn(q, d, device=device, generator=g)
-    corpus = torch.randn(n, d, device=device, generator=g)
+    if values == "integers":
+        queries = torch.randint(-3, 4, (q, d), device=device,
+                                generator=g).float()
+        corpus = torch.randint(-3, 4, (n, d), device=device,
+                               generator=g).float()
+    else:
+        queries = torch.randn(q, d, device=device, generator=g)
+        corpus = torch.randn(n, d, device=device, generator=g)
     if fmt == "f32":
         return queries, corpus, None, False, corpus
     if fmt == "bf16":
@@ -55,23 +64,38 @@ def _inputs(fmt, q, n, d, device):
     return queries, codes, scales, bits == 4, deq
 
 
-def _inputs_with_ties(fmt, q, n, buckets, d, device):
+def _inputs_with_ties(fmt, q, n, buckets, d, device, late=None):
     """`_inputs` whose every row group repeats group 0, so every score
-    ties across the groups of its bucket."""
+    ties across the groups of its bucket. With `late`, the queries are
+    integers, group 0's rows too, and every group from `late` on doubles
+    group 0 (its rows, or for codes its scales), so a positive score's best
+    first appears there and ties with every later group."""
     g = torch.Generator(device=device).manual_seed(0)
-    queries = torch.randn(q, d, device=device, generator=g)
-    corpus = torch.randn(buckets, d, device=device, generator=g).repeat(
-        n // buckets, 1)
+    if late is None:
+        queries = torch.randn(q, d, device=device, generator=g)
+        base = torch.randn(buckets, d, device=device, generator=g)
+    else:
+        queries = torch.randint(-3, 4, (q, d), device=device,
+                                generator=g).float()
+        base = torch.randint(-3, 4, (buckets, d), device=device,
+                             generator=g).float()
+    times = torch.ones(n // buckets, device=device)
+    if late is not None:
+        times[late:] = 2.0
     if fmt in ("f32", "bf16"):
         dtype = torch.float32 if fmt == "f32" else torch.bfloat16
-        return queries.to(dtype), corpus.to(dtype), None, False
+        corpus = (base.to(dtype)[None] * times[:, None, None].to(dtype))
+        return queries.to(dtype), corpus.reshape(n, d), None, False
     bits = 4 if fmt == "int4" else 8
-    scales, codes = quantization.quantize_rows_device(corpus, 0.2, bits=bits)
+    scales, codes = quantization.quantize_rows_device(base, 0.2, bits=bits)
+    codes = codes.repeat(n // buckets, 1)
+    scales = (scales[None] * times[:, None]).reshape(n)
     if bits == 4:
         codes = quantization.pack_nibbles(codes)
     return queries, codes, scales, bits == 4
 
 
+@pytest.mark.parametrize("values", ["randn", "integers"])
 @pytest.mark.parametrize("fmt", FORMATS)
 @pytest.mark.parametrize("q,n,buckets,valid,d", [
     (40, 8192, 256, 8000, 128), (64, 4096, 512, 4096, 128),
@@ -83,9 +107,22 @@ def _inputs_with_ties(fmt, q, n, buckets, d, device):
     (40, 2048, 128, 2000, 768),       # the widest D (f32: 32-query tiles)
     (100, 8960, 320, 8900, 256),      # int8: a ragged 128-query tile
     (200, 9984, 96, 9900, 512),       # int8: 128-query tiles, 3 stages
+    # int8: each query tile at each width a tile holds, ragged tiles and
+    # masked rows in the last group, one walk or split walks:
+    (96, 8192, 256, 8100, 128),       # 128-query tile at D = 128
+    (256, 16384, 256, 16000, 256),    # 256-query tile at D = 256
+    (33, 8192, 256, 8100, 256),       # 64-query tile at D = 256
+    (128, 8192, 128, 8000, 512),      # 128-query tile at D = 512
+    (64, 4096, 128, 4000, 512),       # 64-query tile at D = 512
+    # int8: walks of 1,060 groups, past the fast fold's first 1,024
+    (32, 8_960_000, 64, 8_959_990, 128),
 ])
-def test_kernel_matches_twin(device, fmt, q, n, buckets, valid, d):
-    queries, stored, scales, packed4, deq = _inputs(fmt, q, n, d, device)
+def test_kernel_matches_twin(device, fmt, q, n, buckets, valid, d, values):
+    """The kernel against its twin: within the sums' tolerance on normal
+    values, and bit for bit (values and rows) on integers, whose sums are
+    exact in every body, where ties are many and go to the lowest row."""
+    queries, stored, scales, packed4, deq = _inputs(fmt, q, n, d, device,
+                                                     values)
     chunk = buckets
     if packed4:  # int4 needs the buckets to divide chunk/2, 128 | chunk/2.
         buckets = min(buckets, n // 2)
@@ -102,6 +139,9 @@ def test_kernel_matches_twin(device, fmt, q, n, buckets, valid, d):
         queries, stored, scales, buckets=buckets, valid_rows=valid,
         packed4=packed4,
     )
+    if values == "integers":
+        assert torch.equal(vals, ref_v) and torch.equal(rows, ref_r)
+        return
     qf = queries.float()
     if scales is not None:
         qf = queries.bfloat16().float()
@@ -120,27 +160,42 @@ def test_kernel_matches_twin(device, fmt, q, n, buckets, valid, d):
 
 
 @pytest.mark.parametrize("fmt", FORMATS)
-@pytest.mark.parametrize("q,n,buckets,valid,d", [
-    (64, 8192, 512, 8192, 128), (256, 16384, 128, 16384, 128),
-    (130, 16640, 160, 16500, 256),    # ragged tiles, masked rows
-    (72, 8192, 512, 8000, 512),
+@pytest.mark.parametrize("q,n,buckets,valid,d,late", [
+    (64, 8192, 512, 8192, 128, None), (256, 16384, 128, 16384, 128, None),
+    (130, 16640, 160, 16500, 256, None),    # ragged tiles, masked rows
+    (72, 8192, 512, 8000, 512, None),
+    # Integer queries, groups from `late` on doubled: a positive score's
+    # best first appears in a later group (a later split's walk, or, at
+    # 9M rows, past the fast fold's first 1,024 groups of the last walk)
+    # and ties with every group after it.
+    (64, 8192, 512, 8192, 128, 11), (130, 16640, 160, 16500, 256, 57),
+    (256, 16384, 128, 16384, 128, 100), (72, 8192, 512, 8000, 512, 9),
+    (32, 8_960_000, 64, 8_960_000, 128, 139_969),
 ])
 def test_kernel_ties_go_to_the_lowest_row(device, fmt, q, n, buckets, valid,
-                                          d):
+                                          d, late):
     """Every group repeats group 0, so each bucket's best score ties over
     all its rows (split walks and merges included): the kernel must
-    report group 0's row, with the twin's value."""
-    queries, stored, scales, packed4 = _inputs_with_ties(fmt, q, n, buckets,
-                                                         d, device)
+    report group 0's row, with the twin's value. With `late`, a positive
+    score's best is the first doubled group's row, a negative one's group
+    0's, bit for bit the twin's."""
+    queries, stored, scales, packed4 = _inputs_with_ties(
+        fmt, q, n, buckets, d, device, late)
     vals, rows = scoring.bucketed_scores(
         queries, stored, scales, buckets=buckets,
         chunk=2 * math.lcm(buckets, 128) if packed4 else buckets,
         query_tile=q, valid_rows=valid, packed4=packed4)
     torch.cuda.synchronize()
-    ref_v, _ = scoring.bucketed_scores_reference(
+    ref_v, ref_r = scoring.bucketed_scores_reference(
         queries, stored, scales, buckets=buckets, valid_rows=valid,
         packed4=packed4)
     want = torch.arange(buckets, dtype=torch.int32, device=device)
+    if late is not None:
+        want = torch.where(vals > 0, want + late * buckets, want)
+        assert bool((vals > 0).any()) and bool((vals < 0).any())
+        assert torch.equal(vals, ref_v) and torch.equal(rows, ref_r)
+        assert torch.equal(rows, want)
+        return
     assert torch.equal(rows, want.expand(q, buckets))
     qf = queries.bfloat16().float() if scales is not None else queries.float()
     deq = (quantization.unpack_nibbles(stored) if packed4 else stored).float()
@@ -899,11 +954,18 @@ def test_serving_kernels_launch_through_the_dispatcher_ops(device):
             is torch.ops.recommenders_tpu_torch.probed_bucketed_scores)
     cuda_build.reset_op_launches()
     before = scoring.bucketed_scores.launches_by_format["int8"]
+    by_tile = dict(scoring.bucketed_scores.launches_by_int8_tile)
+    cuda_build.k3_fold_counts(reset=True)
     q, codes, scales, _, _ = _inputs("int8", 64, 4096, 128, device)
     scoring.bucketed_scores(q, codes, scales, buckets=512, chunk=512,
                             query_tile=64)
     assert scoring.bucketed_scores.launches_by_format["int8"] == before + 1
     assert cuda_build.op_launches()["bucketed_scores"]["int8"] == 1
+    # 64 queries take the 64-query instance; a walk of 8 groups never
+    # reaches the fast fold.
+    by_tile[64] += 1
+    assert scoring.bucketed_scores.launches_by_int8_tile == by_tile
+    assert cuda_build.k3_fold_counts() == {"checked": 0, "updated": 0}
     with pytest.raises(RuntimeError):
         op(q.bfloat16().cpu(), codes.cpu(), scales.cpu(), 1, 512, 4096,
            64, 1, scoring.MIN_FLOAT)

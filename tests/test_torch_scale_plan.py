@@ -45,8 +45,9 @@ def test_k3_int8_plan_is_one_wave_that_walks_every_group_once(shape):
     # tiles' blocks are two waves unsplit.
     assert blocks * splits <= SMS or splits == 1
     assert blocks * (splits + 1) > SMS
-    # 2 tq bf16 rows of the query tile and two 64-row code slabs fit.
-    assert 128 + 2 * tq * d + 2 * 64 * d <= SMEM
+    # 2 tq bf16 rows of the query tile and two stages of 64 code rows
+    # and their f32 scales fit.
+    assert 128 + 2 * tq * d + 2 * 64 * (d + 4) <= SMEM
     groups = n // buckets
     walked = [g for lo, hi in _group_ranges(groups, splits)
               for g in range(lo, hi)]
@@ -63,8 +64,20 @@ def test_k3_int8_plan_is_one_wave_that_walks_every_group_once(shape):
 def test_k3_int8_query_tile_fits_and_is_no_wider_than_needed(qn, d, tile):
     tq = scoring._int8_tile(qn, d)
     assert tq == tile
-    assert 128 + 2 * tq * d + 2 * 64 * d <= SMEM
+    assert 128 + 2 * tq * d + 2 * scoring._int8_stage_bytes(d) <= SMEM
     assert tq == 64 or qn > tq // 2           # halved while it holds Q
+
+
+@pytest.mark.parametrize("shape", sorted(K3_SHAPES))
+def test_k3_int8_ring_keeps_eight_stages_with_the_scales(shape):
+    """A stage carries its 64 rows' f32 scales beside their codes; at the
+    served shapes the ring still holds its eight stages (the body's
+    `int8_smem`: the tile, 128 bytes of barriers, the stages)."""
+    (qn, n, d, buckets), _ = K3_SHAPES[shape]
+    tq, _ = scoring._int8_plan(qn, n, d, buckets, SMS)
+    assert scoring._int8_stage_bytes(d) == 64 * d + 64 * 4
+    fixed = 128 + 2 * (tq // 2) * d * 2
+    assert (SMEM - fixed) // scoring._int8_stage_bytes(d) >= 8
 
 
 # K5's int8 body (`csrc/leaf_scoring.cu`, `leaf_scoring.int8_splits`):
