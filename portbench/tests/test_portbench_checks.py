@@ -1,6 +1,9 @@
-"""`correct` at a size the CPU holds: a sound run passes; the control
-(the reference at int4 in the program's place) and each fault a serving
-cell can have, planted under the timed path, fail."""
+"""`correct` at a size the CPU holds (each configuration's
+`tiny/<config>.json`): a sound run passes; the control (the reference a
+precision down in the program's place) and each fault that the cell's
+runner contract (`contracts/<runner>.py`) declares for its configuration,
+planted under the timed path, fail; a traced run reads the cell's listed
+per-layer metrics but those the contract names as silent on the CPU."""
 
 import importlib.util
 import json
@@ -9,25 +12,22 @@ import sys
 import pytest
 import torch
 
-from conftest import ROOT
-from conftest import tiny
-from portbench import control
 from portbench import run
+from portbench.tests import shared
 
 CPU = torch.device("cpu")
-CELLS = [w["name"] for w in json.loads(
-    (ROOT / "BENCHMARK.json").read_text())["workloads"]]
+CELLS = shared.cells()
+# Each configuration once, with the first of its cells: the control
+# serves all of a configuration's cells in one process.
+CONFIGS = {}
+for _cell in CELLS:
+    CONFIGS.setdefault(shared.cell_file(_cell)["config"], _cell)
 
 
-def _limits(cell: str) -> dict:
-    return json.loads((ROOT / "portbench" / "workloads"
-                       / f"{cell}.json").read_text())["limits"]
-
-
-def _run(cell: str, capsys, wrap=None) -> dict:
+def _run(cell: str, capsys, wrap=None, trace=0) -> dict:
     rc = run.main(["--workload", cell, "--seed", "2147483659", "--seconds",
-                   "0.3", "--trace", "0"], device=CPU, wrap=wrap,
-                  sizes=tiny(cell))
+                   "0.3", "--trace", str(trace)], device=CPU, wrap=wrap,
+                  sizes=shared.tiny(cell))
     assert rc == 0
     return json.loads(capsys.readouterr().out.strip().splitlines()[-1])
 
@@ -37,114 +37,37 @@ def test_a_sound_run_is_correct(cell, capsys):
     result = _run(cell, capsys)
     assert result["correct"] and result["failed"] == 0
     assert list(result)[-1] == "checks"
-    assert set(result["metrics"]) == {"qps", "request_p95_ms", "setup_s"}
+    assert set(result["metrics"]) == set(shared.applied("end_to_end", cell))
 
 
-@pytest.mark.parametrize("config", ["scann-int8-100m", "bucketed-int8-100m"])
-def test_the_control_fails_every_number(config, capsys):
-    cell = f"{config}.q256"
-    assert control.main(["--config", config, "--seeds", "1", "2",
-                         "--seconds", "0.2"], device=CPU,
-                        sizes=tiny(cell)) == 0
-    for line in capsys.readouterr().out.strip().splitlines():
-        reading = json.loads(line)
-        limits = _limits(reading["cell"])
+@pytest.mark.parametrize("config", list(CONFIGS))
+def test_the_control_fails_every_number(config):
+    cell = CONFIGS[config]
+    contract = shared.contract_of(cell)
+    readings = contract.control(config, shared.tiny(cell), CPU)
+    assert readings
+    for reading in readings:
+        limits = shared.cell_file(reading["cell"])["limits"]
         for name, limit in limits.items():
             assert reading["program"][name] <= limit, (name, reading)
-            assert reading["control"][name] > limit, (name, reading)
+        for name in contract.CONTROL_FAILS:
+            assert reading["control"][name] > limits[name], (name, reading)
+        assert any(reading["control"][n] > limits[n] for n in limits)
         for fault, found in reading["faults"].items():
             assert any(found[n] > limits[n] for n in limits), (fault, found)
 
 
-class Stale:
-    """Answers each request with the previous request's answer."""
-
-    def __init__(self, index):
-        self.index, self.last = index, None
-
-    def __call__(self, queries, k):
-        out = self.index(queries, k)
-        last, self.last = self.last, out
-        return out if last is None else last
-
-
-class HalfBatch:
-    """Answers the first half of the queries; the second half gets the
-    first half's answers."""
-
-    def __init__(self, index):
-        self.index = index
-
-    def __call__(self, queries, k):
-        half = queries.shape[0] // 2
-        scores, ids = self.index(queries[:half], k)
-        return torch.cat([scores, scores]), torch.cat([ids, ids])
-
-
-class Altered:
-    """Changes one returned row of every answer to another row."""
-
-    def __init__(self, index):
-        self.index = index
-
-    def __call__(self, queries, k):
-        scores, ids = self.index(queries, k)
-        ids = ids.clone()
-        ids[0, -1] = (ids[0, -1] + 1) % 20000
-        while bool((ids[0, :-1] == ids[0, -1]).any()):
-            ids[0, -1] = (ids[0, -1] + 1) % 20000
-        return scores, ids
-
-
-class DroppedRows:
-    """Leaves every 100th stored row out of the scan: its scale reads 0
-    while the index answers, and is put back between requests."""
-
-    def __init__(self, index):
-        self.index = index
-        self.name = ("_leaf_scales" if hasattr(index, "_leaf_scales")
-                     else "_scales")
-
-    def __call__(self, queries, k):
-        kept = getattr(self.index, self.name)
-        dropped = kept.clone()
-        dropped.view(-1)[::100] = 0.0
-        setattr(self.index, self.name, dropped)
-        try:
-            return self.index(queries, k)
-        finally:
-            setattr(self.index, self.name, kept)
-
-
-class HalfProbes:
-    """A ScaNN index that probes half of its leaves."""
-
-    def __init__(self, index):
-        self.index = index
-        index._num_probes //= 2
-
-    def __call__(self, queries, k):
-        return self.index(queries, k)
-
-
-class WrongLeaves:
-    """A ScaNN partition whose centroids no longer match their leaves:
-    the rows sit in the wrong leaves, and the reference, which follows
-    the partition the index built, follows it too."""
-
-    def __init__(self, index):
-        self.index = index
-        index._centroids = torch.roll(index._centroids, 1, dims=0)
-
-    def __call__(self, queries, k):
-        return self.index(queries, k)
+@pytest.mark.parametrize("cell", CELLS)
+def test_a_traced_cpu_run_reads_its_listed_metrics(cell, capsys):
+    result = _run(cell, capsys, trace=1)
+    assert result["correct"]
+    silent = shared.contract_of(cell).SILENT_ON_CPU
+    for name in shared.applied("per_layer", cell):
+        assert (name in result["metrics"]) != (name in silent), name
 
 
 FAULTS = [(cell, fault) for cell in CELLS
-          for fault in (Stale, HalfBatch, Altered, DroppedRows, HalfProbes,
-                        WrongLeaves)
-          if cell.startswith("scann") or fault not in (HalfProbes,
-                                                       WrongLeaves)]
+          for fault in shared.faults_of(cell)]
 
 
 @pytest.mark.parametrize("cell,fault", FAULTS)
@@ -176,7 +99,7 @@ def test_a_metric_that_loads_jax_prints_no_result(tmp_path, monkeypatch,
     try:
         rc = run.main(["--workload", cell, "--seed", "5", "--seconds",
                        "0.2", "--trace", "1"], device=CPU,
-                      sizes=tiny(cell))
+                      sizes=shared.tiny(cell))
     finally:
         sys.modules.pop("jax", None)
     captured = capsys.readouterr()

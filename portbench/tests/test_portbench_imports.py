@@ -8,7 +8,7 @@ import sys
 import pytest
 import torch
 
-from conftest import ROOT
+from portbench.tests.shared import ROOT
 
 FORBIDDEN = {"jax", "jaxlib", "flax", "recommenders_tpu"}
 REFERENCE = ROOT / "portbench" / "reference"
@@ -27,8 +27,7 @@ def test_a_whole_run_loads_no_jax():
     # and every per-layer metric.
     loaded = _loaded_after(
         "import sys, torch\n"
-        "sys.path.insert(0, 'portbench/tests')\n"
-        "from conftest import tiny\n"
+        "from portbench.tests.shared import tiny\n"
         "from portbench import run\n"
         "cell = 'scann-int8-100m.q256'\n"
         "rc = run.main(['--workload', cell, '--seed', '1', '--seconds', "

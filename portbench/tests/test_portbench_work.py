@@ -5,10 +5,10 @@ import importlib.util
 
 import pytest
 
-from conftest import ROOT
 from portbench import tracing
 from portbench import yardstick
 from portbench.runners import index_serving
+from portbench.tests.shared import ROOT
 
 
 def test_bucketed_work_by_hand():
