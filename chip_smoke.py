@@ -356,14 +356,36 @@ The probe's copy step (`csrc/copy_chain.cu`, the port of
      table type gets a row of the `{"kernels": [...]}` line
      (`copy_step[f32 table]`, `copy_step[bf16 table]`).
 
+The pooled lookup (`csrc/pooled_lookup.cu`) on the main path at
+DLRM-DCNv2's MLPerf widths (Training `recommendation_v2` torchrec_dlrm:
+26 tables of 128 capped at 40M rows, 204,186,368 rows after padding,
+drawn by row blocks straight into fp16, 52.3 GB; the 3-layer rank-512
+DCN and the MLPs), last, after every earlier phase's device state is
+freed:
+ 40. one request of 400 pairs, each feature's MLPerf bag size (214 ids a
+     pair), ids Zipf(1.05) over a scramble of each table's rows, through
+     `Ranking.logits` eager and then replayed (`Ranking.capture`), the
+     op library's pooled counts zeroed before each and read after: one
+     launch a call for all 26 features; replay and eager logits within
+     1e-6; the replay's pooled sums (left in the graphs' `x0`) and the
+     wrapper's own, plain and with f32 weights and 10 % pads, equal to
+     the twin `pooled_lookup_reference` bit for bit (`torch.equal`; the
+     twin on the CPU over the rows the ids read). Then the wrapper's
+     time a call (eager, CUDA events over 200 calls), by graph replay,
+     the twin on the card, 26 `F.embedding_bag` calls (fp16 sums), and
+     the bound: the ids, each distinct row and the f32 sums moved once
+     at 3.35 TB/s; peak device memory. Its row of the `{"kernels":
+     [...]}` line is `pooled_lookup[f16, DLRM-DCNv2]`. `--pooled-lookup`
+     runs this phase alone.
+
 The phases run in the order serving, ScaNN, export (35), product
 quantization (36), training, trainer slice, ranking slice, data slice,
-distribution, examples (37), the 100M catalog (38), the probe (39). Each
-kernel's row in the `{"kernels": [...]}` line carries `path_launches`,
-its launches on the later slices' paths (phases 18, 20, 23, 26, 27, 29,
-31, 33, 34, 35's exported programs and host runs, from the op library's
-counts, and 37's examples); phases 38's and 39's rows carry their own
-launches. It prints the card's name and power limit, one
+distribution, examples (37), the 100M catalog (38), the probe (39), the
+pooled lookup (40). Each kernel's row in the `{"kernels": [...]}` line
+carries `path_launches`, its launches on the later slices' paths
+(phases 18, 20, 23, 26, 27, 29, 31, 33, 34, 35's exported programs and
+host runs, from the op library's counts, and 37's examples); phases
+38's, 39's and 40's rows carry their own launches. It prints the card's name and power limit, one
 `{"kernels": [...]}` line and, last, `{"ok": true, "device": {...}}`.
 Without CUDA, or run outside a checkout of the repository, it exits
 non-zero and prints no result.
@@ -420,6 +442,7 @@ from recommenders_tpu_torch.ops import cuda_build  # noqa: E402
 from recommenders_tpu_torch.ops import fused_retrieval  # noqa: E402
 from recommenders_tpu_torch.ops import hashing  # noqa: E402
 from recommenders_tpu_torch.ops import leaf_scoring  # noqa: E402
+from recommenders_tpu_torch.ops import pooled_lookup  # noqa: E402
 from recommenders_tpu_torch.ops import quantization  # noqa: E402
 from recommenders_tpu_torch.ops import scoring  # noqa: E402
 from recommenders_tpu_torch.ops import sparse_apply  # noqa: E402
@@ -6322,10 +6345,243 @@ def alias_probe_phase(device: torch.device, size: ProbeSize,
     return report
 
 
+
+@dataclasses.dataclass(frozen=True)
+class PooledSize:
+    """DLRM-DCNv2 at MLPerf Training `recommendation_v2`'s widths
+    (torchrec_dlrm: Criteo 1TB multi-hot, vocabularies capped at 40M),
+    tables in fp16, and one request of MLPerf Inference dlrm_v2's mean
+    size: ids Zipf over a scramble of each table's rows, each feature's
+    published bag size a pair."""
+    vocabs: tuple = (40000000, 39060, 17295, 7424, 20265, 3, 7122, 1543, 63,
+                     40000000, 3067956, 405282, 10, 2209, 11938, 155, 4, 976,
+                     14, 40000000, 40000000, 40000000, 590152, 12973, 108,
+                     36)
+    bags: tuple = (3, 2, 1, 2, 6, 1, 1, 1, 1, 7, 3, 8, 1, 6, 9, 5, 1, 1, 1,
+                   12, 100, 27, 10, 3, 1, 1)
+    dim: int = 128
+    dense: int = 13
+    bottom: tuple = (512, 256, 128)
+    cross_layers: int = 3
+    cross_rank: int = 512
+    top: tuple = (1024, 1024, 512, 256, 1)
+    pairs: int = 400
+    zipf: float = 1.05
+    block_rows: int = 1 << 22       # rows a table draws at once, in f32
+    pad_share: float = 0.1          # of the weighted request's ids
+
+
+POOL_SOURCE = "recommenders_tpu_torch/csrc/pooled_lookup.cu"
+# The JAX package has no kernel here: it pools by XLA's gather and adds.
+POOL_REPLACES = "recommenders_tpu/embedding/embedding.py:57"
+
+
+def block_drawn_table(seed: int, table: int, block_rows: int):
+    """A `TableConfig.initializer` that draws N(0, 1)/sqrt(dim) rows on
+    the table's device a block at a time, straight into its dtype (no f32
+    copy of the whole table)."""
+
+    def init(generator, shape, dtype, device):
+        out = torch.empty(shape, dtype=dtype, device=device)
+        gen = torch.Generator(device).manual_seed(seed * 1009 + table)
+        for start in range(0, shape[0], block_rows):
+            block = torch.randn((min(block_rows, shape[0] - start),
+                                 shape[1]), generator=gen, device=device)
+            out[start:start + block.shape[0]] = block.mul_(shape[1] ** -0.5)
+        return out
+
+    return init
+
+
+def zipf_ids(size: PooledSize, seed: int, device) -> list:
+    """Each feature's `[pairs, bag]` int64 ids: ranks by the continuous
+    Zipf's inverse over the table's rows, then rank r → row (a·r + b) mod
+    vocab with a prime to vocab."""
+    gen = torch.Generator(device).manual_seed(seed)
+    power = 1.0 - size.zipf
+    out = []
+    for t, (vocab, bag) in enumerate(zip(size.vocabs, size.bags)):
+        u = torch.rand((size.pairs, bag), dtype=torch.float64,
+                       generator=gen, device=device)
+        span = (vocab + 1.0) ** power - 1.0
+        rank = (torch.floor((1.0 + u * span) ** (1.0 / power)).long()
+                - 1).clamp_(0, vocab - 1)
+        a = 1_000_003 if np.gcd(1_000_003, vocab) == 1 else 1
+        out.append((rank * a + 7919 * t) % vocab)
+    return out
+
+
+def compacted(table: torch.Tensor, ids: torch.Tensor):
+    """The rows of `table` that `ids` read, on the CPU, and `ids` renumbered
+    to them (pads kept): the twin's inputs, without copying a whole
+    table."""
+    rows, inverse = torch.unique(ids.clamp(min=0), return_inverse=True)
+    local = torch.where(ids == emb_config.PAD_ID, emb_config.PAD_ID,
+                        inverse)
+    return table[rows].cpu(), local.cpu()
+
+
+def twin_sums(tables, ids, weights=None) -> torch.Tensor:
+    """`pooled_lookup`'s plain twin on the CPU over the rows the ids read."""
+    small = [compacted(t, i) for t, i in zip(tables, ids)]
+    return pooled_lookup.pooled_lookup(
+        [t for t, _ in small], [i for _, i in small],
+        None if weights is None else [w.cpu() for w in weights])
+
+
+def pooled_phase(device: torch.device, size: PooledSize,
+                 seed: int) -> list:
+    """Phase 40: the pooled lookup on the main path at DLRM-DCNv2's MLPerf
+    widths; returns its kernel row. Off the card the twin pools, nothing
+    is captured and no launch is counted."""
+    # 40. The pooled lookup.
+    started = time.perf_counter()
+    release(device)
+    features = [emb_config.FeatureConfig(
+        emb_config.TableConfig(vocab, size.dim, name=f"t{t}",
+                               combiner="sum",
+                               initializer=block_drawn_table(
+                                   seed, t, size.block_rows)),
+        name=f"f{t}") for t, vocab in enumerate(size.vocabs)]
+    model = ranking.Ranking(
+        features, size.dense,
+        bottom_stack=ranking.mlp_stack(size.bottom, "relu"),
+        feature_interaction=ranking.multi_layer_dcn_interaction(
+            size.cross_layers, size.cross_rank),
+        top_stack=ranking.mlp_stack(size.top, None),
+        interaction_takes_list=False, concat_dense=False, device=device,
+        table_dtype=torch.float16).eval().requires_grad_(False)
+    sync(device)
+    built_s = time.perf_counter() - started
+    params = {n.split(".")[-1]: p
+              for n, p in model.embedding.named_parameters()}
+    tables = [params[fc.table.name] for fc in features]
+    stored = sum(t.nbytes for t in tables)
+    ids = zipf_ids(size, seed, device)
+    gen = torch.Generator(device).manual_seed(seed + 1)
+    batch = dict(zip((fc.name for fc in features), ids))
+    batch["dense_features"] = torch.rand(size.pairs, size.dense,
+                                         generator=gen, device=device)
+    width = size.dim * len(tables)
+
+    # The main path's own run: `Ranking.logits`, eager and replayed, one
+    # pooled launch each by the op library's count; the replay's pooled
+    # sums, left in the graphs' `x0`, held bit for bit against the twin.
+    # (Off the card the twin pools and nothing is captured.)
+    on_card = device.type == "cuda"
+    launches = {}
+    with torch.inference_mode():
+        if on_card:
+            cuda_build.reset_pool_launches()
+        eager = model.logits(batch)
+        sync(device)
+        if on_card:
+            launches["Ranking.logits eager"] = cuda_build.pool_launches()
+            model.capture([size.pairs])
+            cuda_build.reset_pool_launches()
+        replayed = model.logits(batch)
+        sync(device)
+        if on_card:
+            launches["Ranking.logits replayed"] = cuda_build.pool_launches()
+            main_sums = model._captured.x0[:size.pairs, :width].cpu()
+        else:
+            main_sums = model.embedding.pooled(
+                {fc.name: batch[fc.name] for fc in features}).cpu()
+    for path, counts in launches.items():
+        check(counts == {"f32": 0, "f16": 1}, f"phase 40: {path} launched "
+              f"the pooled lookup {counts}, not once for the 26 features")
+    check(tuple(replayed.shape) == (size.pairs,)
+          and bool(torch.isfinite(replayed).all()),
+          "phase 40: the replayed logits are not finite [pairs]")
+    gap = float((replayed - eager).abs().max() / eager.abs().max())
+    check(gap <= 1e-6, f"phase 40: replay and eager logits {gap:.3g} apart")
+    want = twin_sums(tables, ids)
+    check(torch.equal(main_sums, want), "phase 40: the main path's pooled "
+          "sums differ from the twin's")
+
+    # The wrapper alone, plain and with weights and pads: bit for bit.
+    with torch.inference_mode():
+        before = pooled_lookup.pooled_lookup.launches
+        got = pooled_lookup.pooled_lookup(tables, ids).cpu()
+        check(pooled_lookup.pooled_lookup.launches == before + on_card,
+              "phase 40: the wrapper launched more than once")
+        check(torch.equal(got, want), "phase 40: kernel != twin")
+        padded = [torch.where(
+            torch.rand(i.shape, generator=gen, device=device)
+            < size.pad_share, emb_config.PAD_ID, i) for i in ids]
+        weights = [torch.rand(i.shape, generator=gen, device=device)
+                   for i in ids]
+        got_w = pooled_lookup.pooled_lookup(tables, padded, weights).cpu()
+        check(torch.equal(got_w, twin_sums(tables, padded, weights)),
+              "phase 40: weighted kernel != twin")
+
+        # Times: the wrapper a call (eager, so its host time shows), by
+        # graph replay, the twin on the card, 26 F.embedding_bag calls.
+        out = torch.empty((size.pairs, width), device=device)
+        ms = device_ms(lambda: pooled_lookup.pooled_lookup(
+            tables, ids, out=out), device, iters=200)
+        replay_ms = graph_ms(lambda: pooled_lookup.pooled_lookup(
+            tables, ids, out=out), device, launches=20, replays=10)
+        columns = [size.dim * t for t in range(len(tables))]
+        plain_ms = device_ms(lambda: pooled_lookup.pooled_lookup_reference(
+            tables, ids, [None] * len(tables), columns, out), device,
+            iters=10)
+        library_ms = device_ms(lambda: [
+            F.embedding_bag(i, t, mode="sum") for t, i in zip(tables, ids)],
+            device, iters=50)
+    # Least bytes: the ids once, each distinct row of each table once, the
+    # f32 sums written once.
+    rows = sum(int(torch.unique(i).numel()) for i in ids)
+    moved = (sum(i.nbytes for i in ids) + rows * size.dim * 2
+             + size.pairs * width * 4)
+    bound_ms = moved / HBM_BYTES_PER_S * 1e3
+    peak = torch.cuda.max_memory_allocated(device) / 1e9 if on_card else 0
+    print(f"  pooled lookup at S={size.pairs}, 26 fp16 tables "
+          f"({stored / 1e9:.2f} GB, drawn in {built_s:.1f} s), "
+          f"{sum(i.numel() for i in ids)} ids, {rows} distinct rows: "
+          f"bit-equal to the twin (main path, wrapper, weighted with "
+          f"pads); launches {launches}; wrapper {ms:.4f} ms a call, "
+          f"{replay_ms:.4f} ms by graph replay, bound {bound_ms:.5f} ms "
+          f"({moved} B), twin {plain_ms:.3f} ms, 26 F.embedding_bag "
+          f"{library_ms:.3f} ms; replay vs eager logits {gap:.3g}; peak "
+          f"{peak:.2f} GB", flush=True)
+    row = {
+        "name": "pooled_lookup[f16, DLRM-DCNv2]",
+        "route": "cuda",
+        "source": POOL_SOURCE,
+        "replaces": POOL_REPLACES,
+        "launches": 1,
+        "max_abs_err": 0.0,
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": "bytes",
+        # 26 calls, each summing in fp16: not the same function.
+        "library_ms": library_ms,
+        "on_main_path": True,
+        "graph_ms": replay_ms,
+        "shape": f"S={size.pairs}, 26 fp16 tables of D={size.dim} "
+                 f"({sum(size.vocabs)} rows), bags {sum(size.bags)} ids a "
+                 f"pair; launches: one a `Ranking.logits` call",
+        "path_launches": {path: counts["f16"]
+                          for path, counts in launches.items()},
+        "peak_gb": peak,
+    }
+    del model, tables, params, out
+    release(device)
+    phase("40 pooled lookup", started, "the main path's pooled sums and "
+          "the wrapper's held bit for bit against the twin at MLPerf's "
+          "widths, one launch a request, times")
+    return [row]
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--requests", type=int, default=Size.requests)
+    parser.add_argument(
+        "--pooled-lookup", action="store_true",
+        help="only run phase 40 (the pooled lookup at DLRM-DCNv2's MLPerf "
+        "widths) and print its kernel row, then exit with no result line")
     parser.add_argument(
         "--featurization-drift", type=int, metavar="STEPS",
         help="only print phase 30's card-vs-CPU loss gaps over STEPS "
@@ -6344,6 +6600,13 @@ def main() -> int:
     # f32 products stay f32 in the twin and the library call (no TF32).
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if args.pooled_lookup:
+        device = torch.device("cuda", 0)
+        torch.cuda.set_device(device)
+        print(nvidia_smi(), flush=True)
+        print(json.dumps({"kernels": pooled_phase(device, PooledSize(),
+                                                  args.seed)}))
+        return 0
     started = time.perf_counter()
     device = torch.device("cuda", 0)
     torch.cuda.set_device(device)
@@ -6376,6 +6639,7 @@ def main() -> int:
     report += stacked + [k1_dlrm]
     report += scale_ann(device, ScaleSize(), args.seed)
     report += alias_probe_phase(device, ProbeSize(), args.seed)
+    report += pooled_phase(device, PooledSize(), args.seed)
     print(f"total {time.perf_counter() - started:.1f} s")
     print(json.dumps({"kernels": report}))
     print(json.dumps({"ok": True, "device": {

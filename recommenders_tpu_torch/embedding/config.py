@@ -68,7 +68,9 @@ class TableConfig:
       dim: Embedding width.
       name: Unique table name.
       combiner: "sum" | "mean" | "sqrtn" for multivalent features.
-      initializer: `(generator, shape, dtype, device) -> tensor`;
+      initializer: `(generator, shape, dtype, device) -> tensor`, the
+        table in `dtype`, kept as returned (an initializer may fill it
+        by row blocks, so that no f32 copy of a large table exists);
         defaults to truncated normal with stddev `1/sqrt(dim)`.
       optimizer: Per-table sparse optimizer; None inherits the engine's.
       max_unique_ids: Optional bound on unique ids updated per step;
@@ -133,6 +135,6 @@ def default_initializer(dim: int) -> Initializer:
                           device=device_lib.resolve(device))
         torch.nn.init.trunc_normal_(out, std=1.0, a=-2.0, b=2.0,
                                     generator=generator)
-        return (out / dim ** 0.5).to(dtype)
+        return out.div_(dim ** 0.5).to(dtype)
 
     return init

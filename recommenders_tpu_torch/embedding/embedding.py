@@ -12,6 +12,15 @@ Port of `recommenders_tpu/embedding/embedding.py:44-118`: `_pad_vocab`,
 Negative ids gather row 0; only `PAD_ID` positions are zeroed, as in the
 JAX package.
 
+A sum-pooled multivalent feature that needs no gradient goes through
+`ops.pooled_lookup` (`poolable`; what a feature's config fixes of that,
+`pool_formats`, is worked out once a feature), which sums in f32
+whatever the table stores, in the same order: on the card for f32 and
+fp16 tables whose rows the kernel takes, and on the CPU for fp16 tables
+(f32 tables there keep `combine`, whose results the JAX parity tests
+hold). `TpuEmbedding` and `PartialEmbedding` pool all such features of
+a call in one `pooled_lookup` call, and return f32 for them.
+
 `TpuEmbedding` (`recommenders_tpu/embedding/embedding.py:121-203`) holds
 its tables as `nn.Parameter`s, one per `TableConfig.name`, rows padded
 to a multiple of 128, and looks features up through `lookup_feature`.
@@ -25,12 +34,14 @@ and lookups go through `parallel.embedding_lookup.ShardedGather`.
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Mapping, Optional, Sequence, Tuple, Union
+from typing import (Any, Callable, Dict, FrozenSet, Mapping, Optional,
+                    Sequence, Tuple, Union)
 
 import torch
 from torch import nn
 
 from recommenders_tpu_torch.embedding import config as config_lib
+from recommenders_tpu_torch.ops import pooled_lookup
 from recommenders_tpu_torch.ops import sparse_apply
 from recommenders_tpu_torch.parallel import embedding_lookup
 from recommenders_tpu_torch.utils import collectives
@@ -144,6 +155,66 @@ def lookup_feature(
     return combine(gathered, ids, feature_config.table.combiner, weights)
 
 
+def pool_formats(
+        feature_config: config_lib.FeatureConfig
+) -> Optional[FrozenSet[torch.dtype]]:
+    """What a feature's config fixes of `poolable`: None where its lookup
+    never pools (a combiner other than sum, a sequence), else the table
+    dtypes whose rows of its width the card's kernel reads
+    (`pooled_lookup.takes_rows`)."""
+    if (feature_config.table.combiner != "sum"
+            or feature_config.max_sequence_length > 0):
+        return None
+    return frozenset(dtype for dtype in pooled_lookup.FORMATS
+                     if pooled_lookup.takes_rows(feature_config.table.dim,
+                                                 dtype))
+
+
+def poolable(table: Tensor,
+             formats: Optional[FrozenSet[torch.dtype]],
+             feature: FeatureInput) -> bool:
+    """Whether a feature's lookup goes through `ops.pooled_lookup`, given
+    its config's `pool_formats`: a `[B, L]` bag of a table that needs no
+    gradient here; on the card a table in one of `formats` and int32 or
+    int64 ids on its device (the op checks the rest itself), on the CPU
+    an fp16 table (whose twin sums in f32 where `combine` would sum in
+    fp16)."""
+    if formats is None:
+        return False
+    ids = feature[0] if isinstance(feature, tuple) else feature
+    if ids.dim() != 2 or (table.requires_grad and torch.is_grad_enabled()):
+        return False
+    if not table.is_cuda:
+        return table.dtype == torch.float16
+    return (table.dtype in formats and ids.dtype in pooled_lookup.ID_DTYPES
+            and ids.get_device() == table.get_device())
+
+
+def pool_features(entries: Mapping[str, Tuple[Tensor, FeatureInput]],
+                  out: Optional[Tensor] = None) -> Tensor:
+    """`pooled_lookup` over `{feature: (table, ids or (ids, weights))}`:
+    f32 with the features' sums side by side in the mapping's order, in
+    the first columns of `out` where given."""
+    tables, ids, weights = [], [], []
+    for table, feature in entries.values():
+        i, w = feature if isinstance(feature, tuple) else (feature, None)
+        tables.append(table)
+        ids.append(i)
+        weights.append(w)
+    return pooled_lookup.pooled_lookup(tables, ids, weights, out)
+
+
+def split_pooled(pooled: Tensor,
+                 entries: Mapping[str, Tuple[Tensor, Any]]
+                 ) -> Dict[str, Tensor]:
+    """Each feature's `[B, D]` block of `pool_features`' output."""
+    out, start = {}, 0
+    for name, (table, _) in entries.items():
+        out[name] = pooled[:, start:start + table.shape[1]]
+        start += table.shape[1]
+    return out
+
+
 class TpuEmbedding(nn.Module):
     """An embedding collection as an `nn.Module`.
 
@@ -198,6 +269,9 @@ class TpuEmbedding(nn.Module):
         shards = collectives.axis_size(mesh, table_axis) if shard_tables else 1
         self._sharded = shards > 1
         self._configs = {fc.name: fc for fc in self.feature_configs}
+        self._pool_formats = {
+            fc.name: None if self._sharded else pool_formats(fc)
+            for fc in self.feature_configs}
         for name, tc in self._tables().items():
             if not name.isidentifier():
                 raise ValueError(
@@ -229,6 +303,8 @@ class TpuEmbedding(nn.Module):
     def forward(
         self, features: Mapping[str, FeatureInput]
     ) -> Dict[str, Tensor]:
+        """Each feature's lookup; the poolable ones (`poolable`) pooled by
+        one `pooled_lookup` call."""
         unknown = set(features) - set(self._configs)
         if unknown:
             raise ValueError(
@@ -236,12 +312,27 @@ class TpuEmbedding(nn.Module):
                 f"Known: {sorted(self._configs)}."
             )
         gather = self._sharded_gather if self._sharded else None
-        return {
-            fname: lookup_feature(
-                getattr(self, self._configs[fname].table.name),
-                self._configs[fname], feature, gather=gather)
-            for fname, feature in features.items()
-        }
+        out, pool = {}, {}
+        for fname, feature in features.items():
+            entry = self.pool_entry(fname, feature)
+            if entry is not None:
+                pool[fname] = entry
+            else:
+                out[fname] = lookup_feature(
+                    getattr(self, self._configs[fname].table.name),
+                    self._configs[fname], feature, gather=gather)
+        if pool:
+            out.update(split_pooled(pool_features(pool), pool))
+        return {fname: out[fname] for fname in features}
+
+    def pool_entry(self, fname: str, feature: FeatureInput
+                   ) -> Optional[Tuple[Tensor, FeatureInput]]:
+        """`(table, feature)` where the feature goes through
+        `pooled_lookup`, else None."""
+        table = self._parameters[self._configs[fname].table.name]
+        if poolable(table, self._pool_formats[fname], feature):
+            return table, feature
+        return None
 
     def _sharded_gather(self, shard: Tensor, ids: Tensor) -> Tensor:
         return embedding_lookup.gather_rows(shard, ids, self.mesh,

@@ -6,7 +6,10 @@ size_threshold` go to the `sharded_embedding` collection, the rest to
 `dense_embedding`. The routing is kept for its parameter layout
 (`embedding.sharded_embedding.<table>` and
 `embedding.dense_embedding.<table>`, the flax paths); on one device
-both partitions hold whole tables.
+both partitions hold whole tables. The poolable features of a call
+(`embedding.poolable`), of both partitions, are pooled by one
+`ops.pooled_lookup` call; `pooled` writes them straight into the
+first columns of a wider row.
 """
 
 from __future__ import annotations
@@ -32,6 +35,7 @@ class PartialEmbedding(nn.Module):
         sharded; the rest replicated. `0` shards everything; `None`
         replicates everything.
       device: Where the tables live (default CUDA).
+      dtype: The tables' dtype (both partitions).
       generator: Optional `torch.Generator` for the initial tables
         (sharded partition first).
       mesh: Optional `parallel.Mesh`; the sharded partition's tables are
@@ -44,6 +48,7 @@ class PartialEmbedding(nn.Module):
         feature_configs: Sequence[config_lib.FeatureConfig],
         size_threshold: Optional[int] = 10_000,
         device: device_lib.DeviceLike = "cuda",
+        dtype: torch.dtype = torch.float32,
         generator: Optional[torch.Generator] = None,
         mesh=None,
         table_axis: str = "model",
@@ -61,24 +66,62 @@ class PartialEmbedding(nn.Module):
         self._partition.update({fc.name: "dense_embedding" for fc in small})
         if big:
             self.sharded_embedding = embedding_lib.TpuEmbedding(
-                big, shard_tables=True, device=device,
+                big, shard_tables=True, dtype=dtype, device=device,
                 generator=generator, mesh=mesh, table_axis=table_axis)
         if small:
             self.dense_embedding = embedding_lib.TpuEmbedding(
-                small, shard_tables=False, device=device,
+                small, shard_tables=False, dtype=dtype, device=device,
                 generator=generator)
+        # Each feature's (partition's tables, table name, `pool_formats`),
+        # worked out once; a call reads its table by name.
+        self._routes = {}
+        for part in (getattr(self, "sharded_embedding", None),
+                     getattr(self, "dense_embedding", None)):
+            for fc in () if part is None else part.feature_configs:
+                self._routes[fc.name] = (part._parameters, fc.table.name,
+                                         part._pool_formats[fc.name])
 
     def forward(
         self, features: Mapping[str, embedding_lib.FeatureInput]
     ) -> Dict[str, Tensor]:
-        unknown = set(features) - set(self._partition)
-        if unknown:
-            raise ValueError(
-                f"Features {sorted(unknown)} have no FeatureConfig.")
+        """Each feature's lookup; the poolable ones of both partitions
+        pooled by one `pooled_lookup` call."""
+        pool, rest = self._entries(features)
         out: Dict[str, Tensor] = {}
         for part in ("sharded_embedding", "dense_embedding"):
-            inputs = {k: v for k, v in features.items()
+            inputs = {k: v for k, v in rest.items()
                       if self._partition[k] == part}
             if inputs:
                 out.update(getattr(self, part)(inputs))
-        return out
+        if pool:
+            out.update(embedding_lib.split_pooled(
+                embedding_lib.pool_features(pool), pool))
+        return {k: out[k] for k in features}
+
+    def pooled(self, features: Mapping[str, embedding_lib.FeatureInput],
+               out: Optional[Tensor] = None) -> Optional[Tensor]:
+        """Every feature pooled by one `pooled_lookup` call, side by side
+        in the mapping's order (into the first columns of `out` where
+        given), or None where some feature is not poolable."""
+        pool, rest = self._entries(features)
+        if rest or not pool:
+            return None
+        return embedding_lib.pool_features(pool, out)
+
+    def _entries(self, features):
+        """({feature: (table, input)} of the poolable features
+        (`embedding.poolable`), {feature: input} of the rest)."""
+        pool, rest = {}, {}
+        for name, feature in features.items():
+            route = self._routes.get(name)
+            if route is None:
+                unknown = sorted(set(features) - set(self._routes))
+                raise ValueError(
+                    f"Features {unknown} have no FeatureConfig.")
+            tables, table_name, formats = route
+            table = tables[table_name]
+            if embedding_lib.poolable(table, formats, feature):
+                pool[name] = (table, feature)
+            else:
+                rest[name] = feature
+        return pool, rest

@@ -55,12 +55,18 @@ class MLP(nn.Module):
                 nn.init.zeros_(layer.bias)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = self.logits(x)
+        if self.final_activation is not None:
+            x = self.final_activation(x)
+        return x
+
+    def logits(self, x: torch.Tensor) -> torch.Tensor:
+        """The output before the last layer's activation."""
         last = len(self.layers) - 1
         for i, layer in enumerate(self.layers):
             x = layer(x)
-            act = self.final_activation if i == last else self.activation
-            if act is not None:
-                x = act(x)
+            if i < last and self.activation is not None:
+                x = self.activation(x)
         return x
 
 

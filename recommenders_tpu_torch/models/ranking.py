@@ -8,12 +8,22 @@ embedding again beside it → a top MLP with a sigmoid head → the Ranking
 task (BCE), with AUC / accuracy / label-mean / prediction-mean metrics.
 
 The embedding layer is a `PartialEmbedding` (tables above
-`size_threshold` rows in its sharded partition), whose gradients are
-dense. Flax modules infer their input widths at the first call; here
-the stacks are built from factories `(in_features, device, generator)
--> nn.Module`, and the model works out each width from the features'
-table dims and a forward pass of one zero row through the bottom stack
-and the interaction.
+`size_threshold` rows in its sharded partition, stored in `table_dtype`),
+whose gradients are dense. Flax modules infer their input widths at the
+first call; here the stacks are built from factories `(in_features,
+device, generator) -> nn.Module`, and the model works out each width
+from the features' table dims and a forward pass of one zero row
+through the bottom stack and the interaction.
+
+Serving. `logits` gives the top stack's output before its final
+activation, through the modules `forward` runs; the sum-pooled bags
+(`embedding.poolable`) of a call are pooled by one `ops.pooled_lookup`
+call. On the card, a DCN-style model (`interaction_takes_list=False`)
+can `capture(rows)` its dense stack (bottom, interaction, the top's
+`logits`) in one CUDA graph per row count; `logits` then pools a batch
+of that many rows straight into the sparse columns of the graphs'
+static `x0` and replays the graph: a request is one pooled launch and
+one replay instead of a launch a layer.
 
 `embedding_param_labels` labels each parameter `"embedding"` or
 `"dense"` for a split between two optimizers (the reference's
@@ -23,7 +33,9 @@ and the interaction.
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Mapping, Optional, Sequence, Tuple
+import threading
+from typing import (Any, Callable, Dict, Iterable, Mapping, NamedTuple,
+                    Optional, Sequence, Tuple)
 
 import torch
 from torch import nn
@@ -38,6 +50,7 @@ from recommenders_tpu_torch.models import base as models_base
 from recommenders_tpu_torch.tasks import ranking as ranking_task
 from recommenders_tpu_torch.utils import activations as activations_lib
 from recommenders_tpu_torch.utils import device as device_lib
+from recommenders_tpu_torch.utils import profiling
 
 Tensor = torch.Tensor
 # `(in_features, device, generator) -> module`.
@@ -93,6 +106,19 @@ def multi_layer_dcn_interaction(
     return make
 
 
+class _Captured(NamedTuple):
+    """`Ranking.capture`'s graphs by row count (each with its output),
+    the static inputs they read, the card and the stream (its
+    `cudaStream_t`) they replay on, and the lock that lets one call at a
+    time fill the inputs and replay."""
+    graphs: Dict[int, Tuple[torch.cuda.CUDAGraph, Tensor]]
+    x0: Tensor
+    dense: Tensor
+    device: int
+    stream: int
+    lock: threading.Lock
+
+
 class Ranking(models_base.Model):
     """DLRM/DCN-style ranking model.
 
@@ -122,6 +148,8 @@ class Ranking(models_base.Model):
         its model axis (train it with `Trainer(mesh=...)`).
       generator: Optional `torch.Generator` for the initial weights
         (tables, then bottom, interaction and top).
+      table_dtype: The embedding tables' dtype (fp16 tables are pooled
+        in f32).
     """
 
     def __init__(
@@ -138,16 +166,19 @@ class Ranking(models_base.Model):
         device: device_lib.DeviceLike = "cuda",
         generator: Optional[torch.Generator] = None,
         mesh=None,
+        table_dtype: torch.dtype = torch.float32,
     ) -> None:
         super().__init__()
         device = device_lib.resolve(device)
         self.feature_configs = tuple(feature_configs)
+        self.num_dense_features = num_dense_features
         self.interaction_takes_list = interaction_takes_list
         self.concat_dense = concat_dense
         self.task = task or ranking_task.Ranking()
         self.embedding = partial_lib.PartialEmbedding(
             self.feature_configs, size_threshold=size_threshold,
-            device=device, generator=generator, mesh=mesh)
+            device=device, dtype=table_dtype, generator=generator,
+            mesh=mesh)
         self.bottom = bottom_stack(num_dense_features, device, generator)
         with torch.no_grad():
             dense = self.bottom(torch.zeros(1, num_dense_features,
@@ -156,6 +187,7 @@ class Ranking(models_base.Model):
                      for fc in self.feature_configs] + [dense]
             width = (dense.shape[-1] if interaction_takes_list
                      else sum(x.shape[-1] for x in probe))
+            self.interaction_width = width
             self.interaction = feature_interaction(width, device, generator)
             out = self._interact(probe)
         self.top = top_stack(
@@ -169,7 +201,98 @@ class Ranking(models_base.Model):
 
     def forward(self, batch: Mapping[str, Any],
                 training: bool = False) -> Tensor:
-        """`[B]` click probabilities."""
+        """`[B]` click probabilities (the top stack's output)."""
+        with profiling.annotate("ranking.forward"):
+            return torch.reshape(self.top(self._top_input(batch)), (-1,))
+
+    def logits(self, batch: Mapping[str, Any]) -> Tensor:
+        """`[B]` logits: the top stack's output before its final
+        activation (its `logits`), through the modules `forward` runs; a
+        captured graph's replay where one holds the batch's row count."""
+        head = getattr(self.top, "logits", None)
+        if head is None:
+            raise TypeError(f"the top stack ({type(self.top).__name__}) "
+                            "has no `logits`: its pre-activation output is "
+                            "not known")
+        with profiling.annotate("ranking.forward"):
+            replayed = self._replay(batch)
+            if replayed is not None:
+                return replayed
+            return torch.reshape(head(self._top_input(batch)), (-1,))
+
+    def capture(self, rows: Iterable[int]) -> None:
+        """Records the dense stack on the card in one CUDA graph per row
+        count of `rows` (replacing any graphs captured before), for
+        `logits` to replay. The graphs read one static `x0` and
+        dense-feature buffer of the largest row count and share one
+        memory pool, so `logits` replays them one call at a time (a
+        lock) on the stream current here; a call on another stream
+        takes the eager path. A DCN-style model without `concat_dense`,
+        on CUDA."""
+        if self.interaction_takes_list or self.concat_dense:
+            raise ValueError("capture takes a DCN-style model "
+                             "(interaction_takes_list=False) without "
+                             "concat_dense")
+        rows = sorted({int(r) for r in rows})
+        device = next(self.parameters()).device
+        if device.type != "cuda" or not rows or rows[0] < 1:
+            raise ValueError(f"capture needs CUDA weights and row counts "
+                             f"of at least 1; got {device}, {rows[:3]}")
+        self._captured = None
+        x0 = torch.zeros((rows[-1], self.interaction_width), device=device)
+        dense = torch.zeros((rows[-1], self.num_dense_features),
+                            device=device)
+        pool = torch.cuda.graph_pool_handle()
+        stream = torch.cuda.current_stream(device)
+        side = torch.cuda.Stream(device)
+        graphs = {}
+        with torch.no_grad():
+            for r in rows:
+                side.wait_stream(stream)
+                with torch.cuda.stream(side):   # cuBLAS's lazy set-up
+                    self._dense_logits(x0[:r], dense[:r])
+                stream.wait_stream(side)
+                graph = torch.cuda.CUDAGraph()
+                with torch.cuda.graph(graph, pool=pool):
+                    out = self._dense_logits(x0[:r], dense[:r])
+                graphs[r] = (graph, out)
+        self._captured = _Captured(graphs, x0, dense, device.index,
+                                   stream.cuda_stream, threading.Lock())
+
+    _captured = None
+
+    def _replay(self, batch: Mapping[str, Any]) -> Optional[Tensor]:
+        """The captured graph's logits for `batch`, or None where nothing
+        is captured for its row count or the current stream, or a feature
+        does not pool."""
+        captured = self._captured
+        if captured is None:
+            return None
+        rows = batch["dense_features"].shape[0]
+        entry = captured.graphs.get(rows)
+        if entry is None or torch._C._cuda_getCurrentRawStream(
+                captured.device) != captured.stream:
+            return None
+        graph, out = entry
+        with captured.lock:
+            with profiling.annotate("ranking.lookup"):
+                if self.embedding.pooled(self._features(batch),
+                                         out=captured.x0[:rows]) is None:
+                    return None
+            with profiling.annotate("ranking.dense"):
+                captured.dense[:rows].copy_(batch["dense_features"])
+                graph.replay()
+                return out.clone()   # the next replay rewrites `out`
+
+    def _dense_logits(self, x0: Tensor, dense_features: Tensor) -> Tensor:
+        """The dense stack over a pooled `x0` whose last columns take the
+        bottom MLP's output: `[B]` logits."""
+        dense = self.bottom(dense_features)
+        x0[:, x0.shape[1] - dense.shape[1]:] = dense
+        return torch.reshape(self.top.logits(self.interaction(x0)), (-1,))
+
+    def _features(self, batch: Mapping[str, Any]) -> Dict[str, Any]:
+        """The sparse features in config order (the dense one goes last)."""
         missing = [fc.name for fc in self.feature_configs
                    if fc.name not in batch]
         if missing:
@@ -178,15 +301,18 @@ class Ranking(models_base.Model):
                 f"entry per FeatureConfig "
                 f"({[fc.name for fc in self.feature_configs]})."
             )
-        embeddings = self.embedding(
-            {fc.name: batch[fc.name] for fc in self.feature_configs})
-        # Deterministic feature order: config order, the dense one last.
-        sparse = [embeddings[fc.name] for fc in self.feature_configs]
-        dense = self.bottom(batch["dense_features"])
-        out = self._interact(sparse + [dense])
-        if self.concat_dense:
-            out = torch.cat([dense, out], dim=-1)
-        return torch.reshape(self.top(out), (-1,))
+        return {fc.name: batch[fc.name] for fc in self.feature_configs}
+
+    def _top_input(self, batch: Mapping[str, Any]) -> Tensor:
+        with profiling.annotate("ranking.lookup"):
+            embeddings = self.embedding(self._features(batch))
+        with profiling.annotate("ranking.dense"):
+            dense = self.bottom(batch["dense_features"])
+            sparse = [embeddings[fc.name] for fc in self.feature_configs]
+            out = self._interact(sparse + [dense])
+            if self.concat_dense:
+                out = torch.cat([dense, out], dim=-1)
+            return out
 
     def shard_tasks(self, mesh, axis: str) -> None:
         """The ranking task computes its loss over the gathered batch

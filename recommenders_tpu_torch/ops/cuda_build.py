@@ -15,7 +15,10 @@ it with `g++` against the installed wheel's headers and libraries (no
 `torch/extension.h`, no libtorch_python, so a C++ host without Python can
 load it too) into `libtorch_ops-<digest>.so` beside them, whose digest
 also covers the two kernel libraries, the flags and the torch version,
-and loads it with `torch.ops.load_library`.
+and loads it with `torch.ops.load_library`. The pooled lookup is a
+dispatcher op of a library of its own, `csrc/pooled_ops.cpp` linking
+`pooled_lookup` (`pooled_ops`), built and loaded at its first call, so
+a process that never pools loads nothing of it.
 
 Every build runs at first use, never at import: machines without `nvcc`
 still import every module. A build writes a temporary file and renames
@@ -41,11 +44,14 @@ BUILD_DIR = _PACKAGE.parent / "build" / "recommenders_tpu_torch"
 
 # Every CUDA source of the port, by name (`csrc/<name>.cu`).
 SOURCES = ("bucketed_scores", "sparse_apply", "fused_retrieval",
-           "leaf_scoring", "copy_chain")
+           "leaf_scoring", "copy_chain", "pooled_lookup")
 
 # The serving kernels' libraries, which the op library links.
 SERVING_SOURCES = ("bucketed_scores", "leaf_scoring")
 OPS_SOURCE = "torch_ops"
+# The pooled lookup's op library and the kernel library it links.
+POOL_SOURCES = ("pooled_lookup",)
+POOL_OPS_SOURCE = "pooled_ops"
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -165,44 +171,55 @@ def compile_cpp(source: Path, target: Path, flags: list) -> str:
     return out
 
 
-def torch_ops_path() -> Path:
-    """Where the op library of `csrc/torch_ops.cpp` is built: its digest
+def _op_library_path(source: str, kernels: Iterable[str]) -> Path:
+    """Where the op library of `csrc/<source>.cpp` is built: its digest
     covers the source, the kernel libraries it links (so an edited
     kernel rebuilds it) and the torch it is built against."""
-    h = hashlib.sha256((CSRC / f"{OPS_SOURCE}.cpp").read_bytes())
-    for name in SERVING_SOURCES:
+    h = hashlib.sha256((CSRC / f"{source}.cpp").read_bytes())
+    for name in kernels:
         h.update(library_path(name).name.encode() + b"\0")
     h.update(f"{torch.__version__} {torch._C._GLIBCXX_USE_CXX11_ABI}".encode())
-    return BUILD_DIR / f"lib{OPS_SOURCE}-{h.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"lib{source}-{h.hexdigest()[:16]}.so"
 
 
-def build_torch_ops(sources: Iterable[str] = SERVING_SOURCES
-                    ) -> Dict[str, str]:
-    """Builds the op library where it is not built yet: `torch_ops.cpp`
-    compiles (g++, against torch's headers) while `sources` build (nvcc;
-    the serving kernels' libraries at least), then links them. Returns
-    the compilers' output by source, as `build` does."""
-    target = torch_ops_path()
+def torch_ops_path() -> Path:
+    """Where the op library of `csrc/torch_ops.cpp` is built."""
+    return _op_library_path(OPS_SOURCE, SERVING_SOURCES)
+
+
+def pooled_ops_path() -> Path:
+    """Where the op library of `csrc/pooled_ops.cpp` is built."""
+    return _op_library_path(POOL_OPS_SOURCE, POOL_SOURCES)
+
+
+def _build_op_library(source: str, kernels: Iterable[str],
+                      sources: Iterable[str]) -> Dict[str, str]:
+    """Builds the op library of `csrc/<source>.cpp` where it is not built
+    yet: it compiles (g++, against torch's headers) while `sources` and
+    the `kernels` it links build (nvcc), then links them. Returns the
+    compilers' output by source, as `build` does."""
+    kernels = tuple(kernels)
+    target = _op_library_path(source, kernels)
     if target.exists():
         return build(sources)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     compile_flags, link_flags = torch_flags(cuda=True)
     obj = target.with_name(f"{target.name}.{os.getpid()}.o")
     tmp = target.with_name(f"{target.name}.{os.getpid()}.tmp")
-    source = CSRC / f"{OPS_SOURCE}.cpp"
+    cpp = CSRC / f"{source}.cpp"
     proc = subprocess.Popen(
-        [_gxx(), "-c", str(source), "-o", str(obj), *compile_flags],
+        [_gxx(), "-c", str(cpp), "-o", str(obj), *compile_flags],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     try:
-        logs = build(set(sources) | set(SERVING_SOURCES))
+        logs = build(set(sources) | set(kernels))
         out, _ = proc.communicate()
         if proc.returncode != 0:
-            raise RuntimeError(f"g++ failed for {source.name}:\n{out}")
-        logs[OPS_SOURCE] = out + _run(
+            raise RuntimeError(f"g++ failed for {cpp.name}:\n{out}")
+        logs[source] = out + _run(
             [_gxx(), "-shared", str(obj), "-o", str(tmp), *link_flags,
              f"-L{BUILD_DIR}", "-Wl,-rpath,$ORIGIN",
-             *(f"-l:{library_path(name).name}" for name in SERVING_SOURCES)],
-            f"{OPS_SOURCE}.so")
+             *(f"-l:{library_path(name).name}" for name in kernels)],
+            f"{source}.so")
         os.replace(tmp, target)
         return logs
     finally:
@@ -211,6 +228,21 @@ def build_torch_ops(sources: Iterable[str] = SERVING_SOURCES
             proc.wait()
         obj.unlink(missing_ok=True)
         tmp.unlink(missing_ok=True)
+
+
+def build_torch_ops(sources: Iterable[str] = SERVING_SOURCES
+                    ) -> Dict[str, str]:
+    """Builds the op library where it is not built yet: `torch_ops.cpp`
+    compiles (g++, against torch's headers) while `sources` build (nvcc;
+    the serving kernels' libraries at least), then links them. Returns
+    the compilers' output by source, as `build` does."""
+    return _build_op_library(OPS_SOURCE, SERVING_SOURCES, sources)
+
+
+def build_pooled_ops() -> Dict[str, str]:
+    """Builds the pooled lookup's op library where it is not built yet,
+    as `build_torch_ops` builds the serving ops'."""
+    return _build_op_library(POOL_OPS_SOURCE, POOL_SOURCES, POOL_SOURCES)
 
 
 @functools.lru_cache(maxsize=None)
@@ -241,16 +273,52 @@ def _ops_counters() -> ctypes.CDLL:
 
 
 def op_launches() -> Dict[str, Dict[str, int]]:
-    """Launches counted inside the op library by op and format (every
-    launch in this process, an AOTInductor package's included)."""
+    """Launches counted inside the op libraries by op and format (every
+    launch in this process, an AOTInductor package's included); the
+    pooled lookup's under `pooled_lookup`, once its library is loaded."""
     lib = _ops_counters()
-    return {op: {fmt: int(lib.recommenders_tpu_torch_launches(i, j))
-                 for j, fmt in enumerate(OP_FORMATS)}
-            for op, i in OPS.items()}
+    out = {op: {fmt: int(lib.recommenders_tpu_torch_launches(i, j))
+                for j, fmt in enumerate(OP_FORMATS)}
+           for op, i in OPS.items()}
+    if pooled_ops.cache_info().currsize:
+        out["pooled_lookup"] = pool_launches()
+    return out
 
 
 def reset_op_launches() -> None:
     _ops_counters().recommenders_tpu_torch_reset_launches()
+    if pooled_ops.cache_info().currsize:
+        reset_pool_launches()
+
+
+@functools.lru_cache(maxsize=None)
+def pooled_ops() -> ctypes.CDLL:
+    """Builds (if needed) and loads the pooled lookup's op library; its op
+    is then `torch.ops.recommenders_tpu_torch.pooled_lookup`."""
+    build_pooled_ops()
+    path = pooled_ops_path()
+    torch.ops.load_library(str(path))
+    lib = ctypes.CDLL(str(path))
+    lib.recommenders_tpu_torch_pool_launches.argtypes = [ctypes.c_int]
+    lib.recommenders_tpu_torch_pool_launches.restype = ctypes.c_int64
+    lib.recommenders_tpu_torch_reset_pool_launches.restype = None
+    return lib
+
+
+# The pooled lookup's table formats, in `csrc/pooled_ops.cpp`'s order.
+POOL_FORMATS = ("f32", "f16")
+
+
+def pool_launches() -> Dict[str, int]:
+    """The pooled lookup's launches by table format, counted inside its
+    library (which this loads, building it where needed)."""
+    lib = pooled_ops()
+    return {fmt: int(lib.recommenders_tpu_torch_pool_launches(i))
+            for i, fmt in enumerate(POOL_FORMATS)}
+
+
+def reset_pool_launches() -> None:
+    pooled_ops().recommenders_tpu_torch_reset_pool_launches()
 
 
 def k3_fold_counts(reset: bool = False) -> Dict[str, int]:

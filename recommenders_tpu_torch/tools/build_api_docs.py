@@ -75,6 +75,7 @@ MODULES = [
         "ops.fused_retrieval",
         "ops.leaf_scoring",
         "ops.copy_chain",
+        "ops.pooled_lookup",
     )
 ]
 

@@ -20,7 +20,13 @@ record these spans:
   - `scann.merge`: after K5, the restored order, top-k, rows and ids;
   - `bucketed.search`: `Bucketed.__call__`, the index's whole host call;
   - `k3.launch`: K3's plan, checks and dispatcher call;
-  - `bucketed.merge`: after K3, the top-k over the buckets and its rows.
+  - `bucketed.merge`: after K3, the top-k over the buckets and its rows;
+  - `ranking.forward`: `Ranking.forward` / `Ranking.logits`, the model's
+    whole host call;
+  - `ranking.lookup`: every sparse feature's lookup and pooling;
+  - `pool.launch`: `ops.pooled_lookup`'s checks, grouping and dispatcher
+    call on the card (the CPU twin records none);
+  - `ranking.dense`: the bottom stack, the interaction and the top stack.
 
 `ScaNN.index_streamed` records one `phase` a pass, each synchronized
 with the index's device at its end: `scann.build.kmeans` (stride sample

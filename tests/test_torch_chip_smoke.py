@@ -132,6 +132,18 @@ def test_main_fails_without_cuda_and_prints_no_result():
     assert "CUDA is not available" in proc.stderr
 
 
+def test_the_pooled_lookup_phase_alone_fails_without_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("CUDA is present; this checks the CPU-only refusal")
+    proc = subprocess.run(
+        [sys.executable, str(ROOT / "chip_smoke.py"), "--pooled-lookup"],
+        capture_output=True, text=True, timeout=300,
+    )
+    assert proc.returncode != 0
+    assert '"kernels"' not in proc.stdout
+    assert "CUDA is not available" in proc.stderr
+
+
 @pytest.mark.parametrize("what", ["k2-parts", "k2-f32", "k3-f32", "k1",
                                   "leaf", "k5-splits"])
 def test_kernel_ab_fails_without_cuda(what):
@@ -526,3 +538,27 @@ def test_alias_probe_phase_defaults_are_the_probes_shapes():
     assert alias_probe.floor_us(*size.past_l2, torch.float32) == (
         pytest.approx(693.6, abs=0.05))
     assert moved / 2 > 20 * 50e6
+
+
+def test_pooled_lookup_phase_passes_on_cpu_at_a_tiny_size(capsys):
+    size = chip_smoke.PooledSize(
+        vocabs=(50, 3, 4096, 20_000), bags=(3, 1, 100, 7), dense=5,
+        bottom=(32, 16), cross_layers=2, cross_rank=8, top=(16, 1), dim=16,
+        pairs=9, block_rows=1000)
+    [row] = chip_smoke.pooled_phase(torch.device("cpu"), size,
+                                    seed=2**33 + 3)
+    assert REPORT_KEYS <= set(row) and row["max_abs_err"] == 0.0
+    assert (ROOT / row["source"]).is_file()
+    path, line = row["replaces"].split(":")
+    assert (ROOT / path).read_text().splitlines()[
+        int(line) - 1].startswith("def combine(")
+    assert row["bound_by"] == "bytes" and row["bound_ms"] > 0
+    assert row["path_launches"] == {}        # no launch off the card
+    assert "phase 40 pooled lookup: ok" in capsys.readouterr().out
+
+
+def test_pooled_lookup_phase_defaults_are_mlperfs_widths():
+    size = chip_smoke.PooledSize()
+    assert len(size.vocabs) == len(size.bags) == 26
+    assert sum(size.vocabs) == 204_184_588 and sum(size.bags) == 214
+    assert sum(-(-v // 128) * 128 for v in size.vocabs) == 204_186_368

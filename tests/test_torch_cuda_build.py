@@ -137,6 +137,23 @@ def test_op_library_path_follows_its_source_and_the_kernels(csrc_copy):
     assert cuda_build.torch_ops_path() not in (before, after_kernel)
 
 
+def test_the_pooled_op_library_follows_its_own_sources(csrc_copy):
+    """The pooled lookup's op library is the serving ops' neighbour, not
+    part of them: its digest covers `pooled_ops.cpp` and
+    `pooled_lookup.cu`, and an edit to either leaves `torch_ops`
+    alone (an index server loads nothing new)."""
+    serving, pooled = cuda_build.torch_ops_path(), cuda_build.pooled_ops_path()
+    assert pooled.name.startswith("libpooled_ops-") and pooled != serving
+    with open(csrc_copy / "pooled_lookup.cu", "a") as f:
+        f.write("\n// edited\n")
+    after_kernel = cuda_build.pooled_ops_path()
+    assert after_kernel != pooled
+    with open(csrc_copy / "pooled_ops.cpp", "a") as f:
+        f.write("\n// edited\n")
+    assert cuda_build.pooled_ops_path() not in (pooled, after_kernel)
+    assert cuda_build.torch_ops_path() == serving
+
+
 def test_fake_impls_give_the_ops_output_shapes():
     """What `torch.export` traces in place of a launch: the outputs'
     shapes and dtypes, on the inputs' device."""

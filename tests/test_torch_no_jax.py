@@ -156,9 +156,10 @@ def test_every_pallas_call_is_replaced_by_a_cuda_source():
 
 
 def test_the_serving_ops_library_includes_no_python_headers():
-    """`csrc/torch_ops.cpp` and `csrc/serving_host.cpp` build with g++
-    against libtorch alone: a C++ host without Python loads them."""
-    for name in ("torch_ops.cpp", "serving_host.cpp"):
+    """`csrc/torch_ops.cpp`, `csrc/pooled_ops.cpp` and
+    `csrc/serving_host.cpp` build with g++ against libtorch alone: a C++
+    host without Python loads them."""
+    for name in ("torch_ops.cpp", "pooled_ops.cpp", "serving_host.cpp"):
         text = (ROOT / "recommenders_tpu_torch" / "csrc" / name).read_text()
         includes = [line for line in text.splitlines()
                     if line.startswith("#include")]
